@@ -53,15 +53,6 @@ def point_jacobians(model, origins_w, axes_w, x):
     return panda_mod.point_jacobians(model, origins_w, axes_w, x)
 
 
-def tip_pose(model, q: torch.Tensor):
-    _check(model)
-    return panda_mod.hand_pose(model, q)
-
-
-def soft_limits(model, padding: float):
-    return model.soft_limits(padding)
-
-
 # -- gripper conventions ----------------------------------------------------
 
 def finger_link_mask(model) -> np.ndarray:

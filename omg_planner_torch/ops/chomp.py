@@ -47,10 +47,6 @@ class GoalSet(NamedTuple):
     def capacity(self) -> int:
         return self.grasps.shape[0]
 
-    @property
-    def num_valid(self) -> torch.Tensor:
-        return self.mask.sum()
-
 
 class CostInfo(NamedTuple):
     """Per-step diagnostics (the reference's ``info`` dict,

@@ -77,12 +77,6 @@ class SignedDensityField:
                 self._data < 0, self._data * constant, self._data)
         return self
 
-    def get_distance(self, rel_pos):
-        """Host nearest-cell lookup (reference ``sdf_tools.py:47-111``)."""
-        idx = ((rel_pos - self.origin) / self.delta).astype(int)
-        i = np.clip(idx, 0, np.array(self.data.shape) - 1)
-        return self.data[i[..., 0], i[..., 1], i[..., 2]]
-
     @classmethod
     def from_analytic(cls, kind: str, extents, delta: float = 0.0075,
                       padding: int = 12) -> "SignedDensityField":

@@ -58,25 +58,9 @@ class Env:
         self._scene_sdf = None
         self.version += 1
 
-    def remove_object(self, name: str):
-        idx = self.names.index(name)
-        del self.objects[idx]
-        if idx == self.target_idx:
-            self.target_idx = 0
-        elif idx < self.target_idx:
-            self.target_idx -= 1
-        if self.target_idx >= len(self.objects):
-            self.target_idx = 0
-        self._scene_sdf = None
-        self.version += 1
-
     def set_target(self, name: str):
         self.target_idx = self.names.index(name)
         self.objects[self.target_idx].compute_grasp = True
-        self.version += 1
-
-    def update_pose(self, name: str, pose_mat: np.ndarray):
-        self.objects[self.names.index(name)].update_pose(pose_mat)
         self.version += 1
 
     @property

@@ -15,9 +15,6 @@ from __future__ import annotations
 
 import numpy as np
 
-# reference camera intrinsics convention (omg/core.py:729-738)
-DEFAULT_INTRINSICS = dict(width=160, height=120, fx=131.25, fy=131.25)
-
 # the reference CLI's fixed view matrix (omg/core.py:806-813)
 DEFAULT_VIEW = np.array([
     [-0.9351, 0.3518, 0.0428, 0.3037],
@@ -85,15 +82,3 @@ def render_point_observation(
     vis = winner[winner >= 0]
     return pts_w[vis], labels[vis], depth, seg
 
-
-def back_project(depth: np.ndarray, view: np.ndarray,
-                 fx: float, fy: float) -> np.ndarray:
-    """Depth image -> base-frame points (the reference's perception
-    back-projection, ``omg/core.py:851-854``)."""
-    h, w = depth.shape
-    cx, cy = w / 2, h / 2
-    v, u = np.nonzero(np.isfinite(depth))
-    z = depth[v, u]
-    cam = np.stack([(u - cx) * z / fx, (v - cy) * z / fy, z], axis=1)
-    inv = np.linalg.inv(view)
-    return cam @ inv[:3, :3].T + inv[:3, 3]
