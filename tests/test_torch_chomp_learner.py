@@ -30,7 +30,7 @@ from omg_planner_torch.config import OMGConfig as TConfig
 from omg_planner_torch.config import schedule_weights as tschedule
 from omg_planner_torch.ops import chomp as tchomp
 from omg_planner_torch.ops import learner as tol
-from tests.test_golden import CFG
+from test_golden import CFG
 
 torch.set_num_threads(2)
 

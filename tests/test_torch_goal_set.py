@@ -37,7 +37,7 @@ from omg_planner_torch import interop
 from omg_planner_torch.config import OMGConfig as TConfig
 from omg_planner_torch.ops import ik as tik
 from omg_planner_torch.planner import goal_set as tgs
-from tests.test_golden import CFG
+from test_golden import CFG
 
 torch.set_num_threads(2)
 

@@ -37,7 +37,7 @@ from omg_planner_torch.ops import sdf as tsdf
 from omg_planner_torch.planner import plan as tplan
 from omg_planner_torch.planner.scene import PlanningScene as TScene
 from omg_planner_torch.planner.scene import PointEnv as TPointEnv
-from tests.test_golden import CFG
+from test_golden import CFG
 
 torch.set_num_threads(2)
 
@@ -142,3 +142,27 @@ def test_port_perception_cli_path_runs():
     assert res is not None
     assert res.traj.shape == (CFG.timesteps, 9)
     assert np.isfinite(res.traj).all()
+
+
+@pytest.mark.gpu
+def test_perception_on_card_matches_jax(staged):
+    """The port's grid built on the card by the CUDA kernel, and the
+    JAX-staged perception problem planned on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    env = TPointEnv(tcfg(CFG), device="cuda")
+    before = kernels.min_dist_grid.launches
+    env.compute_sdf_from_points(staged["cloud"])
+    assert kernels.min_dist_grid.launches == before + 1
+    jf = staged["jenv"].objects[0].sdf
+    np.testing.assert_allclose(env.objects[0].sdf.data, jf.data, atol=1e-3)
+    jres = jax.tree.map(np.asarray, jax.jit(
+        lambda m, p: jplan.plan_fast(m, CFG, p))(
+            staged["jscene"].model, staged["jprob"]))
+    tres = tplan.plan_fast(
+        interop.panda_model(staged["tmodel"], "cuda"), tcfg(CFG),
+        interop.plan_problem(jax.tree.map(np.asarray, staged["jprob"]),
+                             "cuda"))
+    assert int(tres.goal_idx) == int(jres.goal_idx)
+    assert bool(tres.flag) == bool(jres.flag)
+    np.testing.assert_allclose(tres.traj.cpu().numpy(), jres.traj, atol=2e-3)

@@ -31,7 +31,7 @@ from omg_planner_torch import interop
 from omg_planner_torch.config import OMGConfig as TConfig
 from omg_planner_torch.planner import plan as tplan
 from omg_planner_torch.planner.scene import PlanningScene as TScene
-from tests.test_golden import CFG, GOLDEN_ANALYTIC
+from test_golden import CFG, GOLDEN_ANALYTIC
 
 torch.set_num_threads(2)
 
@@ -132,3 +132,18 @@ def test_port_scene_plans_end_to_end():
         hi = scene.model.joint_upper.numpy() + 1e-4
         assert ((res.traj >= lo) & (res.traj <= hi)).all()
     assert len(scene.history_trajectories) == cfg.total_steps
+
+
+@pytest.mark.gpu
+def test_plan_fast_on_card_matches_jax(case):
+    """The same JAX-staged problems planned by the port on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = case["cfg"]
+    jres = jax.jit(lambda m, p: jplan.plan_fast(m, cfg, p))(
+        case["js"].model, case["jprob"])
+    tres = tplan.plan_fast(
+        interop.panda_model(jax.tree.map(np.asarray, case["js"].model),
+                            "cuda"), tcfg(cfg),
+        interop.plan_problem(jax.tree.map(np.asarray, case["jprob"]), "cuda"))
+    _check_same(jax.tree.map(lambda t: t.cpu(), tres), jres)
