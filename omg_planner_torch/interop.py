@@ -18,8 +18,10 @@ from .planner.plan import PlanProblem
 
 
 def to_tensor(a, device) -> torch.Tensor:
-    """numpy (or scalar) -> tensor on ``device``; floats become float32,
-    integer and bool arrays keep their type."""
+    """numpy (or scalar, or tensor) -> tensor on ``device``; floats become
+    float32, integer and bool arrays keep their type."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
     a = np.array(a)  # a writable copy
     if a.dtype.kind == "f":
         a = a.astype(np.float32)
