@@ -13,9 +13,10 @@ The plan comparison plans the problem JAX staged, carried across with
 ``interop``: equal ``goal_idx`` and ``flag``, ``traj`` within atol 2e-3,
 as ``tests/test_golden.py``.  The staging comparison holds the port's own
 grid (atol 1e-3 m: the expansion |g|^2+|p|^2-2g.p loses up to ~5e-4 m in
-float32 near d = 0), its baked stack and its world potential (atol 1e-4,
-up to 0.1% of cells whose nearest-cell index straddles a face by
-rounding) against JAX's."""
+float32 near d = 0), its baked stack (the grid's bound, and 1e-3/delta
+on the central-difference gradient channels) and its world potential
+(atol 1e-4, up to 0.1% of cells whose nearest-cell index straddles a
+face by rounding) against JAX's."""
 
 import dataclasses
 
@@ -93,7 +94,12 @@ def test_staged_grid_scene_matches_jax(staged):
     tstack = staged["tenv"].scene_sdf()
     assert isinstance(tstack, tsdf.BakedSceneSDF)
     np.testing.assert_array_equal(tstack.limits.numpy(), jstack.limits)
-    np.testing.assert_allclose(tstack.data4.numpy(), jstack.data4, atol=2e-3)
+    # value channel as the grid; the central-difference gradient channels
+    # take (v[i+1] - v[i-1]) / (2 delta), so their bound is 1e-3 / delta
+    delta = float(staged["tenv"].objects[0].sdf.delta)
+    t4, j4 = tstack.data4.numpy(), jstack.data4
+    np.testing.assert_allclose(t4[..., 0], j4[..., 0], atol=1e-3)
+    np.testing.assert_allclose(t4[..., 1:], j4[..., 1:], atol=1e-3 / delta)
     jp = jax.tree.map(np.asarray, staged["jenv"].cost_params())
     tp = staged["tenv"].cost_params()
     for name in jp._fields:
