@@ -343,3 +343,44 @@ def test_port_scene_builds_its_own_goal_set():
     g = goal.grasps[goal.mask]
     assert bool(((g >= lo - 1e-4) & (g <= hi + 1e-4)).all())
     assert torch.isfinite(goal.potentials).all()
+
+
+@pytest.mark.parametrize("mode", ["fast", "history", "warm_start",
+                                  "goal_mask", "dynamic_horizon"])
+def test_precomputed_goals_scene_plans_like_jax(staged, mode):
+    """``set_precomputed_goals`` (the CLI's ``-g scene`` mode, standoff
+    off): with no IK draw in the way, each package stages the scene itself
+    (analytic scene, cost parameters, goal policy, spline) and plans it
+    through ``PlanningScene.step`` -- both loops, a warm start from a
+    given trajectory, a goal-mask override and the dynamic horizon.  Goal,
+    verdict, steps and trajectory agree (traj atol 2e-3, as
+    ``tests/test_golden.py``)."""
+    from omg_planner_torch.planner.scene import PlanningScene as TScene
+
+    goal = jax.tree.map(np.asarray, staged["js"].build_problem().goal_set)
+    goals = goal.grasps[goal.mask]
+    cfg = CFG.replace(use_standoff=False,
+                      dynamic_timestep=mode == "dynamic_horizon")
+    js = JScene.synthetic(cfg, scene_id=5, n_obstacles=2)
+    ts = TScene.synthetic(tcfg(cfg), scene_id=5, n_obstacles=2,
+                          device="cpu")
+    js.set_precomputed_goals(goals)
+    ts.set_precomputed_goals(goals)
+    kw = {"fast": mode != "history"}
+    if mode == "warm_start":
+        rng = np.random.default_rng(4)
+        traj = js.step(fast=True).traj
+        kw["traj_init"] = (traj + rng.normal(scale=0.05, size=traj.shape)
+                           * np.r_[np.ones(7), 0, 0]).astype(np.float32)
+    if mode == "goal_mask":
+        kw["goal_mask"] = np.arange(CFG.goal_set_max_num) % 3 != 0
+    jres, tres = js.step(**kw), ts.step(**kw)
+    assert tres.traj.shape == jres.traj.shape
+    if mode == "dynamic_horizon":
+        assert ts.cfg.timesteps == js.cfg.timesteps != CFG.timesteps
+    if mode == "goal_mask":
+        assert kw["goal_mask"][int(tres.goal_idx)]
+    assert int(tres.goal_idx) == int(jres.goal_idx)
+    assert bool(tres.flag) == bool(jres.flag)
+    assert int(tres.steps_used) == int(jres.steps_used)
+    np.testing.assert_allclose(tres.traj, jres.traj, atol=2e-3)
