@@ -346,13 +346,16 @@ def test_port_scene_builds_its_own_goal_set():
 
 
 @pytest.mark.parametrize("mode", ["fast", "history", "warm_start",
-                                  "goal_mask", "dynamic_horizon"])
+                                  "goal_mask", "dynamic_horizon",
+                                  "fixed_goal"])
 def test_precomputed_goals_scene_plans_like_jax(staged, mode):
     """``set_precomputed_goals`` (the CLI's ``-g scene`` mode, standoff
     off): with no IK draw in the way, each package stages the scene itself
     (analytic scene, cost parameters, goal policy, spline) and plans it
     through ``PlanningScene.step`` -- both loops, a warm start from a
-    given trajectory, a goal-mask override and the dynamic horizon.  Goal,
+    given trajectory, a goal-mask override, the dynamic horizon, and the
+    fixed-goal plan without goal-set projection (``goal_set_proj=False``,
+    which ignores the goals).  Goal,
     verdict, steps and trajectory agree (traj atol 2e-3, as
     ``tests/test_golden.py``)."""
     from omg_planner_torch.planner.scene import PlanningScene as TScene
@@ -360,7 +363,8 @@ def test_precomputed_goals_scene_plans_like_jax(staged, mode):
     goal = jax.tree.map(np.asarray, staged["js"].build_problem().goal_set)
     goals = goal.grasps[goal.mask]
     cfg = CFG.replace(use_standoff=False,
-                      dynamic_timestep=mode == "dynamic_horizon")
+                      dynamic_timestep=mode == "dynamic_horizon",
+                      goal_set_proj=mode != "fixed_goal")
     js = JScene.synthetic(cfg, scene_id=5, n_obstacles=2)
     ts = TScene.synthetic(tcfg(cfg), scene_id=5, n_obstacles=2,
                           device="cpu")
