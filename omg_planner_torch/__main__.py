@@ -1,5 +1,6 @@
-"""CLI driver (counterpart of ``omg_planner_tpu/__main__.py``; reference
-``python -m omg.core``, ``omg/core.py:782-885``).
+"""Command-line entry point (counterpart of
+``omg_planner_tpu/__main__.py``; reference ``python -m omg.core``,
+``omg/core.py:782-885``).
 
 Modes:
   python -m omg_planner_torch -f 0              one synthetic scene by id

@@ -1,4 +1,4 @@
-"""Host-side scene/session layer: Env, PointEnv, PlanningScene
+"""Host-side scene layer: Env, PointEnv, PlanningScene
 (counterpart of ``omg_planner_tpu/planner/scene.py``; reference
 ``omg/core.py:243-779``).
 
@@ -161,7 +161,7 @@ class PointEnv(Env):
 
 
 class PlanningScene:
-    """Session owning an Env and its plans (reference ``PlanningScene``,
+    """Owner of an Env and its plans (reference ``PlanningScene``,
     ``omg/core.py:459-779``, minus the renderer)."""
 
     def __init__(self, cfg: OMGConfig, env: Env | None = None,
@@ -233,7 +233,7 @@ class PlanningScene:
             potentials=torch.zeros(g, device=d))
 
     def _sync_env_cfg(self):
-        """Env staging must see the session's cfg."""
+        """Env staging must see the planning scene's cfg."""
         if self.env.cfg is not self.cfg:
             if self.env.cfg != self.cfg:
                 self.env._scene_sdf = None

@@ -282,7 +282,7 @@ def test_upsampling_matches_jax(staged):
 
 
 def _jax_key():
-    """The key ``PlanningScene.build_goal_set`` hands the JAX builder."""
+    """The key ``PlanningScene.build_goal_set`` hands the JAX goal-set function."""
     return jax.random.split(jax.random.PRNGKey(233))[1]
 
 

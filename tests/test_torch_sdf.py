@@ -1,7 +1,7 @@
 """Collision query of the port against the JAX package on the CPU.
 
 Scene: synthetic scene 5 (target, two corridor obstacles, table), staged
-by each package from its own copy of the scene builder.  Query points are
+by each package from its own copy of the scene generator.  Query points are
 drawn with numpy around every primitive, so they fall inside, in the
 hinge band and outside.
 
