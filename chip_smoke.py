@@ -8,14 +8,17 @@ Phases (any failure exits non-zero; no phase is skipped):
    TF32 flags (must be off);
 2. build: compiles every CUDA kernel of the package from ``csrc/``;
 3. kernels against their plain versions, on the card, at the shapes the
-   main path gives them plus ragged cases, with timings;
+   main path gives them plus d = 0, cap and ragged cases, and against a
+   float64 oracle; the launch layout; timings (a kernel: the median over
+   5 runs of 50 back-to-back launches between one pair of CUDA events,
+   with the SM clock sampled under that load);
 4. reference: a small plan staged on the CPU, planned on the CPU and on
    the card — same goal, same verdict, trajectories within 2e-3;
 5. the standard plan at the full ``OMGConfig()`` width on three
    ``data/suite_v2`` scenes (no kernel on this path), with wall time and
    host syncs per plan;
 6. a ``torch.profiler`` trace of one standard plan: the device's busy
-   share and its operations per plan;
+   share and its operations per plan (fails if it records none);
 7. the perception-mode plan (``python -m omg_planner_torch -p -f 0``) at
    full width, which must launch ``min_dist_grid``.
 
@@ -48,8 +51,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet; at the 700 W limit)
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
-# flops per (cell, point) pair of min_dist_grid: 3 sub, 3 mul, 2 add
+# flop-equivalents per (cell, point) pair of min_dist_grid: four fp32
+# issue slots (3 FFMA + 1 FMNMX) at the FFMA rate of 2 flops a slot
 MIN_DIST_FLOPS_PER_PAIR = 8
+# the observed cloud's point cap (``__main__.observe_obstacles``)
+CAP_POINTS = 3072
 SMALL_CFG = OMGConfig(optim_steps=10, extra_smooth_steps=3,
                       goal_set_max_num=12, ik_seed_num=4, ik_max_iters=30,
                       learner_interp_steps=10, silent=True)
@@ -60,7 +66,8 @@ def log(msg):
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event timings after warm-up."""
+    """Median of per-call CUDA-event timings after warm-up (for calls of
+    milliseconds; a kernel's time comes from :func:`time_launches`)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -74,6 +81,43 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def time_launches(fn, launches: int = 50, runs: int = 5,
+                  warmup: int = 3) -> float:
+    """A kernel's time: the median over ``runs`` of elapsed / ``launches``
+    for ``launches`` back-to-back calls between one pair of CUDA events,
+    after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return float(np.median(times))
+
+
+def clocks_under_load(fn) -> str:
+    """``clocks.sm, power.draw, power.limit`` from nvidia-smi, sampled while
+    runs of 50 calls of ``fn`` keep the card busy."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader"], stdout=subprocess.PIPE, text=True)
+    while proc.poll() is None:
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError("nvidia-smi failed")
+    return out.strip().splitlines()[0]
 
 
 def reset_counts():
@@ -115,7 +159,8 @@ def phase_build():
 
 
 def phase_kernels(dev):
-    """min_dist_grid against its plain version; returns the kernel entry."""
+    """min_dist_grid against its plain version and a float64 oracle, its
+    launch layout and timings; returns the kernel entry."""
     full = PlanningScene.synthetic(OMGConfig(silent=True), scene_id=0,
                                    n_obstacles=2, device=dev)
     pts_np, dims, lo = grid_layout(observe_obstacles(full), 0.02, 0.24)
@@ -128,10 +173,18 @@ def phase_kernels(dev):
     def rand(n):
         return (torch.rand(n, 3, generator=gen) - 0.5).to(dev)
 
-    cases = [("main", grid, pts), ("N=1", grid, pts[:1]),
+    def sample(n):
+        return torch.randperm(g_main, generator=gen)[:n].to(dev)
+
+    lo_t, hi_t = grid.min(0).values, grid.max(0).values
+    cap = lo_t + (hi_t - lo_t) * torch.rand(CAP_POINTS, 3,
+                                            generator=gen).to(dev)
+    on_cells = sample(n_main)  # d = 0: points on the grid's own cells
+    cases = [("main", grid, pts), ("d=0", grid, grid[on_cells]),
+             (f"cap N={CAP_POINTS}", grid, cap), ("N=1", grid, pts[:1]),
              ("N=1025", rand(1000), rand(1025)),
              ("N=3072,G=4099", rand(4099), rand(3072)),
-             ("G=777", rand(777), pts)]
+             ("G=777", rand(777), pts), ("G=5", rand(5), pts)]
     worst = 0.0
     for name, g, p in cases:
         k = kernels.min_dist_grid(g, p)
@@ -144,22 +197,60 @@ def phase_kernels(dev):
             raise AssertionError(f"min_dist_grid {name}: error {err}")
         worst = max(worst, err)
 
-    ms = time_ms(lambda: kernels.min_dist_grid(grid, pts))
-    plain_ms = time_ms(lambda: kernels.min_dist_grid_plain(grid, pts), 5, 1)
-    lib_ms = time_ms(lambda: torch.cdist(grid, pts).amin(1), 5, 1)
-    flops = MIN_DIST_FLOPS_PER_PAIR * g_main * n_main
-    nbytes = 12 * (g_main + n_main) + 4 * g_main
-    op_ms, byte_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
-    log(f"min_dist_grid timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"cdist+amin {lib_ms:.4f} ms, bound {max(op_ms, byte_ms):.4f} ms "
-        f"({flops:.3e} flop, {nbytes} B)")
-    return dict(name="min_dist_grid", route="cuda",
-                source="omg_planner_torch/csrc/min_dist_grid.cu",
-                replaces="omg_planner_tpu/ops/pallas_kernels.py:92",
-                launches=0, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(op_ms, byte_ms),
-                bound_by="operations" if op_ms >= byte_ms else "bytes",
-                library_ms=lib_ms)
+    # the expansion's worst case: cells that hold a point (exact 0)
+    err0 = float(kernels.min_dist_grid(grid, grid[on_cells])[on_cells].max())
+    log(f"min_dist_grid d=0: max kernel distance at the points' own cells "
+        f"(exact 0) = {err0:.3e} m")
+    if not err0 <= 1e-3:
+        raise AssertionError(f"min_dist_grid d=0 error {err0}")
+    # float64 direct form on sampled cells of the main shape
+    sub = sample(20000)
+    k = kernels.min_dist_grid(grid, pts)[sub].double()
+    g64, p64 = grid[sub].double(), pts.double()
+    ref64 = torch.cat([((g[:, None, :] - p64[None]) ** 2).sum(-1).amin(1)
+                       for g in torch.split(g64, 2000)]).sqrt()
+    err64 = float((k - ref64).abs().max())
+    log(f"min_dist_grid main, {len(sub)} sampled cells: "
+        f"max|kernel-float64 direct|={err64:.3e} m")
+    if not err64 <= 1e-4:
+        raise AssertionError(f"min_dist_grid float64 error {err64}")
+
+    entry = dict(name="min_dist_grid", route="cuda",
+                 source="omg_planner_torch/csrc/min_dist_grid.cu",
+                 replaces="omg_planner_tpu/ops/pallas_kernels.py:92",
+                 launches=0, max_abs_err=worst)
+    for name, p in (("main", pts), ("cap", cap)):
+        n = p.shape[0]
+        lay = kernels.min_dist_grid_layout(g_main, n)
+        per_sm = -(-lay["units"] // lay["blocks"])
+        log(f"min_dist_grid {name} layout: {lay}; cells per SM max "
+            f"{min(per_sm * lay['unit_cells'], g_main)}, mean "
+            f"{g_main / lay['blocks']:.2f}")
+
+        def run(p=p):
+            return kernels.min_dist_grid(grid, p)
+
+        ms = time_launches(run)
+        smi = clocks_under_load(run)
+        plain_ms = time_ms(lambda: kernels.min_dist_grid_plain(grid, p), 5, 1)
+        lib_ms = time_ms(lambda: torch.cdist(grid, p).amin(1), 5, 1)
+        flops = MIN_DIST_FLOPS_PER_PAIR * g_main * n
+        nbytes = 12 * (g_main + n) + 4 * g_main
+        op_ms, byte_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+        bound = max(op_ms, byte_ms)
+        log(f"min_dist_grid {name} timing (G={g_main}, N={n}): kernel "
+            f"{ms:.4f} ms (median of 5 runs of 50 launches), bound "
+            f"{bound:.4f} ms ({flops:.3e} flop, {nbytes} B), share of bound "
+            f"{bound / ms:.3f}, plain {plain_ms:.4f} ms, cdist+amin "
+            f"{lib_ms:.4f} ms; under load clocks.sm, power.draw, "
+            f"power.limit = {smi}")
+        if name == "main":
+            entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by="operations" if op_ms >= byte_ms
+                         else "bytes",
+                         library_ms=lib_ms, share_of_bound=bound / ms,
+                         sm_clock_mhz=float(smi.split()[0]))
+    return entry
 
 
 def phase_reference(dev):
@@ -237,10 +328,9 @@ def phase_profile(dev):
         wall_ms = (time.time() - t0) * 1e3
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not ops:
-        log(f"profile standard plan suite scene 1: wall {wall_ms:.1f} ms; "
-            "the profiler recorded no device activity (busy share not "
-            "measured)")
-        return
+        raise AssertionError(
+            f"profile standard plan suite scene 1: wall {wall_ms:.1f} ms, "
+            "but the profiler recorded no device operations")
     by_name = {}
     for e in ops:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()

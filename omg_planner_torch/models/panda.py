@@ -22,6 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 _ASSET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                           "..", "omg_planner_tpu", "assets")
 _ASSET = os.path.join(_ASSET_DIR, "panda_kinematics.npz")
@@ -83,14 +85,22 @@ def _rot_x_mat(a: float) -> np.ndarray:
     return np.array([[1, 0, 0, 0], [0, c, -s, 0], [0, s, c, 0], [0, 0, 0, 1]])
 
 
-@functools.lru_cache(maxsize=8)
-def load_panda(collision_point_num: int = 15, device: str = "cpu",
+def load_panda(collision_point_num: int = 15, device=None,
                asset_path: str = _ASSET,
                collision_asset_path: str = _COLLISION_ASSET) -> PandaModel:
-    """Build the model from the npz assets on ``device``.
+    """Build the model from the npz assets on ``device`` (``cuda`` unless
+    the caller names another; raises without a GPU, as every entry point
+    does).
 
     ``collision_point_num`` points per link are taken evenly strided from
     the stored per-link point sets, as the JAX package does."""
+    return _load_panda(collision_point_num, resolve_device(device),
+                       asset_path, collision_asset_path)
+
+
+@functools.lru_cache(maxsize=8)
+def _load_panda(collision_point_num: int, device: torch.device,
+                asset_path: str, collision_asset_path: str) -> PandaModel:
     t = dict(np.load(asset_path, allow_pickle=True))
     offsets = t["dh_offsets"]
     post = []

@@ -32,13 +32,17 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "omg_torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-# source file -> (C entry point, argtypes)
+# source file -> {C entry point: argtypes}
 _SOURCES = {
-    "min_dist_grid.cu": ("omg_min_dist_grid",
-                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    "min_dist_grid.cu": {
+        "omg_min_dist_grid": [ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p],
+        "omg_min_dist_grid_layout": [ctypes.c_int, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)],
+    },
 }
-_LIBS: dict = {}
+_ENTRIES: dict = {}
 
 
 def _nvcc() -> str:
@@ -83,18 +87,18 @@ def build(extra_flags: tuple = ()) -> dict:
     return logs
 
 
-def _entry(src: str):
-    """The loaded C entry point of ``src`` (building it if needed)."""
-    fn = _LIBS.get(src)
+def _entry(src: str, name: str):
+    """The loaded C entry point ``name`` of ``src`` (building it if
+    needed)."""
+    fn = _ENTRIES.get(name)
     if fn is None:
         path = _lib_path(src)
         if not os.path.exists(path):
             build()
-        name, argtypes = _SOURCES[src]
         fn = getattr(ctypes.CDLL(path), name)
-        fn.argtypes = argtypes
+        fn.argtypes = _SOURCES[src][name]
         fn.restype = ctypes.c_int
-        _LIBS[src] = fn
+        _ENTRIES[name] = fn
     return fn
 
 
@@ -138,7 +142,7 @@ def min_dist_grid(grid: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     g, n = grid.shape[0], points.shape[0]
     if g >= 2**31 // 3 or n >= 2**31 // 3:
         raise ValueError("min_dist_grid: more than 2^31 coordinates")
-    fn = _entry("min_dist_grid.cu")
+    fn = _entry("min_dist_grid.cu", "omg_min_dist_grid")
     out = torch.empty(g, dtype=torch.float32, device=grid.device)
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -151,6 +155,20 @@ def min_dist_grid(grid: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
 
 
 min_dist_grid.launches = 0
+
+
+def min_dist_grid_layout(g: int, n: int) -> dict:
+    """The launch :func:`min_dist_grid` makes for ``g`` cells and ``n``
+    points on the current CUDA device: blocks (one per SM at most),
+    threads per block, dynamic shared memory bytes, resident blocks per SM,
+    SMs, warp units and cells per unit."""
+    info = (ctypes.c_int * 7)()
+    fn = _entry("min_dist_grid.cu", "omg_min_dist_grid_layout")
+    status = fn(g, n, info)
+    if status != 0:
+        raise RuntimeError(f"min_dist_grid layout failed: CUDA error {status}")
+    return dict(zip(("blocks", "threads", "smem_bytes", "blocks_per_sm",
+                     "sms", "units", "unit_cells"), info))
 
 # every kernel wrapper of the package, for launch accounting
 KERNELS = {"min_dist_grid": min_dist_grid}

@@ -60,6 +60,7 @@ def no_gpu(monkeypatch):
 
 def test_entry_points_need_a_device_without_gpu(no_gpu):
     from omg_planner_torch.__main__ import main
+    from omg_planner_torch.models import panda
     from omg_planner_torch.planner.scene import Env, PlanningScene, PointEnv
 
     cfg = OMGConfig()
@@ -67,6 +68,8 @@ def test_entry_points_need_a_device_without_gpu(no_gpu):
         resolve_device()
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        panda.load_panda()
     with pytest.raises(RuntimeError):
         Env(cfg)
     with pytest.raises(RuntimeError):
@@ -85,6 +88,7 @@ def test_entry_points_need_a_device_without_gpu(no_gpu):
     # asked for explicitly, the CPU works
     assert resolve_device("cpu") == torch.device("cpu")
     assert Env(cfg, device="cpu").device == torch.device("cpu")
+    assert panda.load_panda(15, "cpu").device == torch.device("cpu")
 
 
 def test_chip_smoke_fails_without_gpu_or_package(tmp_path):
