@@ -20,7 +20,17 @@ Phases (any failure exits non-zero; no phase is skipped):
 6. a ``torch.profiler`` trace of one standard plan: the device's busy
    share and its operations per plan (fails if it records none);
 7. the perception-mode plan (``python -m omg_planner_torch -p -f 0``) at
-   full width, which must launch ``min_dist_grid``.
+   full width, which must launch ``min_dist_grid``;
+8. the suite runner: ``SuiteRunner`` plans ``data/suite_v2`` scenes 0-7
+   through the pipelined runner with execution validation at full width
+   (verdict, steps, validation, wall and host syncs per scene); a second
+   runner on the same directory finds nothing pending and plans nothing;
+   fails on a missing shard, a bad trajectory or any retry;
+9. the benchmark: ``bench_torch.py --scenes 8`` (analytic backend, every
+   phase, the cascade included) and ``--backend exact --scenes 2
+   --skip-cascade`` (the grid backend on the card) as subprocesses, each
+   JSON line relayed and checked for ``bench.py``'s keys plus
+   ``host_syncs_per_plan``.
 
 The line before the last is a JSON object listing every kernel with its
 launches on the main path, error, times and bound; the last line is
@@ -33,6 +43,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -44,10 +55,19 @@ from omg_planner_torch.config import OMGConfig
 from omg_planner_torch.ops import kernels
 from omg_planner_torch.ops.pointsdf import grid_cells, grid_layout
 from omg_planner_torch.planner import plan as plan_mod
+from omg_planner_torch.planner.runner import SuiteRunner
 from omg_planner_torch.planner.scene import PlanningScene
 from omg_planner_torch.utils.sync import SYNCS
+from omg_planner_torch.utils.timing import RETRIES
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+SUITE = os.path.join(ROOT, "data", "suite_v2")
+# bench.py's JSON keys (tests/test_bench.py) plus the port's sync count
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "backend",
+              "end_to_end_plans_per_s", "p50_plan_latency_ms",
+              "warm_goal_set_build_s", "success_rate", "mean_steps",
+              "cascade_success_rate", "cascade_e2e_plans_per_s",
+              "host_syncs_per_plan")
 # H100 SXM published peaks (NVIDIA data sheet; at the 700 W limit)
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
@@ -126,8 +146,8 @@ def reset_counts():
     SYNCS.count = 0
 
 
-def check_traj(res, model, what):
-    traj = np.asarray(res.traj)
+def check_traj(traj, model, what):
+    traj = np.asarray(traj)
     if traj.shape != (30, 9) or not np.isfinite(traj).all():
         raise AssertionError(f"{what}: bad trajectory {traj.shape}")
     lo = model.joint_lower.cpu().numpy() - 1e-4
@@ -289,7 +309,7 @@ def _timed_plan(scene, dev, what):
     plan_ms, plan_syncs = (time.time() - t1) * 1e3, SYNCS.count - stage_syncs
     if res is None:
         raise AssertionError(f"{what}: empty goal set")
-    check_traj(res, scene.model, what)
+    check_traj(res.traj, scene.model, what)
     verdict = "SUCCESS" if bool(res.flag) else "FAIL"
     log(f"{what}: {verdict} steps {int(res.steps_used)} valid goals "
         f"{scene._n_valid_goals} | stage {stage_ms:.1f} ms, {stage_syncs} "
@@ -300,7 +320,7 @@ def _timed_plan(scene, dev, what):
 def phase_standard(dev):
     cfg = OMGConfig(silent=True)
     for i in (0, 1, 2):
-        path = os.path.join(ROOT, "data", "suite_v2", f"scene_{i}.npz")
+        path = os.path.join(SUITE, f"scene_{i}.npz")
         scene = PlanningScene.from_npz(cfg, path, device=dev)
         reset_counts()
         _timed_plan(scene, dev, f"standard plan suite scene {i}")
@@ -316,7 +336,7 @@ def phase_profile(dev):
     from torch.profiler import ProfilerActivity, profile
 
     cfg = OMGConfig(silent=True)
-    path = os.path.join(ROOT, "data", "suite_v2", "scene_1.npz")
+    path = os.path.join(SUITE, "scene_1.npz")
     scene = PlanningScene.from_npz(cfg, path, device=dev)
     scene.step(fast=True)  # stages the goal set and warms up
     _sync(dev)
@@ -363,18 +383,100 @@ def phase_perception(dev) -> int:
     return launches
 
 
+def phase_suite_runner(dev):
+    """``SuiteRunner`` over suite scenes 0-7 with validation, then a resume
+    that must plan nothing."""
+    made = {}
+
+    class Runner(SuiteRunner):
+        def _make_scene(self, sid):
+            made[sid] = super()._make_scene(sid)
+            return made[sid]
+
+    sids = range(8)
+    with tempfile.TemporaryDirectory() as out:
+        runner = Runner(out, OMGConfig(silent=True), scene_source="npz",
+                        suite_dir=SUITE, device=dev)
+        reset_counts()
+        RETRIES.count = 0
+        t0 = time.time()
+        summary = runner.run(sids)
+        _sync(dev)
+        wall = time.time() - t0
+        for sid in sids:
+            rec = runner.manifest["done"][str(sid)]
+            shard = os.path.join(out, f"scene_{sid}.npz")
+            if rec.get("no_goals") or not os.path.exists(shard):
+                raise AssertionError(f"suite runner scene {sid}: no shard")
+            check_traj(np.load(shard)["traj"], made[sid].model,
+                       f"suite runner scene {sid}")
+            log(f"suite runner scene {sid}: "
+                f"{'SUCCESS' if rec['success'] else 'FAIL'} steps "
+                f"{rec['steps']} exec_valid {rec['exec_valid']} wall "
+                f"{1e3 * rec['wall_s']:.0f} ms, staging + plan host syncs "
+                f"{made[sid].dispatch_syncs}")
+        log(f"suite runner: {summary['success']}/{summary['total']} "
+            f"success, {summary['exec_valid']} execution-valid, "
+            f"{wall:.2f} s for {len(sids)} scenes with validation, "
+            f"{SYNCS.count} host syncs in all")
+        if any(fn.launches for fn in kernels.KERNELS.values()):
+            raise AssertionError("a kernel launched on the suite path")
+        made.clear()
+        again = Runner(out, OMGConfig(silent=True), scene_source="npz",
+                       suite_dir=SUITE, device=dev)
+        if again.pending(sids) or again.run(sids)["total"] != len(sids) \
+                or made:
+            raise AssertionError("suite runner resume planned again")
+        log("suite runner resume: nothing pending, nothing planned")
+    if RETRIES.count:
+        raise AssertionError(f"{RETRIES.count} retries in the suite runner")
+
+
+def phase_bench():
+    """``bench_torch.py`` in a subprocess on the card: the analytic
+    backend with every phase, then the grid backend."""
+    for args in (["--scenes", "8"],
+                 ["--backend", "exact", "--scenes", "2", "--skip-cascade"]):
+        t0 = time.time()
+        out = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "bench_torch.py")] + args,
+            capture_output=True, text=True, timeout=900, cwd=ROOT)
+        for line in out.stderr.strip().splitlines()[-12:]:
+            log(f"  {line}")
+        if out.returncode != 0:
+            raise AssertionError(f"bench_torch.py {' '.join(args)} exited "
+                                 f"{out.returncode}")
+        if "[retry]" in out.stderr:
+            raise AssertionError(f"bench_torch.py {' '.join(args)} retried")
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        missing = [k for k in BENCH_KEYS if k not in rec]
+        if missing:
+            raise AssertionError(f"bench_torch.py: missing keys {missing}")
+        log(f"bench_torch.py {' '.join(args)} ({time.time() - t0:.1f} s): "
+            f"{json.dumps(rec)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.time()
-    phase_environment()
-    phase_build()
-    entry = phase_kernels("cuda")
-    phase_reference("cuda")
-    phase_standard("cuda")
-    phase_profile("cuda")
-    entry["launches"] = phase_perception("cuda")
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        log(f"[phase {name}: {time.time() - t0:.1f} s]")
+        return out
+
+    timed("environment", phase_environment)
+    timed("build", phase_build)
+    entry = timed("kernels", phase_kernels, "cuda")
+    timed("reference", phase_reference, "cuda")
+    timed("standard", phase_standard, "cuda")
+    timed("profile", phase_profile, "cuda")
+    entry["launches"] = timed("perception", phase_perception, "cuda")
+    timed("suite runner", phase_suite_runner, "cuda")
+    timed("bench", phase_bench)
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [entry]}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,9 @@ Modes:
   python -m omg_planner_torch -f scene.npz      scene from an .npz file
   python -m omg_planner_torch -p -f 0           perception mode: plan against
                                                 a point-cloud SDF of the scene
+  python -m omg_planner_torch -exp              plan the pinned suite
+                                                (data/suite_v2) through the
+                                                suite runner into output_suite/
   add --fast for the history-free plan, --cpu to run on the CPU
   (the default device is cuda; without a GPU the CLI raises)
 """
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import numpy as np
 
@@ -83,6 +87,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="omg_planner_torch")
     ap.add_argument("-f", "--file", default="0",
                     help="scene id (int) or scene .npz path")
+    ap.add_argument("-exp", "--experiment", action="store_true",
+                    help="plan the pinned suite with execution validation")
     ap.add_argument("-p", "--perception", action="store_true")
     ap.add_argument("-g", "--grasp", default="grasp",
                     choices=["grasp", "scene"],
@@ -100,6 +106,20 @@ def main(argv=None):
     cfg = OMGConfig()
     if args.grasp == "scene":
         cfg = cfg.replace(use_standoff=False)  # planner.py:160-161
+    if args.experiment:
+        from .planner.runner import SuiteRunner
+
+        suite = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "data", "suite_v2")
+        t0 = time.time()
+        runner = SuiteRunner(
+            "output_suite", cfg.replace(use_standoff=False, silent=True),
+            scene_source="npz", suite_dir=suite, device=device)
+        out = runner.run(range(100))
+        print(f"total: {out['success']}/{out['total']} planned, "
+              f"{out['exec_valid']} execution-valid in "
+              f"{time.time() - t0:.1f}s")
+        return
     if args.perception:
         scene = perception_plan(cfg, int(args.file), args.obstacles, device)
     else:

@@ -147,6 +147,12 @@ class OMGConfig:
     def replace(self, **kw) -> "OMGConfig":
         return dataclasses.replace(self, **kw)
 
+    def jit_key(self) -> "OMGConfig":
+        """cfg with the host-only fields (``HOST_ONLY_DEFAULTS``) set to
+        their defaults: the key of every staged cache, so flipping
+        ``silent``, ``report_*`` or a path re-stages nothing."""
+        return dataclasses.replace(self, **HOST_ONLY_DEFAULTS)
+
     @property
     def total_steps(self) -> int:
         return self.optim_steps + self.extra_smooth_steps
@@ -172,6 +178,12 @@ class OMGConfig:
         n = int(np.linalg.norm(np.asarray(start) - np.asarray(end))
                 / self.traj_delta)
         return min(max(n, self.traj_min_step), self.traj_max_step)
+
+
+#: Fields that never reach device work (reporting and IO).
+HOST_ONLY_DEFAULTS = dict(
+    silent=False, report_cost=False, report_time=False, scene_file="",
+    timeout=3.0, default_lazy=True)
 
 
 def get_diff_matrix(n: int, order: int, time_interval: float,

@@ -1,8 +1,9 @@
 """Scene persistence: the self-contained ``.npz`` scene format of the
 committed benchmark suite (``data/suite_v2/``).
 
-Numpy copy of the loaders of ``omg_planner_tpu/io/scene_io.py`` that this
-slice of the port needs (``.mat`` loading and result shards are queued).
+Numpy copy of the loaders and the result shard of
+``omg_planner_tpu/io/scene_io.py`` (``.mat`` loading and demonstration
+records are queued).
 """
 
 from __future__ import annotations
@@ -33,3 +34,11 @@ def objects_from_npz(d: dict):
             str(nm), str(kind), np.trim_zeros(np.asarray(ext), "b"),
             pose, target=is_target, compute_grasp=is_target, **kw))
     return objects, d["target_name"]
+
+
+def save_result_shard(path: str, scene_id: int, traj: np.ndarray,
+                      info: dict):
+    """Per-scene result record (trajectory + diagnostics)."""
+    np.savez_compressed(
+        path, scene_id=scene_id, traj=traj,
+        **{k: np.asarray(v) for k, v in info.items()})

@@ -2,21 +2,25 @@
 query (counterpart of ``omg_planner_tpu/ops/sdf.py``).
 
 Host side: :class:`SignedDensityField` (numpy) as in the JAX package.
-Device side, the slice of the query the planner's main path and
-perception mode run:
+Device side, the collision query's three backends:
 
 * :class:`AnalyticScene` — true primitive SDF + closed-form gradient at
   the query points (all-primitive scenes, the production default);
+* :class:`SceneSDF` — the padded voxel stack, read by the exact query:
+  seven trilinear sweeps per (point, object), the value and the central
+  differences of the interpolated field (``sdf_baked=False``);
 * :class:`BakedSceneSDF` — the padded voxel stack with baked
   central-difference gradient channels, one 4-channel trilinear read per
-  (point, object) (data-backed scenes such as perception point clouds);
+  (point, object) (the grid default, and perception point clouds);
 * :class:`WorldPotential` — the learner's scene-fused scoring field.
 
-Grid conventions are kept exactly: C-style ``trunc`` of ``pg - 0.5`` and
+:func:`stage_scene_sdfs` synthesises the voxel stack of a primitive scene
+on the device from ~13 floats per object (``sdf_analytic=False``).  Grid
+conventions are kept exactly: C-style ``trunc`` of ``pg - 0.5`` and
 out-of-volume value 1.0 in the trilinear query (``kernel.cu:37-64``), the
 ``floor`` nearest cell in the world-potential bake and lookup, and
-out-of-grid potential 0.  The exact 7-sweep query of a plain
-:class:`SceneSDF` (``_query_one_object``) is not ported yet.
+out-of-grid potential 0.  The fused world field (``sdf_fused``) is not
+ported.
 """
 
 from __future__ import annotations
@@ -76,6 +80,15 @@ class SignedDensityField:
             self._data = np.where(
                 self._data < 0, self._data * constant, self._data)
         return self
+
+    # host-side nearest-cell lookups (reference sdf_tools.py:47-111)
+    def _idx(self, rel_pos):
+        idx = ((rel_pos - self.origin) / self.delta).astype(int)
+        return np.clip(idx, 0, np.array(self.data.shape) - 1)
+
+    def get_distance(self, rel_pos):
+        i = self._idx(rel_pos)
+        return self.data[i[..., 0], i[..., 1], i[..., 2]]
 
     @classmethod
     def from_analytic(cls, kind: str, extents, delta: float = 0.0075,
@@ -179,6 +192,93 @@ def combine_sdfs(fields: Sequence[SignedDensityField], device,
         data[i, :sx, :sy, :sz] = f.data
     return SceneSDF(torch.as_tensor(data, device=device),
                     torch.as_tensor(limits, device=device))
+
+
+def analytic_prim_arrays(fields: Sequence[SignedDensityField],
+                         pad_to: tuple | None = None,
+                         pad_multiple: int = 16):
+    """Per-object analytic metadata for device synthesis, or None when any
+    field is data-backed: ``(kinds, halfs, penals, origins, deltas,
+    dims_actual, limits, max_shape)`` as numpy arrays."""
+    if not fields or any(f.analytic is None for f in fields):
+        return None
+    limits, max_shape = scene_limits(fields, pad_to, pad_multiple)
+    return (np.array([f.analytic[0] for f in fields], np.int32),
+            np.array([f.analytic[1] for f in fields], np.float32),
+            np.array([f.analytic[2] for f in fields], np.float32),
+            np.array([f.origin for f in fields], np.float32),
+            np.array([f.delta for f in fields], np.float32),
+            np.array([f.shape for f in fields], np.int32),
+            limits, max_shape)
+
+
+def _synth_stack(kind, half, penal, origin, delta, dims, bucket):
+    """Padded analytic SDF stack ``[O, X, Y, Z]`` on the device: the
+    primitive formulas of :meth:`SignedDensityField.from_analytic` at every
+    (object, cell), selected by kind code, the inside penalty applied, and
+    cells beyond an object's own dims filled with +1 as ``combine_sdfs``
+    pads."""
+    nx, ny, nz = bucket
+    dev = kind.device
+
+    def axis(n, a):
+        # cell centres rounded once to float32, as a fused multiply-add
+        # gives them: the baked gradient channels scale a centre's
+        # rounding by 1 / (2 delta)
+        i = torch.arange(n, dtype=torch.float64, device=dev)
+        return (origin[:, a, None].double()
+                + (i[None, :] + 0.5) * delta[:, None].double()).float()
+
+    x, y, z = axis(nx, 0), axis(ny, 1), axis(nz, 2)          # [O, n] each
+    qx = (torch.abs(x) - half[:, 0:1])[:, :, None, None]     # [O,X,1,1]
+    qy = (torch.abs(y) - half[:, 1:2])[:, None, :, None]     # [O,1,Y,1]
+    qz = (torch.abs(z) - half[:, 2:3])[:, None, None, :]     # [O,1,1,Z]
+    box = (torch.sqrt(torch.clamp(qx, min=0.0) ** 2
+                      + torch.clamp(qy, min=0.0) ** 2
+                      + torch.clamp(qz, min=0.0) ** 2)
+           + torch.clamp(torch.maximum(qx, torch.maximum(qy, qz)), max=0.0))
+    r2 = (x * x)[:, :, None, None] + (y * y)[:, None, :, None]
+    rad = half[:, 0, None, None, None]
+    sphere = torch.sqrt(r2 + (z * z)[:, None, None, :]) - rad
+    dr = torch.sqrt(r2) - rad                                # [O,X,Y,1]
+    cyl = (torch.sqrt(torch.clamp(dr, min=0.0) ** 2
+                      + torch.clamp(qz, min=0.0) ** 2)
+           + torch.clamp(torch.maximum(dr, qz), max=0.0))
+    k = kind[:, None, None, None]
+    d = torch.where(k == 0, box, torch.where(k == 1, sphere, cyl))
+    d = torch.where(d < 0.0, d * penal[:, None, None, None], d)
+
+    def inside(n, a):
+        return torch.arange(n, device=dev)[None, :] < dims[:, a:a + 1]
+
+    pad_ok = (inside(nx, 0)[:, :, None, None] & inside(ny, 1)[:, None, :, None]
+              & inside(nz, 2)[:, None, None, :])
+    return torch.where(pad_ok, d, torch.ones_like(d))
+
+
+def stage_scene_sdfs(fields: Sequence[SignedDensityField], device,
+                     baked: bool = False, pad_to: tuple | None = None,
+                     pad_multiple: int = 16):
+    """The scene's padded voxel stack on ``device`` (baked when asked).
+
+    When every field is an analytic primitive the stack is synthesised on
+    the device from the per-object metadata (no host grid, no volume
+    transfer); data-backed fields are stacked on the host."""
+    prims = analytic_prim_arrays(fields, pad_to, pad_multiple)
+    if prims is not None:
+        kinds, halfs, pens, origins, deltas, dims, limits, max_shape = prims
+
+        def t(a):
+            return torch.as_tensor(a, device=device)
+
+        stack = SceneSDF(
+            _synth_stack(t(kinds), t(halfs), t(pens), t(origins), t(deltas),
+                         t(dims), tuple(int(v) for v in max_shape)),
+            t(limits))
+    else:
+        stack = combine_sdfs(fields, device, pad_to=pad_to,
+                             pad_multiple=pad_multiple)
+    return bake_scene(stack) if baked else stack
 
 
 def _bcast(a: torch.Tensor, p_ndim: int) -> torch.Tensor:
@@ -388,17 +488,24 @@ def bake_scene(scene) -> BakedSceneSDF:
     return BakedSceneSDF(data4=data4, limits=scene.limits)
 
 
-def _query_baked(scene: BakedSceneSDF, pts_obj: torch.Tensor):
-    """4-channel trilinear read of every object: (value [O, P],
-    object-frame grad [O, P, 3]); out of volume -> (1.0, 0)."""
-    o = scene.num_objects
-    lim = scene.limits
-    flat4 = scene.data4.reshape(-1, 4)
-    vcells = scene.data4.shape[1] * scene.data4.shape[2] * scene.data4.shape[3]
-    dims = lim[:, 6:9].to(torch.int32)                  # [O, 3]
-    mn = lim[:, None, 0:3]
-    mx = lim[:, None, 3:6]
+def _grid_coords(limits, pts_obj):
+    """(grid coordinates [O, P, 3] of object-frame points, dims [O, 3]
+    int32) of every object's padded volume."""
+    dims = limits[:, 6:9].to(torch.int32)
+    mn = limits[:, None, 0:3]
+    mx = limits[:, None, 3:6]
     pg = (pts_obj - mn) / (mx - mn) * dims[:, None, :].to(pts_obj.dtype)
+    return pg, dims
+
+
+def _trilinear(vol, dims, pg):
+    """Trilinear read of every object's volume ``vol [O, V, C]`` (cells in
+    x, y, z order) at its grid coordinates ``pg [O, P, 3]``: ``(out [O, P,
+    C], inb [O, P])``, with ``inb`` False where the 8-cell stencil leaves
+    the volume.  C-style truncation of ``pg - 0.5`` as
+    ``getValueInterpolated`` (kernel.cu:37-64)."""
+    o, vcells = vol.shape[:2]
+    flat = vol.reshape(o * vcells, -1)
     p = pg - 0.5
     c0 = torch.trunc(p).to(torch.int32)
     f = p - c0
@@ -409,12 +516,12 @@ def _query_baked(scene: BakedSceneSDF, pts_obj: torch.Tensor):
     x0c = torch.minimum(torch.clamp(x0, min=0), d0 - 2)
     y0c = torch.minimum(torch.clamp(y0, min=0), d1 - 2)
     z0c = torch.minimum(torch.clamp(z0, min=0), d2 - 2)
-    off = (torch.arange(o, device=pts_obj.device) * vcells)[:, None]
+    off = (torch.arange(o, device=pg.device) * vcells)[:, None]
     base = ((x0c * d1 + y0c) * d2 + z0c).long() + off
     d1l, d2l = d1.long(), d2.long()
 
     def val(dx, dy, dz):
-        return flat4[base + (dx * d1l + dy) * d2l + dz]
+        return flat[base + (dx * d1l + dy) * d2l + dz]
 
     fx = f[..., 0:1]
     fy = f[..., 1:2]
@@ -425,7 +532,35 @@ def _query_baked(scene: BakedSceneSDF, pts_obj: torch.Tensor):
     dx11 = val(0, 1, 1) * (1 - fx) + val(1, 1, 1) * fx
     dxy0 = dx00 * (1 - fy) + dx10 * fy
     dxy1 = dx01 * (1 - fy) + dx11 * fy
-    out = dxy0 * (1 - fz) + dxy1 * fz                   # [O, P, 4]
+    return dxy0 * (1 - fz) + dxy1 * fz, inb
+
+
+def _query_exact(scene: SceneSDF, pts_obj: torch.Tensor):
+    """The exact grid query of every object (the JAX package's
+    ``_query_one_object``, vmapped over objects there): the trilinear value
+    (out of volume 1.0) and the central differences of the interpolated
+    field one cell apart (kernel.cu:66-86) -> (value [O, P], object-frame
+    grad [O, P, 3])."""
+    pg, dims = _grid_coords(scene.limits, pts_obj)
+    vol = scene.data.reshape(scene.num_objects, -1, 1)
+    delta = scene.limits[:, 9, None]
+
+    def value_at(q):
+        out, inb = _trilinear(vol, dims, q)
+        return torch.where(inb, out[..., 0], torch.ones_like(out[..., 0]))
+
+    eye = torch.eye(3, dtype=pg.dtype, device=pg.device)
+    grad = torch.stack([0.5 * (value_at(pg + eye[a]) - value_at(pg - eye[a]))
+                        / delta for a in range(3)], dim=-1)
+    return value_at(pg), grad
+
+
+def _query_baked(scene: BakedSceneSDF, pts_obj: torch.Tensor):
+    """4-channel trilinear read of every object: (value [O, P],
+    object-frame grad [O, P, 3]); out of volume -> (1.0, 0)."""
+    pg, dims = _grid_coords(scene.limits, pts_obj)
+    out, inb = _trilinear(scene.data4.reshape(scene.num_objects, -1, 4),
+                          dims, pg)                      # [O, P, 4]
     value = torch.where(inb, out[..., 0], torch.ones_like(out[..., 0]))
     grad = torch.where(inb[..., None], out[..., 1:],
                        torch.zeros_like(out[..., 1:]))
@@ -460,9 +595,10 @@ def sdf_potentials(scene, inv_poses, points, epsilons, padding_scales,
     if isinstance(scene, BakedSceneSDF):
         return sdf_potentials_baked(scene, inv_poses, points, epsilons,
                                     padding_scales, clearances, disables)
-    raise NotImplementedError(
-        "the exact per-object grid query (sdf_baked=False) is not ported "
-        "yet; bake the stack with bake_scene")
+    r, pts_obj = _to_object_frame(inv_poses, points)
+    value, grad_obj = _query_exact(scene, pts_obj)
+    return _hinge_and_reduce(value, grad_obj, r, epsilons, padding_scales,
+                             clearances, disables)
 
 
 class WorldPotential(NamedTuple):
@@ -539,6 +675,34 @@ def bake_world_potential(scene, inv_poses, epsilons, padding_scales,
     return WorldPotential(
         data=pots.reshape(dims),
         origin=torch.as_tensor(lo, dtype=torch.float32, device=device),
+        delta=torch.tensor(resolution, dtype=torch.float32, device=device))
+
+
+def bake_world_potential_analytic(scene: AnalyticScene, inv_poses, epsilons,
+                                  padding_scales, disables,
+                                  resolution: float = 0.015,
+                                  bounds=WORLD_BOUNDS,
+                                  chunk: int = 262144) -> WorldPotential:
+    """Learner scoring field of a primitive scene staged on the grid
+    backend: the summed hinge potential of the TRUE (sharp: ``rounds`` is
+    not used) primitive SDF at every world cell centre, no object grid
+    involved (the JAX package's production ``snap=False`` form; its
+    ``snap=True`` parity form is not ported)."""
+    device = inv_poses.device
+    dims, cells = _world_cells(bounds, resolution, device)
+    keep = (disables <= 0)[:, None]
+
+    def body(c):
+        _, pts_obj = _to_object_frame(inv_poses, c)
+        value = _analytic_sdf_points(scene.kinds, scene.halfs,
+                                     scene.penals, pts_obj)
+        pot, _ = _hinge(value, epsilons, padding_scales)
+        return torch.where(keep, pot, torch.zeros_like(pot)).sum(0)
+
+    pots = torch.cat([body(c) for c in torch.split(cells, chunk)])
+    return WorldPotential(
+        data=pots.reshape(dims),
+        origin=torch.as_tensor(bounds[0], dtype=torch.float32, device=device),
         delta=torch.tensor(resolution, dtype=torch.float32, device=device))
 
 

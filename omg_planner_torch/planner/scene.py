@@ -23,9 +23,9 @@ from ..io.assets import (DEFAULT_END, DEFAULT_START, SceneObject,
                          synthetic_tabletop_scene)
 from ..models import panda
 from ..ops.chomp import CostParams, GoalSet
-from ..ops.sdf import (AnalyticScene, WorldPotential, bake_scene,
-                       bake_world_potential, combine_sdfs,
-                       make_analytic_scene)
+from ..ops.sdf import (AnalyticScene, WorldPotential, bake_world_potential,
+                       bake_world_potential_analytic, make_analytic_scene,
+                       stage_scene_sdfs)
 from ..utils.sync import host_int
 from . import goal_set as gs
 from . import plan as plan_mod
@@ -72,33 +72,33 @@ class Env:
         return self.objects[self.target_idx]
 
     # -- staging ----------------------------------------------------------
+    def stage_scene(self, pad_to: tuple | None = None):
+        """Stage the collision scene anew: an :class:`AnalyticScene` when
+        every object is an analytic primitive (``cfg.sdf_analytic``), else
+        the padded voxel stack (baked per ``cfg.sdf_baked``), synthesised
+        on the device for primitives.  ``pad_to`` pads the stack to a
+        suite-wide shape."""
+        fields = [o.sdf for o in self.objects]
+        scene = (make_analytic_scene(fields, self.device)
+                 if self.cfg.sdf_analytic else None)
+        if scene is None:
+            scene = stage_scene_sdfs(fields, self.device,
+                                     baked=self.cfg.sdf_baked, pad_to=pad_to)
+        self._scene_sdf = scene
+        return scene
+
     def scene_sdf(self):
-        """The collision scene: an :class:`AnalyticScene` when every
-        object is an analytic primitive (``cfg.sdf_analytic``), else the
-        padded voxel stack with baked gradient channels."""
+        """The staged collision scene (staged on first use)."""
         if self._scene_sdf is None:
-            fields = [o.sdf for o in self.objects]
-            if self.cfg.sdf_analytic:
-                self._scene_sdf = make_analytic_scene(fields, self.device)
-            if self._scene_sdf is None:
-                if all(f.analytic is not None for f in fields):
-                    raise NotImplementedError(
-                        "voxelized primitive scenes (sdf_analytic=False) "
-                        "are not ported yet")
-                if not self.cfg.sdf_baked:
-                    raise NotImplementedError(
-                        "the exact grid query (sdf_baked=False) is not "
-                        "ported yet")
-                self._scene_sdf = bake_scene(combine_sdfs(fields,
-                                                          self.device))
+            self.stage_scene()
         return self._scene_sdf
 
     def cost_params(self) -> CostParams:
         """Per-object collision parameters (reference
         ``Cost.compute_obstacle_cost_layer``, ``omg/cost.py:299-335``),
-        cached per (env version, cfg)."""
+        cached per (env version, ``cfg.jit_key()``)."""
         cfg = self.cfg
-        key = (self.version, cfg)
+        key = (self.version, cfg.jit_key())
         cached = self._cost_params_cache
         if cached is not None and cached[0] == key:
             return cached[1]
@@ -186,9 +186,16 @@ class PlanningScene:
         # DB (reference ``load_goal_from_external``, planner.py:176-186)
         self.external_grasps: np.ndarray | None = None
         self._precomputed_goals: GoalSet | None = None
+        # (key, goal set, valid-goal count or None); key = (env version,
+        # start, cfg.jit_key())
         self._staged = None
+        # consume-once marker: the pipelined runner keeps a staged goal set
+        # it finds marked instead of rebuilding it (and clears the mark)
+        self._staged_fresh = False
         self._wp_cache = None
         self._n_valid_goals = 0
+        # host syncs of the last staging + plan of the pipelined runner
+        self.dispatch_syncs = 0
 
     @classmethod
     def _from_objects(cls, cfg, objects, target, device):
@@ -201,6 +208,14 @@ class PlanningScene:
     @classmethod
     def synthetic(cls, cfg: OMGConfig, scene_id: int = 0, device=None, **kw):
         objects, target = synthetic_tabletop_scene(scene_id, **kw)
+        return cls._from_objects(cfg, objects, target, device)
+
+    @classmethod
+    def hard(cls, cfg: OMGConfig, scene_id: int = 0, device=None, **kw):
+        """Difficulty-calibrated scene (clutter/shelf/far families with
+        settle-and-reject placement; ``io/scene_gen.py``)."""
+        from ..io.scene_gen import synthetic_hard_scene
+        objects, target = synthetic_hard_scene(scene_id, **kw)
         return cls._from_objects(cfg, objects, target, device)
 
     @classmethod
@@ -233,11 +248,15 @@ class PlanningScene:
             potentials=torch.zeros(g, device=d))
 
     def _sync_env_cfg(self):
-        """Env staging must see the planning scene's cfg."""
+        """Env staging must see the planning scene's cfg.  The staged
+        collision scene is dropped only when a device-relevant field
+        changed (``jit_key``): a value-equal cfg, or one that differs in a
+        host-only field, re-stages nothing."""
         if self.env.cfg is not self.cfg:
-            if self.env.cfg != self.cfg:
-                self.env._scene_sdf = None
+            invalidate = self.env.cfg.jit_key() != self.cfg.jit_key()
             self.env.cfg = self.cfg
+            if invalidate:
+                self.env._scene_sdf = None
 
     # -- staging ----------------------------------------------------------
     def build_goal_set(self) -> GoalSet:
@@ -270,24 +289,40 @@ class PlanningScene:
                 print(f"{t.name} IK FAIL")
         return goal_set
 
-    def build_problem(self) -> plan_mod.PlanProblem:
+    def _staged_key(self):
+        return (self.env.version, tuple(self.start), self.cfg.jit_key())
+
+    def has_staged(self) -> bool:
+        """True when the staged goal set matches the current (env version,
+        start, cfg): a repeat request re-plans off it with no staging."""
+        return self._staged is not None and \
+            self._staged[0] == self._staged_key()
+
+    def build_problem(self, goal_set: GoalSet | None = None,
+                      assume_goals: bool = False) -> plan_mod.PlanProblem:
         """Stage the plan problem: goal set (cached per env version, start
-        and cfg), initial goal and spline, limits, learner field."""
+        and ``cfg.jit_key()``), initial goal and spline, limits, learner
+        field.
+
+        ``assume_goals=True`` skips the host read of the valid-goal count
+        (the empty-goal-set check), so a caller can queue many scenes'
+        staging and plans; the caller then checks ``goal_set.mask``."""
         self._sync_env_cfg()
         cfg = self.cfg
         env = self.env
         d = self.device
         start = _f32(self.start, d)
         end = _f32(self.end, d)
+        n_valid = None
         if cfg.goal_set_proj:
-            goal_set = self._precomputed_goals
             if goal_set is None:
-                key = (env.version, tuple(self.start), cfg)
-                if self._staged is not None and self._staged[0] == key:
-                    goal_set = self._staged[1]
+                goal_set = self._precomputed_goals
+            if goal_set is None:
+                if self.has_staged():
+                    _, goal_set, n_valid = self._staged
                 else:
                     goal_set = self.build_goal_set()
-                    self._staged = (key, goal_set)
+                    self._staged = (self._staged_key(), goal_set, None)
         else:
             g = cfg.goal_set_max_num
             goal_set = GoalSet(
@@ -297,8 +332,16 @@ class PlanningScene:
                 mask=torch.zeros(g, dtype=torch.bool, device=d),
                 potentials=torch.zeros(g, device=d))
         self.goal_set = goal_set
-        self._n_valid_goals = host_int(goal_set.mask.sum())
-        if cfg.goal_set_proj and self._n_valid_goals > 0:
+        if assume_goals and cfg.goal_set_proj:
+            self._n_valid_goals = -1  # unknown: the caller checks the mask
+        else:
+            if n_valid is None:
+                n_valid = host_int(goal_set.mask.sum())
+                if (self._staged is not None
+                        and self._staged[1] is goal_set):
+                    self._staged = self._staged[:2] + (n_valid,)
+            self._n_valid_goals = n_valid
+        if cfg.goal_set_proj and self._n_valid_goals != 0:
             end = goal_set.grasps[gs.goal_idx_policy(cfg, goal_set, start)]
             if cfg.dynamic_timestep:
                 t_dyn = cfg.dynamic_timesteps(self.start,
@@ -312,12 +355,24 @@ class PlanningScene:
             start=start, end=end, traj_init=traj0, goal_set=goal_set,
             scene=env.scene_sdf(), cost_params=env.cost_params(),
             joint_lower=lo, joint_upper=hi,
-            world_potential=self._world_potential())
+            world_potential=self._world_potential(),
+            world_field=self._world_field())
+
+    def _world_field(self):
+        """The fused CHOMP field of ``cfg.sdf_fused``: not ported, so a
+        data-backed scene under it raises (an analytic scene ignores the
+        flag, as in the JAX package)."""
+        if self.cfg.sdf_fused and not isinstance(self.env.scene_sdf(),
+                                                 AnalyticScene):
+            raise NotImplementedError(
+                "the fused world field (sdf_fused=True) is not ported yet")
+        return None
 
     def _world_potential(self) -> WorldPotential:
-        """Scene-fused learner scoring field, cached per env version; a
-        1-cell dummy for analytic scenes (the learner queries the true SDF
-        there) and when the field is off."""
+        """Scene-fused learner scoring field, cached per (env version,
+        ``cfg.jit_key()``); a 1-cell dummy for analytic scenes (the learner
+        queries the true SDF there) and when the field is off.  A primitive
+        scene on the grid backend bakes it from the true primitive SDF."""
         cfg = self.cfg
         scene = self.env.scene_sdf()
         d = self.device
@@ -326,17 +381,22 @@ class PlanningScene:
             return WorldPotential(data=torch.zeros((2, 2, 2), device=d),
                                   origin=torch.zeros(3, device=d),
                                   delta=torch.tensor(1.0, device=d))
-        if cfg.sdf_fused:
-            raise NotImplementedError(
-                "the fused world field (sdf_fused=True) is not ported yet")
-        key = (self.env.version, cfg)
+        self._world_field()
+        key = (self.env.version, cfg.jit_key())
         if self._wp_cache is not None and self._wp_cache[0] == key:
             return self._wp_cache[1]
         params = self.env.cost_params()
-        wp = bake_world_potential(
-            scene, params.inv_poses, params.epsilons, params.padding_scales,
-            params.clearances, params.disables,
-            resolution=cfg.world_potential_resolution)
+        prims = make_analytic_scene([o.sdf for o in self.env.objects], d)
+        if prims is not None:
+            wp = bake_world_potential_analytic(
+                prims, params.inv_poses, params.epsilons,
+                params.padding_scales, params.disables,
+                resolution=cfg.world_potential_resolution)
+        else:
+            wp = bake_world_potential(
+                scene, params.inv_poses, params.epsilons,
+                params.padding_scales, params.clearances, params.disables,
+                resolution=cfg.world_potential_resolution)
         self._wp_cache = (key, wp)
         return wp
 

@@ -1,10 +1,12 @@
 """Import hygiene and device rules of the port.
 
-* ``omg_planner_torch`` (every module) and ``chip_smoke.py`` import
-  neither ``jax`` nor ``omg_planner_tpu``: checked in a fresh interpreter,
-  since this test process has JAX loaded by ``tests/conftest.py``.
+* ``omg_planner_torch`` (every module), ``chip_smoke.py`` and
+  ``bench_torch.py`` import neither ``jax`` nor ``omg_planner_tpu``:
+  checked in a fresh interpreter, since this test process has JAX loaded
+  by ``tests/conftest.py``.
 * Entry points run on ``cuda`` unless the caller passes a device; with no
-  GPU they raise instead of falling back to the CPU.
+  GPU they raise instead of falling back to the CPU, and so does
+  ``bench_torch.py`` without ``--cpu``.
 * ``chip_smoke.py`` fails, and prints no result, without a GPU and when it
   stands alone without the package."""
 
@@ -31,6 +33,7 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import bench_torch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "omg_planner_tpu")))
 print(len(names), bad)
@@ -58,7 +61,7 @@ def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_need_a_device_without_gpu(no_gpu):
+def test_entry_points_need_a_device_without_gpu(no_gpu, tmp_path):
     from omg_planner_torch.__main__ import main
     from omg_planner_torch.models import panda
     from omg_planner_torch.planner.scene import Env, PlanningScene, PointEnv
@@ -85,6 +88,11 @@ def test_entry_points_need_a_device_without_gpu(no_gpu):
         main(["-f", "0"])
     with pytest.raises(RuntimeError):
         main(["-p", "-f", "0"])
+    with pytest.raises(RuntimeError):
+        main(["-exp"])
+    from omg_planner_torch.planner.runner import SuiteRunner
+    with pytest.raises(RuntimeError):
+        SuiteRunner(str(tmp_path), cfg)
     # asked for explicitly, the CPU works
     assert resolve_device("cpu") == torch.device("cpu")
     assert Env(cfg, device="cpu").device == torch.device("cpu")
@@ -105,3 +113,14 @@ def test_chip_smoke_fails_without_gpu_or_package(tmp_path):
                            timeout=120)
     assert alone.returncode != 0
     assert '"ok"' not in alone.stdout
+
+
+def test_bench_torch_needs_a_gpu_without_cpu_flag():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: bench_torch.py would run")
+    out = subprocess.run([sys.executable, "bench_torch.py", "--scenes", "1"],
+                         cwd=ROOT, capture_output=True, text=True, env=_env(),
+                         timeout=120)
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr
+    assert '"metric"' not in out.stdout
