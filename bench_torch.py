@@ -2,7 +2,7 @@
 100-scene hard suite ``data/suite_v2``: ``bench.py``'s phases, arithmetic
 and JSON keys over the port.
 
-    python3 bench_torch.py [--scenes N] [--backend analytic|exact]
+    python3 bench_torch.py [--scenes N] [--backend analytic|exact|fused]
                            [--skip-full-budget] [--skip-pipelined]
                            [--skip-cascade] [--cpu]
 
@@ -85,7 +85,8 @@ def main():
                     choices=["analytic", "exact", "fused"],
                     help="collision backend: grid-free true-SDF "
                          "(cfg.sdf_analytic, default), per-object voxel "
-                         "stack, or scene-fused world field (not ported)")
+                         "stack, or scene-fused world field "
+                         "(cfg.sdf_fused)")
     ap.add_argument("--skip-full-budget", action="store_true")
     ap.add_argument("--skip-pipelined", action="store_true")
     ap.add_argument("--skip-cascade", action="store_true")
@@ -96,9 +97,6 @@ def main():
     ap.add_argument("--refresh-every", type=int, default=None,
                     help="cfg.learner_refresh_every A/B knob")
     args, _ = ap.parse_known_args()
-    if args.backend == "fused":
-        raise NotImplementedError(
-            "the fused world field (--backend fused) is not ported yet")
 
     from omg_planner_torch import resolve_device
     from omg_planner_torch.config import OMGConfig
@@ -115,8 +113,8 @@ def main():
     if args.refresh_every is not None:
         over["learner_refresh_every"] = args.refresh_every
     # standard reference budget: T=30, 50+20 steps, <=100 goals
-    cfg = OMGConfig(silent=True, sdf_analytic=args.backend == "analytic",
-                    **over)
+    cfg = OMGConfig(silent=True, sdf_fused=args.backend == "fused",
+                    sdf_analytic=args.backend == "analytic", **over)
     cfg_full = cfg.replace(pre_terminate=False)
 
     health_pre = retry_transient(lambda: tunnel_health(device),

@@ -27,10 +27,29 @@ Phases (any failure exits non-zero; no phase is skipped):
    runner on the same directory finds nothing pending and plans nothing;
    fails on a missing shard, a bad trajectory or any retry;
 9. the benchmark: ``bench_torch.py --scenes 8`` (analytic backend, every
-   phase, the cascade included) and ``--backend exact --scenes 2
-   --skip-cascade`` (the grid backend on the card) as subprocesses, each
-   JSON line relayed and checked for ``bench.py``'s keys plus
-   ``host_syncs_per_plan``.
+   phase, the cascade included), ``--backend exact --scenes 2
+   --skip-cascade`` (the grid backend on the card) and ``--backend fused
+   --scenes 2 --skip-cascade`` (the fused world field) as subprocesses,
+   each JSON line relayed and checked for ``bench.py``'s keys plus
+   ``host_syncs_per_plan``;
+10. the fused world field at full width: suite scenes 0-2 with
+    ``sdf_analytic=False, sdf_fused=True`` (a 0.01 m field of 150 x 180 x
+    140 cells), bake ms, verdict, steps, plan wall and host syncs per
+    scene; ``world_field_query`` against the exact grid query at 10,000
+    points (the scene and bars of ``tests/test_world_field.py``); the
+    nearest-cell bake from the baked stack against the snapped analytic
+    bake;
+11. the UR-like 6-DOF URDF chain, planned at the full ``OMGConfig()`` step
+    budget with ``goal_set_proj=False`` on the card and on the CPU: same
+    verdict and steps, trajectories within 2e-3;
+12. the task layer on synthetic scene 0 at full width: a grasp plan
+    (``plan_to_target``), then ``place_target`` (flag, steps, achieved
+    pose);
+13. the planning service (``apps/serve.py``) in a thread on a free port:
+    ``/health``, ``/plan`` twice (fresh, then warm: ``stage_s``,
+    ``plan_s`` and host syncs per request; the warm one builds no goal
+    set), ``/plan_batch`` of two scenes at depth 2 and ``/execute``
+    (must answer 501); any other status fails.
 
 The line before the last is a JSON object listing every kernel with its
 launches on the main path, error, times and bound; the last line is
@@ -51,10 +70,16 @@ import torch
 
 from omg_planner_torch import interop
 from omg_planner_torch.__main__ import observe_obstacles, perception_plan
+from omg_planner_torch.apps import serve
 from omg_planner_torch.config import OMGConfig
+from omg_planner_torch.io.assets import pose_at
+from omg_planner_torch.models import chain
 from omg_planner_torch.ops import kernels
+from omg_planner_torch.ops import sdf as sdf_mod
+from omg_planner_torch.ops.chomp import CostParams, GoalSet
 from omg_planner_torch.ops.pointsdf import grid_cells, grid_layout
 from omg_planner_torch.planner import plan as plan_mod
+from omg_planner_torch.planner import tasks
 from omg_planner_torch.planner.runner import SuiteRunner
 from omg_planner_torch.planner.scene import PlanningScene
 from omg_planner_torch.utils.sync import SYNCS
@@ -434,9 +459,10 @@ def phase_suite_runner(dev):
 
 def phase_bench():
     """``bench_torch.py`` in a subprocess on the card: the analytic
-    backend with every phase, then the grid backend."""
+    backend with every phase, then the grid backend and the fused field."""
     for args in (["--scenes", "8"],
-                 ["--backend", "exact", "--scenes", "2", "--skip-cascade"]):
+                 ["--backend", "exact", "--scenes", "2", "--skip-cascade"],
+                 ["--backend", "fused", "--scenes", "2", "--skip-cascade"]):
         t0 = time.time()
         out = subprocess.run(
             [sys.executable, os.path.join(ROOT, "bench_torch.py")] + args,
@@ -454,6 +480,310 @@ def phase_bench():
             raise AssertionError(f"bench_torch.py: missing keys {missing}")
         log(f"bench_torch.py {' '.join(args)} ({time.time() - t0:.1f} s): "
             f"{json.dumps(rec)}")
+
+
+def phase_fused(dev):
+    """The fused world field at full width on suite scenes 0-2; its query
+    against the exact grid query; its two bakes against each other."""
+    cfg = OMGConfig(silent=True, sdf_analytic=False, sdf_fused=True)
+    scene0 = None
+    for i in (0, 1, 2):
+        scene = PlanningScene.from_npz(
+            cfg, os.path.join(SUITE, f"scene_{i}.npz"), device=dev)
+        scene.env.scene_sdf()
+        scene.env.cost_params()
+        _sync(dev)
+        t0 = time.time()
+        wf = scene._world_field()
+        _sync(dev)
+        bake_ms = (time.time() - t0) * 1e3
+        log(f"fused suite scene {i}: field {tuple(wf.data5.shape)} baked in "
+            f"{bake_ms:.1f} ms")
+        reset_counts()
+        _timed_plan(scene, dev, f"fused plan suite scene {i}")
+        scene0 = scene0 or scene
+    # production field against the exact query (reported), then the
+    # check of tests/test_world_field.py on its scene: synthetic scene 0
+    # with two obstacles, the nearest-cell field of the baked stack
+    gen = torch.Generator().manual_seed(7)
+    pts = (torch.tensor([0.1, -0.5, 0.2]) + torch.rand(
+        10000, 3, generator=gen) * torch.tensor([0.8, 1.0, 0.7])).to(dev)
+    _field_vs_exact(scene0, scene0._world_field(), pts,
+                    "production field, suite scene 0 (no bar)")
+    syn = PlanningScene.synthetic(OMGConfig(silent=True, sdf_analytic=False),
+                                  scene_id=0, n_obstacles=2, device=dev)
+    p = syn.env.cost_params()
+    args = (p.inv_poses, p.epsilons, p.padding_scales, p.clearances,
+            p.disables)
+    near = sdf_mod.bake_world_field(syn.env.scene_sdf(), *args)
+    q95, cos05, dis, far = _field_vs_exact(
+        syn, near, pts, "nearest-cell field, synthetic scene 0 (bars: q95 "
+        "< 0.02, cos q05 > 0.9, disagreement < 0.05, far point 0)")
+    if not (q95 < 0.02 and cos05 > 0.9 and dis < 0.05 and far == 0.0):
+        raise AssertionError("fused query disagrees with the exact query")
+    # the nearest-cell bake of the baked stack against the snapped bake
+    fields = [o.sdf for o in scene0.env.objects]
+    p = scene0.env.cost_params()
+    args = (p.inv_poses, p.epsilons, p.padding_scales, p.clearances,
+            p.disables)
+    baked = sdf_mod.stage_scene_sdfs(fields, dev, baked=True)
+    _sync(dev)
+    t0 = time.time()
+    near = sdf_mod.bake_world_field(baked, *args)
+    _sync(dev)
+    near_ms = (time.time() - t0) * 1e3
+    kinds, halfs, pens, _, _, dims, limits, _ = \
+        sdf_mod.analytic_prim_arrays(fields)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    t0 = time.time()
+    snap = sdf_mod.bake_world_field_analytic(
+        t(kinds), t(halfs), t(pens), t(limits), *args, t(dims), snap=True)
+    _sync(dev)
+    snap_ms = (time.time() - t0) * 1e3
+    d = (near.data5 - snap.data5).abs().reshape(-1, 5).amax(0).tolist()
+    log(f"fused bakes, suite scene 0: nearest-cell {near_ms:.1f} ms, "
+        f"snapped analytic {snap_ms:.1f} ms; max |diff| pot {d[0]:.3e} "
+        f"(bar 3e-5), grad {max(d[1:4]):.3e} (bar 3e-3), min distance "
+        f"{d[4]:.3e} (bar 3e-5)")
+    if not (d[0] <= 3e-5 and max(d[1:4]) <= 3e-3 and d[4] <= 3e-5):
+        raise AssertionError("the two fused bakes disagree")
+
+
+def _field_vs_exact(scene, wf, pts, what):
+    """``tests/test_world_field.py``'s comparison of a fused field's query
+    with the exact query of the scene's grid stack: (|pot| q95, gradient
+    cosine q05 where both potentials are active, collide disagreement,
+    largest output at a far free-space point)."""
+    p = scene.env.cost_params()
+    pot_e, grad_e, col_e = sdf_mod.sdf_potentials(
+        scene.env.scene_sdf(), p.inv_poses, pts, p.epsilons,
+        p.padding_scales, p.clearances, p.disables)
+    pot_f, grad_f, col_f = sdf_mod.world_field_query(wf, pts)
+    q95 = float(torch.quantile((pot_e - pot_f).abs(), 0.95))
+    active = (pot_e > 1e-3) & (pot_f > 1e-3)
+    ge, gf = grad_e[active], grad_f[active]
+    ok = (ge.norm(dim=-1) > 1e-6) & (gf.norm(dim=-1) > 1e-6)
+    cos = torch.nn.functional.cosine_similarity(ge[ok], gf[ok], dim=-1)
+    cos05 = float(torch.quantile(cos, 0.05)) if len(cos) else 1.0
+    dis = float((col_e != col_f).float().mean())
+    far = max(float(a.abs().max()) for a in sdf_mod.world_field_query(
+        wf, torch.tensor([[0.0, 0.0, 1.2]], device=pts.device)))
+    log(f"fused query vs exact, {what}, {len(pts)} points: |pot| q95 "
+        f"{q95:.4f}, grad cos q05 {cos05:.4f} over {int(ok.sum())} active "
+        f"points, collide disagreement {dis:.4f}, far point {far}")
+    return q95, cos05, dis, far
+
+
+def _ur_chain(dev):
+    """The UR-like 6-DOF arm of ``tests/test_chain_plan.py``."""
+    def joint(name, parent, child, xyz, rpy, axis):
+        return (f'<joint name="{name}" type="revolute"><parent '
+                f'link="{parent}"/><child link="{child}"/><origin '
+                f'xyz="{xyz}" rpy="{rpy}"/><axis xyz="{axis}"/><limit '
+                f'lower="-3.1" upper="3.1"/></joint><link name="{child}"/>')
+
+    urdf = ('<robot name="ur_like"><link name="base_link"/>'
+            + joint("shoulder_pan", "base_link", "shoulder", "0 0 0.089",
+                    "0 0 0", "0 0 1")
+            + joint("shoulder_lift", "shoulder", "upper_arm", "0 0.135 0",
+                    "0 1.570796 0", "0 1 0")
+            + joint("elbow", "upper_arm", "forearm", "0 -0.119 0.425",
+                    "0 0 0", "0 1 0")
+            + joint("wrist_1", "forearm", "wrist1", "0 0 0.392",
+                    "0 1.570796 0", "0 1 0")
+            + joint("wrist_2", "wrist1", "wrist2", "0 0.093 0", "0 0 0",
+                    "0 0 1")
+            + joint("wrist_3", "wrist2", "tool0", "0 0 0.094", "0 0 0",
+                    "0 1 0")
+            + "</robot>")
+    m = chain.load_urdf_chain(urdf, "base_link", "tool0",
+                              collision_points_per_link=8, device=dev)
+    rng = np.random.default_rng(3)
+    pts = rng.normal(scale=0.02, size=(m.num_joints, 8, 3))
+    pts[..., 2] += np.linspace(0, 0.15, 8)[None, :]
+    return chain.with_collision_points(m, pts)
+
+
+def _chain_problem(model, cfg, start, end):
+    """A pillar beside the arm; a fixed goal configuration."""
+    d = model.device
+    box = sdf_mod.SignedDensityField.from_analytic("box", [0.2, 0.2, 0.4],
+                                                   delta=0.02)
+    pose = np.eye(4)
+    pose[:3, 3] = [0.7, 0.0, 0.3]
+    start, end = (torch.as_tensor(np.asarray(a, np.float32), device=d)
+                  for a in (start, end))
+    lo, hi = model.soft_limits(cfg.soft_joint_limit_padding)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=d)
+
+    return plan_mod.PlanProblem(
+        start=start, end=end,
+        traj_init=plan_mod.init_trajectory(cfg, start, end),
+        goal_set=GoalSet(
+            grasps=end[None].repeat(4, 1),
+            reach_grasps=end[None, None].repeat(4, cfg.reach_tail_length, 1),
+            mask=torch.ones(4, dtype=torch.bool, device=d),
+            potentials=torch.zeros(4, device=d)),
+        scene=sdf_mod.combine_sdfs([box.penalize_inside(5.0)], d),
+        cost_params=CostParams(
+            inv_poses=f32(np.linalg.inv(pose)[None]), epsilons=f32([0.2]),
+            padding_scales=f32([1.0]), clearances=f32([0.0]),
+            disables=f32([0.0]), target_idx=torch.tensor(0, device=d)),
+        joint_lower=lo, joint_upper=hi,
+        world_potential=sdf_mod.WorldPotential(
+            data=torch.zeros((2, 2, 2), device=d),
+            origin=torch.zeros(3, device=d),
+            delta=torch.tensor(1.0, device=d)))
+
+
+def phase_chain(dev):
+    """The UR-like chain on ``dev`` and on the CPU, every step of the full
+    budget (no early termination)."""
+    cfg = OMGConfig(silent=True, goal_set_proj=False, use_standoff=False,
+                    pre_terminate=False)
+    start = [0.0, -1.2, 1.6, -0.5, 0.0, 0.0]
+    end = [1.2, -0.9, 1.2, -0.8, 0.6, 0.3]
+    out = {}
+    for where in (dev, "cpu"):
+        model = _ur_chain(where)
+        problem = _chain_problem(model, cfg, start, end)
+        _sync(where)
+        SYNCS.count = 0
+        t0 = time.time()
+        res = plan_mod.plan_fast(model, cfg, problem)
+        _sync(where)
+        out[where] = res
+        log(f"chain plan (UR-like, 6 dof, {cfg.total_steps}-step budget) on "
+            f"{where}: {'SUCCESS' if bool(res.flag) else 'FAIL'} steps "
+            f"{int(res.steps_used)}, collide {float(res.info.collide):.0f}, "
+            f"{(time.time() - t0) * 1e3:.1f} ms, {SYNCS.count} host syncs")
+    a, b = out[dev], out["cpu"]
+    diff = float((a.traj.cpu() - b.traj).abs().max())
+    log(f"chain plan: max|traj {dev} - cpu| {diff:.2e}")
+    if (a.traj.shape != (cfg.timesteps, 6) or bool(a.flag) != bool(b.flag)
+            or int(a.steps_used) != int(b.steps_used) or not diff <= 2e-3):
+        raise AssertionError(f"chain plan on {dev} disagrees with the cpu")
+
+
+def phase_tasks(dev):
+    """A grasp plan, then a placement, on synthetic scene 0 at full
+    width."""
+    cfg = OMGConfig(silent=True)
+    scene = PlanningScene.synthetic(cfg, scene_id=0, n_obstacles=0,
+                                    device=dev)
+    target = scene.env.target
+    reset_counts()
+    t0 = time.time()
+    res = tasks.plan_to_target(scene, scene.start, target.name, fast=True)
+    _sync(dev)
+    if res is None:
+        raise AssertionError("tasks: no grasp goals")
+    check_traj(res.traj, scene.model, "tasks grasp plan")
+    log(f"tasks plan_to_target {target.name}: "
+        f"{'SUCCESS' if bool(res.flag) else 'FAIL'} steps "
+        f"{int(res.steps_used)}, {(time.time() - t0) * 1e3:.1f} ms, "
+        f"{SYNCS.count} host syncs")
+    grasp_conf = np.asarray(res.traj[-1], np.float64)
+    place = target.pose_mat.copy()
+    place[:3, 3] += [0.0, 0.15, 0.0]
+    SYNCS.count = 0
+    t0 = time.time()
+    res, achieved = tasks.place_target(scene, grasp_conf, place, fast=True)
+    _sync(dev)
+    if scene.env.target.attached or achieved.shape != (4, 4):
+        raise AssertionError("tasks: place_target left the target attached")
+    err = np.linalg.norm(achieved[:3, 3] - place[:3, 3])
+    log(f"tasks place_target: "
+        + ("no placement IK (rolled back)" if res is None else
+           f"{'SUCCESS' if bool(res.flag) else 'FAIL'} steps "
+           f"{int(res.steps_used)}")
+        + f", achieved position {np.round(achieved[:3, 3], 4).tolist()} "
+        f"({err * 1e3:.1f} mm from the placement), "
+        f"{(time.time() - t0) * 1e3:.1f} ms, {SYNCS.count} host syncs")
+    if res is not None:
+        check_traj(res.traj, scene.model, "tasks place plan")
+
+
+def _scene_body(y=0.1):
+    return {"objects": [
+        {"name": "table", "kind": "box", "extents": [0.9, 1.2, 0.04],
+         "pose": pose_at([0.55, 0.0, 0.16]).ravel().tolist()},
+        {"name": "mug", "kind": "cylinder", "extents": [0.045, 0.1],
+         "pose": pose_at([0.55, y, 0.23]).ravel().tolist(),
+         "target": True}]}
+
+
+def phase_serve(dev):
+    """The planning service in a thread: every endpoint once, /plan fresh
+    then warm."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    srv = serve.make_server(0, OMGConfig(silent=True), device=dev)
+    port = srv.server_address[1]
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+
+    def call(path, body=None, want=200):
+        url = f"http://127.0.0.1:{port}{path}"
+        req = (urllib.request.Request(url) if body is None else
+               urllib.request.Request(url, data=json.dumps(body).encode(),
+                                      method="POST"))
+        s0, t0 = SYNCS.count, time.time()
+        try:
+            with urllib.request.urlopen(req) as r:
+                code, out = r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            code, out = e.code, json.loads(e.read())
+        if code != want:
+            raise AssertionError(f"serve {path}: status {code}: {out}")
+        return out, (time.time() - t0) * 1e3, SYNCS.count - s0
+
+    try:
+        out, _, _ = call("/health")
+        log(f"serve /health: {out}")
+        builds = []
+        real = serve.PlanningScene.build_goal_set
+
+        def counted(self):
+            builds.append(1)
+            return real(self)
+
+        serve.PlanningScene.build_goal_set = counted
+        try:
+            for what in ("fresh", "warm"):
+                out, ms, syncs = call("/plan", _scene_body())
+                log(f"serve /plan {what}: flag {out['flag']} steps "
+                    f"{out['steps_used']} goals {out['n_goals']}, stage_s "
+                    f"{out['timings']['stage_s']}, plan_s "
+                    f"{out['timings']['plan_s']}, request {ms:.1f} ms, "
+                    f"{syncs} host syncs, goal-set builds so far "
+                    f"{len(builds)}")
+                if not np.isfinite(np.asarray(out["traj"])).all():
+                    raise AssertionError("serve /plan: bad trajectory")
+        finally:
+            serve.PlanningScene.build_goal_set = real
+        if len(builds) != 1:
+            raise AssertionError("serve: the warm /plan re-staged")
+        out, ms, syncs = call("/plan_batch", {
+            "scenes": [_scene_body(), _scene_body(-0.12)],
+            "pipeline_depth": 2})
+        log(f"serve /plan_batch (2 scenes, depth 2): flags "
+            f"{[r['flag'] for r in out['results']]}, "
+            f"{out['plans_per_s']} plans/s, request {ms:.1f} ms, {syncs} "
+            f"host syncs")
+        out, _, _ = call("/execute", _scene_body(), want=501)
+        log(f"serve /execute: 501 {out}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
 
 
 def main() -> int:
@@ -477,6 +807,12 @@ def main() -> int:
     entry["launches"] = timed("perception", phase_perception, "cuda")
     timed("suite runner", phase_suite_runner, "cuda")
     timed("bench", phase_bench)
+    for name, fn in (("fused", phase_fused), ("chain", phase_chain),
+                     ("tasks", phase_tasks), ("serve", phase_serve)):
+        reset_counts()
+        timed(name, fn, "cuda")
+        if any(k.launches for k in kernels.KERNELS.values()):
+            raise AssertionError(f"a kernel launched on the {name} path")
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [entry]}))
     print(json.dumps({"ok": True, "device": {

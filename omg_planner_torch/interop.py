@@ -13,7 +13,8 @@ import torch
 
 from .models.panda import PandaModel
 from .ops.chomp import CostParams, GoalSet
-from .ops.sdf import AnalyticScene, BakedSceneSDF, SceneSDF, WorldPotential
+from .ops.sdf import (AnalyticScene, BakedSceneSDF, SceneSDF, WorldField,
+                      WorldPotential)
 from .planner.plan import PlanProblem
 
 
@@ -49,6 +50,10 @@ def world_potential(x, device) -> WorldPotential:
     return convert(x, WorldPotential, device)
 
 
+def world_field(x, device) -> WorldField:
+    return convert(x, WorldField, device)
+
+
 def scene(x, device):
     """AnalyticScene, BakedSceneSDF or SceneSDF, told apart by fields."""
     for cls in (AnalyticScene, BakedSceneSDF, SceneSDF):
@@ -58,10 +63,9 @@ def scene(x, device):
 
 
 def plan_problem(x, device) -> PlanProblem:
-    """PlanProblem with every nested container converted (the fused world
-    field is not ported and must be absent)."""
-    if getattr(x, "world_field", None) is not None:
-        raise NotImplementedError("the fused world field is not ported yet")
+    """PlanProblem with every nested container converted, the fused world
+    field included when present."""
+    wf = getattr(x, "world_field", None)
     return PlanProblem(
         start=to_tensor(x.start, device), end=to_tensor(x.end, device),
         traj_init=to_tensor(x.traj_init, device),
@@ -69,4 +73,5 @@ def plan_problem(x, device) -> PlanProblem:
         cost_params=cost_params(x.cost_params, device),
         joint_lower=to_tensor(x.joint_lower, device),
         joint_upper=to_tensor(x.joint_upper, device),
-        world_potential=world_potential(x.world_potential, device))
+        world_potential=world_potential(x.world_potential, device),
+        world_field=None if wf is None else world_field(wf, device))

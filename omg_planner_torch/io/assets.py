@@ -92,6 +92,9 @@ class SceneObject:
         self.rel_hand_pose = None
         self.points = points  # [K, 3] surface points (camera splats)
 
+    def update_pose(self, pose_mat: np.ndarray):
+        self.pose_mat = np.asarray(pose_mat, np.float64)
+
 
 def make_primitive(name: str, kind: str, extents, pose_mat,
                    target=False, compute_grasp=True,

@@ -21,7 +21,7 @@ from ..models import api as model_api
 from ..utils.diff import get_derivative
 from ..utils.linalg import top_k
 from ..utils.sync import host_bool
-from .sdf import sdf_potentials
+from .sdf import WorldField, sdf_potentials, world_field_query
 
 
 class CostParams(NamedTuple):
@@ -38,8 +38,8 @@ class CostParams(NamedTuple):
 class GoalSet(NamedTuple):
     """Fixed-capacity goal set (masked)."""
 
-    grasps: torch.Tensor        # [G, 9] final grasp configs
-    reach_grasps: torch.Tensor  # [G, tail, 9] standoff tails (last == grasp)
+    grasps: torch.Tensor        # [G, D] final grasp configs
+    reach_grasps: torch.Tensor  # [G, tail, D] standoff tails (last == grasp)
     mask: torch.Tensor          # [G] bool valid
     potentials: torch.Tensor    # [G] collision potential at goal
 
@@ -88,18 +88,23 @@ def smooth_loss(hp: DeviceHorizon, cfg: OMGConfig, xi, start, end):
 
 def forward_kinematics_obstacle(model, scene, params: CostParams,
                                 cfg: OMGConfig, hp: DeviceHorizon, xi,
-                                start, end):
+                                start, end,
+                                world_field: WorldField | None = None):
     """FK + SDF + derivatives for the whole trajectory
-    (``omg/cost.py:112-190``).  Returns (x, v, a_ws, jac, potentials,
-    grads, collide_count) with x/v/a_ws [T, 10, P, 3], jac
-    [T, 10, P, 9, 3], potentials [T, 10, P]."""
+    (``omg/cost.py:112-190``).  With ``world_field`` (``cfg.sdf_fused``)
+    one 5-channel read of the fused field replaces the per-object query.
+    Returns (x, v, a_ws, jac, potentials, grads, collide_count) with
+    x/v/a_ws [T, L, P, 3], jac [T, L, P, D, 3], potentials [T, L, P]."""
     t_dim = xi.shape[0]
     poses, origins_w, axes_w = model_api.fk_with_joint_info_batch(model, xi)
     x = model_api.point_positions(model, poses)  # [T, L, P, 3]
     p = x.shape[2]
-    pot, grad, collide = sdf_potentials(
-        scene, params.inv_poses, x.reshape(-1, 3), params.epsilons,
-        params.padding_scales, params.clearances, params.disables)
+    if world_field is not None:
+        pot, grad, collide = world_field_query(world_field, x.reshape(-1, 3))
+    else:
+        pot, grad, collide = sdf_potentials(
+            scene, params.inv_poses, x.reshape(-1, 3), params.epsilons,
+            params.padding_scales, params.clearances, params.disables)
     n_links = model_api.num_links(model)
     pot = pot.reshape(t_dim, n_links, p)
     grad = grad.reshape(t_dim, n_links, p, 3)
@@ -144,14 +149,15 @@ def _functional_grad_terms(v, a_ws, pot, grad):
 
 
 def compute_collision_loss(model, scene, params: CostParams, cfg: OMGConfig,
-                           hp: DeviceHorizon, xi, start, end):
+                           hp: DeviceHorizon, xi, start, end,
+                           world_field: WorldField | None = None):
     """Obstacle loss + config-space gradient (``omg/cost.py:362-423``),
     top-k sparsified as a mask: points at or above the k-th largest
-    potential contribute.  Returns (obs_cost [T, 10], obs_grad [T, 9],
+    potential contribute.  Returns (obs_cost [T, L], obs_grad [T, D],
     collide_count)."""
     t_dim = xi.shape[0]
     x, v, a_ws, jac, pot, grad, collide = forward_kinematics_obstacle(
-        model, scene, params, cfg, hp, xi, start, end)
+        model, scene, params, cfg, hp, xi, start, end, world_field)
     p = pot.shape[-1]
     cost_pt, direction = _functional_grad_terms(v, a_ws, pot, grad)
 
@@ -191,11 +197,12 @@ def compute_collision_loss(model, scene, params: CostParams, cfg: OMGConfig,
 
 def compute_total_loss(model, scene, params: CostParams, cfg: OMGConfig,
                        hp: DeviceHorizon, xi, start, end, goal,
-                       obstacle_weight, smoothness_weight):
+                       obstacle_weight, smoothness_weight,
+                       world_field: WorldField | None = None):
     """Total cost/gradient/termination info (``omg/cost.py:451-532``)."""
     s_loss, s_grad = smooth_loss(hp, cfg, xi, start, end)
     o_cost, o_grad, collide = compute_collision_loss(
-        model, scene, params, cfg, hp, xi, start, end)
+        model, scene, params, cfg, hp, xi, start, end, world_field)
 
     s_sum = s_loss.sum()
     o_sum = o_cost.sum()

@@ -234,6 +234,15 @@ def _solve_chain_fused(model, cfg: OMGConfig, chain_tgts, seeds, lower7,
     return qs[:, 1:], ok
 
 
+def solve_lanes(cfg: OMGConfig, n_grasps: int, n_seeds: int) -> int:
+    """K, the number of lanes :func:`solve_goal_set` returns: every
+    (grasp, seed) lane, or the two-stage survivors."""
+    b = n_grasps * n_seeds
+    if cfg.ik_two_stage and cfg.ik_survivor_cap:
+        return min(b, cfg.ik_survivor_cap)
+    return b
+
+
 def solve_goal_set(model, cfg: OMGConfig, grasp_poses_world, seeds, lower7,
                    upper7, attached: bool = False, grasp_valid=None):
     """All (grasp x seed) standoff chains as staged batched solves
@@ -267,7 +276,7 @@ def solve_goal_set(model, cfg: OMGConfig, grasp_poses_world, seeds, lower7,
             cfg.ik_prefilter_iters)
         score = torch.where(lane_valid, err_pre,
                             torch.full_like(err_pre, torch.inf))
-        k_cap = min(b, cfg.ik_survivor_cap) if cfg.ik_survivor_cap else b
+        k_cap = solve_lanes(cfg, n, s)
         lane_idx = top_k(-score, k_cap)[1]
         act_full = lane_valid & (err_pre < cfg.ik_prefilter_tol)
         tgt = take_rows(tgt, lane_idx)

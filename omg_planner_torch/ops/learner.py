@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..config import DeviceHorizon, OMGConfig
-from ..models import panda
+from ..models import api as model_api
 from ..utils.diff import get_derivative
 from ..utils.linalg import take_rows, top_k
 from ..utils.spline import multi_linear_interpolate
@@ -160,7 +160,7 @@ def cost_vector_raw(model, scene, params: CostParams, cfg: OMGConfig,
     """Unnormalized masked candidate potentials [G] (invalid goals -> 0)."""
     start_idx = _start_index(cfg, t)
     traj_start = traj[start_idx]
-    goals = goal_set.grasps  # [G, 9]
+    goals = goal_set.grasps  # [G, D]
     g = goals.shape[0]
     if cfg.parity_density:
         # the reference's shrinking sample density (online_learner.py:
@@ -175,9 +175,9 @@ def cost_vector_raw(model, scene, params: CostParams, cfg: OMGConfig,
                   * (goals[:, None, :] - traj_start[None, None, :]))
     else:
         n = cfg.num_interp
-        interp = multi_linear_interpolate(traj_start, goals, n)  # [G,n,9]
+        interp = multi_linear_interpolate(traj_start, goals, n)  # [G,n,D]
     full = torch.cat([traj_start.expand(g, 1, goals.shape[-1]),
-                      interp, goals[:, None, :]], dim=1)      # [G, n+2, 9]
+                      interp, goals[:, None, :]], dim=1)      # [G, n+2, D]
     flat_q = full.reshape(g * (n + 2), -1)
 
     score_model = model
@@ -188,10 +188,11 @@ def cost_vector_raw(model, scene, params: CostParams, cfg: OMGConfig,
         score_model = model._replace(
             collision_points=model.collision_points[:, ::stride, :]
             [:, :cfg.learner_collision_points, :])
-    poses = panda.forward_kinematics_batch(score_model, flat_q)
-    x_full = panda.collision_point_positions(score_model, poses)
+    poses = model_api.fk_batch(score_model, flat_q)
+    x_full = model_api.point_positions(score_model, poses)
+    n_links = model_api.num_links(score_model)
     p = x_full.shape[2]
-    x_full = x_full.reshape(g, n + 2, panda.NUM_LINKS, p, 3)
+    x_full = x_full.reshape(g, n + 2, n_links, p, 3)
     x = x_full[:, 1:-1]  # interior samples score the potential
     if (cfg.learner_world_potential and world_potential is not None
             and not isinstance(scene, AnalyticScene)):
@@ -203,7 +204,7 @@ def cost_vector_raw(model, scene, params: CostParams, cfg: OMGConfig,
         pot, _, _ = sdf_potentials(
             scene, params.inv_poses, x.reshape(-1, 3), params.epsilons,
             params.padding_scales, params.clearances, params.disables)
-    pot = pot.reshape(g, n, panda.NUM_LINKS, p)
+    pot = pot.reshape(g, n, n_links, p)
 
     # arc-length weights |dx/dt| along the interpolation axis
     x_start = x_full[:, 0]

@@ -12,15 +12,17 @@ Device side, the collision query's three backends:
 * :class:`BakedSceneSDF` — the padded voxel stack with baked
   central-difference gradient channels, one 4-channel trilinear read per
   (point, object) (the grid default, and perception point clouds);
-* :class:`WorldPotential` — the learner's scene-fused scoring field.
+* :class:`WorldPotential` — the learner's scene-fused scoring field;
+* :class:`WorldField` — the scene-fused 5-channel CHOMP field of
+  ``cfg.sdf_fused``: one trilinear read per point replaces the
+  per-object query.
 
 :func:`stage_scene_sdfs` synthesises the voxel stack of a primitive scene
 on the device from ~13 floats per object (``sdf_analytic=False``).  Grid
 conventions are kept exactly: C-style ``trunc`` of ``pg - 0.5`` and
 out-of-volume value 1.0 in the trilinear query (``kernel.cu:37-64``), the
-``floor`` nearest cell in the world-potential bake and lookup, and
-out-of-grid potential 0.  The fused world field (``sdf_fused``) is not
-ported.
+``floor`` nearest cell in the world-potential and world-field bakes and
+lookups, and out-of-grid potential 0.
 """
 
 from __future__ import annotations
@@ -628,6 +630,23 @@ def _world_cells(bounds, resolution, device):
     return dims, torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
 
 
+def _nearest_cells(limits, vcells: int, pts_obj):
+    """Nearest (``floor``) cell of every object-frame point in its object's
+    padded volume of ``vcells`` cells: (flat index [O, P] into the
+    ``[O * vcells]`` stack, in-volume mask [O, P])."""
+    d_i32 = limits[:, 6:9].to(torch.int32)
+    mn = limits[:, None, 0:3]
+    mx = limits[:, None, 3:6]
+    pg = (pts_obj - mn) / (mx - mn) * d_i32[:, None, :].to(pts_obj.dtype)
+    idx = torch.floor(pg).to(torch.int32)
+    inb = torch.all((idx >= 0) & (idx < d_i32[:, None, :]), dim=-1)
+    ic = torch.minimum(torch.clamp(idx, min=0), d_i32[:, None, :] - 1)
+    obj_off = torch.arange(limits.shape[0], device=limits.device) * vcells
+    lin = (((ic[..., 0] * d_i32[:, None, 1] + ic[..., 1])
+            * d_i32[:, None, 2] + ic[..., 2]).long() + obj_off[:, None])
+    return lin, inb
+
+
 def bake_world_potential(scene, inv_poses, epsilons, padding_scales,
                          clearances, disables, resolution: float = 0.015,
                          bounds=WORLD_BOUNDS, chunk: int = 262144,
@@ -642,26 +661,15 @@ def bake_world_potential(scene, inv_poses, epsilons, padding_scales,
     dims, cells = _world_cells(bounds, resolution, device)
     lo = bounds[0]
     if nearest and not isinstance(scene, AnalyticScene):
-        o = scene.num_objects
         vals = (scene.data4[..., 0] if isinstance(scene, BakedSceneSDF)
                 else scene.data)                        # [O, X, Y, Z]
         vcells = int(np.prod(vals.shape[1:4]))
-        flat_all = vals.reshape(o * vcells)
-        obj_off = (torch.arange(o, device=device) * vcells)[:, None]
-        d_i32 = scene.limits[:, 6:9].to(torch.int32)
-        mn = scene.limits[:, 0:3]
-        mx = scene.limits[:, 3:6]
+        flat_all = vals.reshape(-1)
         keep = (disables <= 0)[:, None]
 
         def body(c):
             _, pts_obj = _to_object_frame(inv_poses, c)
-            pg = ((pts_obj - mn[:, None, :]) / (mx - mn)[:, None, :]
-                  * d_i32[:, None, :].to(c.dtype))
-            idx = torch.floor(pg).to(torch.int32)
-            inb = torch.all((idx >= 0) & (idx < d_i32[:, None, :]), dim=-1)
-            ic = torch.minimum(torch.clamp(idx, min=0), d_i32[:, None, :] - 1)
-            lin = (((ic[..., 0] * d_i32[:, None, 1] + ic[..., 1])
-                    * d_i32[:, None, 2] + ic[..., 2]).long() + obj_off)
+            lin, inb = _nearest_cells(scene.limits, vcells, pts_obj)
             value = torch.where(inb, flat_all[lin],
                                 torch.ones_like(lin, dtype=vals.dtype))
             pot, _ = _hinge(value, epsilons, padding_scales)
@@ -707,41 +715,198 @@ def bake_world_potential_analytic(scene: AnalyticScene, inv_poses, epsilons,
 
 
 def world_potential_lookup_nearest(wp: WorldPotential, points):
-    """Nearest-cell potential lookup (``floor`` cell; out of grid -> 0)."""
+    """Nearest-cell potential lookup (``floor`` cell; out of grid -> 0).
+    The field may be a strided view (the fused field's potential
+    channel): it is gathered in place, not flattened."""
     dims = wp.data.shape
     dims_t = torch.as_tensor(dims, dtype=torch.int32, device=points.device)
     idx = torch.floor((points - wp.origin) / wp.delta).to(torch.int32)
     inb = torch.all((idx >= 0) & (idx < dims_t[None, :]), dim=-1)
     c = torch.minimum(torch.clamp(idx, min=0), dims_t - 1).long()
-    lin = (c[..., 0] * dims[1] + c[..., 1]) * dims[2] + c[..., 2]
-    v = wp.data.reshape(-1)[lin]
+    v = wp.data[c[..., 0], c[..., 1], c[..., 2]]
     return torch.where(inb, v, torch.zeros_like(v))
 
 
-def world_potential_lookup(wp: WorldPotential, points):
-    """Trilinear potential lookup, out-of-grid => 0. points [P,3] -> [P]."""
-    dims = wp.data.shape
-    pg = (points - wp.origin) / wp.delta - 0.5  # cell-center convention
+def _world_trilinear(data, origin, delta, points):
+    """Trilinear read of a world grid ``data [X, Y, Z, C]`` (cell-centre
+    convention) at ``points [P, 3]``: (out [P, C], in-grid [P]).  The
+    8-cell stencil must fit (``x0 + 1 < dims``) and clamps to ``dims -
+    2``; ``data`` may be a strided view, it is gathered in place."""
+    dims = data.shape[:3]
+    pg = (points - origin) / delta - 0.5
     c0 = torch.floor(pg).to(torch.int32)
     f = pg - c0
     x0, y0, z0 = c0[..., 0], c0[..., 1], c0[..., 2]
-    fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
     inb = ((x0 >= 0) & (x0 + 1 < dims[0]) & (y0 >= 0) & (y0 + 1 < dims[1])
            & (z0 >= 0) & (z0 + 1 < dims[2]))
     x0c = torch.clamp(x0, 0, dims[0] - 2).long()
     y0c = torch.clamp(y0, 0, dims[1] - 2).long()
     z0c = torch.clamp(z0, 0, dims[2] - 2).long()
-    flat = wp.data.reshape(-1)
-    base = (x0c * dims[1] + y0c) * dims[2] + z0c
 
     def val(dx, dy, dz):
-        return flat[base + (dx * dims[1] + dy) * dims[2] + dz]
+        return data[x0c + dx, y0c + dy, z0c + dz]
 
+    fx, fy, fz = f[..., 0:1], f[..., 1:2], f[..., 2:3]
     dx00 = val(0, 0, 0) * (1 - fx) + val(1, 0, 0) * fx
     dx01 = val(0, 0, 1) * (1 - fx) + val(1, 0, 1) * fx
     dx10 = val(0, 1, 0) * (1 - fx) + val(1, 1, 0) * fx
     dx11 = val(0, 1, 1) * (1 - fx) + val(1, 1, 1) * fx
     dxy0 = dx00 * (1 - fy) + dx10 * fy
     dxy1 = dx01 * (1 - fy) + dx11 * fy
-    out = dxy0 * (1 - fz) + dxy1 * fz
-    return torch.where(inb, out, torch.zeros_like(out))
+    return dxy0 * (1 - fz) + dxy1 * fz, inb
+
+
+def world_potential_lookup(wp: WorldPotential, points):
+    """Trilinear potential lookup, out-of-grid => 0. points [P,3] -> [P]."""
+    out, inb = _world_trilinear(wp.data[..., None], wp.origin, wp.delta,
+                                points)
+    return torch.where(inb, out[..., 0], torch.zeros_like(out[..., 0]))
+
+
+class WorldField(NamedTuple):
+    """Scene-fused 5-channel CHOMP field on a world-frame grid
+    (``cfg.sdf_fused``): ``data5[x, y, z] = [pot, gx, gy, gz, mindist]``,
+    the hinge potential and its world-frame gradient summed over enabled
+    objects, and ``min_o (value_o - clearance_o)`` (``mindist < 0`` is the
+    per-point collide flag for non-overlapping objects).  One trilinear
+    read per point replaces the per-object query; the bake resolution and
+    single counting of points inside several objects are its deviations
+    from the exact query."""
+
+    data5: torch.Tensor   # [X, Y, Z, 5]
+    origin: torch.Tensor  # [3]
+    delta: torch.Tensor   # scalar
+
+
+def _fuse_objects(value, pot, g_world, keep, clearances):
+    """[P, 5] field cells from per-object values, hinge potentials and
+    world gradients [O, P(, 3)]; the min-distance channel is capped at 1e3
+    so a scene with every object disabled stays finite."""
+    zero = torch.zeros((), dtype=pot.dtype, device=pot.device)
+    pot_sum = torch.where(keep, pot, zero).sum(0)
+    grad_sum = torch.where(keep[..., None], g_world, zero).sum(0)
+    mind = torch.where(keep, value - clearances[:, None],
+                       torch.full_like(value, torch.inf)).amin(0)
+    mind = torch.clamp(mind, max=1e3)
+    return torch.cat([pot_sum[:, None], grad_sum, mind[:, None]], dim=-1)
+
+
+def _bake_field(bounds, resolution, chunk, device, body) -> WorldField:
+    """Run ``body`` over the world grid's cell centres, at most ``chunk``
+    cells at a time, into one ``[X, Y, Z, 5]`` field."""
+    dims, cells = _world_cells(bounds, resolution, device)
+    out = torch.empty((cells.shape[0], 5), dtype=torch.float32,
+                      device=device)
+    for s in range(0, cells.shape[0], chunk):
+        out[s:s + chunk] = body(cells[s:s + chunk])
+    return WorldField(
+        data5=out.reshape(*dims, 5),
+        origin=torch.as_tensor(bounds[0], dtype=torch.float32,
+                               device=device),
+        delta=torch.tensor(resolution, dtype=torch.float32, device=device))
+
+
+def bake_world_field(scene: BakedSceneSDF, inv_poses, epsilons,
+                     padding_scales, clearances, disables,
+                     resolution: float = 0.01, bounds=WORLD_BOUNDS,
+                     chunk: int = 131072) -> WorldField:
+    """The fused field of a data-backed scene: a nearest-cell (``floor``)
+    read of the baked 4-channel stack per (cell, object), out of volume
+    (1.0, 0), then the hinge and the object reduction."""
+    vcells = int(np.prod(scene.data4.shape[1:4]))
+    flat4 = scene.data4.reshape(-1, 4)
+    r = inv_poses[:, :3, :3]
+    keep = (disables <= 0)[:, None]
+
+    def body(c):
+        _, pts_obj = _to_object_frame(inv_poses, c)
+        lin, inb = _nearest_cells(scene.limits, vcells, pts_obj)
+        v4 = flat4[lin]                                     # [O, P, 4]
+        value = torch.where(inb, v4[..., 0], torch.ones_like(v4[..., 0]))
+        g_obj = torch.where(inb[..., None], v4[..., 1:],
+                            torch.zeros_like(v4[..., 1:]))
+        pot, gscale = _hinge(value, epsilons, padding_scales)
+        g_world = torch.einsum("oba,opb->opa", r, g_obj * gscale[..., None])
+        return _fuse_objects(value, pot, g_world, keep, clearances)
+
+    return _bake_field(bounds, resolution, chunk, inv_poses.device, body)
+
+
+def bake_world_field_analytic(kinds, halfs, penals, limits, inv_poses,
+                              epsilons, padding_scales, clearances, disables,
+                              dims_actual, resolution: float = 0.01,
+                              bounds=WORLD_BOUNDS, chunk: int = 262144,
+                              snap: bool = True) -> WorldField:
+    """The fused field of a primitive scene, with no voxel stack.
+
+    ``snap=True`` (parity mode) reproduces :func:`bake_world_field` on the
+    stack the primitives would voxelise to: the value at the point's
+    nearest object cell is the primitive SDF at that cell's centre (+1.0
+    outside the object's own dims), the gradient the one-cell central
+    differences of those values.  ``snap=False`` (the production fused
+    backend) evaluates the true SDF at the world cell centre and its
+    world-frame central difference at ``h = resolution / 2``."""
+    r = inv_poses[:, :3, :3]
+    mn = limits[:, 0:3]
+    mx = limits[:, 3:6]
+    dpad = limits[:, 6:9]
+    delta = limits[:, 9]
+    da = dims_actual
+    keep = (disables <= 0)[:, None]
+
+    def sdf(p):
+        return _analytic_sdf_points(kinds, halfs, penals, p)
+
+    def pval(idx):
+        """Stack value at integer cell ``idx [O, P, 3]`` (float): the SDF at
+        the cell centre inside the actual dims, else 1.0.  The centre is
+        rounded once from float64, as :func:`_synth_stack` rounds the
+        stack's, so both read the same values."""
+        ok = torch.all((idx >= 0) & (idx < da[:, None, :].to(idx.dtype)),
+                       dim=-1)
+        center = (mn[:, None, :].double() + (idx + 0.5).double()
+                  * delta[:, None, None].double()).float()
+        return torch.where(ok, sdf(center), torch.ones_like(idx[..., 0]))
+
+    def body(c):
+        _, pts_obj = _to_object_frame(inv_poses, c)
+        if snap:
+            pg = ((pts_obj - mn[:, None, :]) / (mx - mn)[:, None, :]
+                  * dpad[:, None, :])
+            idx = torch.floor(pg)
+            inb = torch.all((idx >= 0) & (idx < dpad[:, None, :]), dim=-1)
+            value = torch.where(inb, pval(idx), torch.ones_like(pg[..., 0]))
+            eye = torch.eye(3, dtype=idx.dtype, device=idx.device)
+            g_obj = torch.stack(
+                [0.5 * (pval(idx + eye[a]) - pval(idx - eye[a]))
+                 / delta[:, None] for a in range(3)], dim=-1)
+            g_obj = torch.where(inb[..., None], g_obj,
+                                torch.zeros_like(g_obj))
+        else:
+            value = sdf(pts_obj)
+            h = 0.5 * resolution
+            # a world offset h * e_a is the object-frame offset h * R[:, a]
+            g_sdf = torch.stack(
+                [(sdf(pts_obj + h * r[:, None, :, a])
+                  - sdf(pts_obj - h * r[:, None, :, a])) / (2.0 * h)
+                 for a in range(3)], dim=-1)              # world frame
+        pot, gscale = _hinge(value, epsilons, padding_scales)
+        if snap:
+            g_world = torch.einsum("oba,opb->opa", r,
+                                   g_obj * gscale[..., None])
+        else:
+            g_world = g_sdf * gscale[..., None]
+        return _fuse_objects(value, pot, g_world, keep, clearances)
+
+    return _bake_field(bounds, resolution, chunk, inv_poses.device, body)
+
+
+def world_field_query(wf: WorldField, points):
+    """Trilinear 5-channel read: (pot [P], grad [P, 3], collide [P]).
+    Out of the grid is free space (0, 0, no collision)."""
+    out, inb = _world_trilinear(wf.data5, wf.origin, wf.delta, points)
+    zero = torch.zeros((), dtype=out.dtype, device=out.device)
+    pot = torch.where(inb, out[..., 0], zero)
+    grad = torch.where(inb[..., None], out[..., 1:4], zero)
+    collide = torch.where(inb, (out[..., 4] < 0.0).to(out.dtype), zero)
+    return pot, grad, collide

@@ -192,10 +192,12 @@ def plan_cascade_suite(scenes, base_cfg: OMGConfig,
                     sc.env.stage_scene(pad_to)
                     if bi > 0 and sid in cached_problems:
                         # IK is backend independent: swap in this backend's
-                        # scene and learner field, keep the goal set
+                        # scene, learner field and fused field, keep the
+                        # goal set
                         pr = cached_problems[sid]._replace(
                             scene=pad_scene(sc.env.scene_sdf(), max_obj),
-                            world_potential=sc._world_potential())
+                            world_potential=sc._world_potential(),
+                            world_field=sc._world_field())
                     else:
                         pr = pad_objects(
                             sc.build_problem(assume_goals=True), max_obj)

@@ -7,10 +7,11 @@
   C-space wrist-flip augmentation -> task-space rotation/downward filters
   -> batched collision pruning -> greedy diversity dedupe -> random sample.
 
-Randomness: the prune-cap subsample and the final sample are Gumbel top-k
-draws.  The port draws the Gumbel noise from a ``torch.Generator``; a
-caller (the parity tests) may pass ``gumbel_fn(tag, n)`` to supply the
-noise instead, ``tag`` being ``"prune"`` or ``"sample"``.
+Randomness: the ``increment_iks`` reseed, the prune-cap subsample and the
+final sample are Gumbel top-k draws.  The port draws the Gumbel noise from
+a ``torch.Generator``; a caller (the parity tests) may pass
+``gumbel_fn(tag, n)`` to supply the noise instead, ``tag`` being
+``"increment"``, ``"prune"`` or ``"sample"``.
 """
 
 from __future__ import annotations
@@ -237,7 +238,27 @@ def build_goal_set(model, cfg: OMGConfig, scene, params: CostParams,
         grasp_valid=grasp_valid)
 
     if cfg.increment_iks:
-        raise NotImplementedError("increment_iks is not ported yet")
+        # second pass reseeded from up to 10 Gumbel-sampled successful
+        # standoff configurations (reference ``increment_iks``,
+        # ``omg/planner.py:436-441``); skipped, with zero invalid lanes of
+        # the same shape, when the first pass already fills the goal cap
+        g = gumbel_fn("increment", valid.shape[0])
+        vals, top = top_k(torch.where(valid, g,
+                                      torch.full_like(g, -torch.inf)), 10)
+        extra = torch.where(torch.isfinite(vals)[:, None],
+                            take_rows(standoff, top)[:, :7], seeds[0][None])
+        if host_bool(valid.sum() < cfg.goal_set_max_num):
+            reach2, standoff2, valid2, _ = solve(
+                model, cfg, grasp_poses_world, extra, lo[:7], hi[:7],
+                attached, grasp_valid=grasp_valid)
+        else:
+            k = ik_ops.solve_lanes(cfg, grasp_poses_world.shape[0], 10)
+            reach2 = reach.new_zeros((k,) + reach.shape[1:])
+            standoff2 = standoff.new_zeros((k,) + standoff.shape[1:])
+            valid2 = valid.new_zeros(k)
+        reach = torch.cat([reach, reach2])
+        standoff = torch.cat([standoff, standoff2])
+        valid = torch.cat([valid, valid2])
 
     if cfg.augment_flip_grasp and not attached:
         flip_standoff, ok1 = flip_wrist(standoff, cfg)

@@ -23,33 +23,36 @@ from ..config import OMGConfig, schedule_weights
 from ..ops import chomp
 from ..ops import learner as ol
 from ..ops.chomp import CostInfo, CostParams, GoalSet
-from ..ops.sdf import WorldPotential
+from ..ops.sdf import WorldField, WorldPotential
 from ..utils.linalg import top_k
 from ..utils.spline import cubic_interpolate, linear_interpolate
 from ..utils.sync import host_bool
 
 
 class PlanProblem(NamedTuple):
-    """Everything a single plan needs, as tensors on one device."""
+    """Everything a single plan needs, as tensors on one device (D is the
+    model's dof: 9 for the Panda)."""
 
-    start: torch.Tensor        # [9]
-    end: torch.Tensor          # [9] staged initial goal
-    traj_init: torch.Tensor    # [T, 9]
+    start: torch.Tensor        # [D]
+    end: torch.Tensor          # [D] staged initial goal
+    traj_init: torch.Tensor    # [T, D]
     goal_set: GoalSet
-    scene: object              # AnalyticScene | BakedSceneSDF
+    scene: object              # AnalyticScene | BakedSceneSDF | SceneSDF
     cost_params: CostParams
-    joint_lower: torch.Tensor  # [9] soft limits
-    joint_upper: torch.Tensor  # [9]
+    joint_lower: torch.Tensor  # [D] soft limits
+    joint_upper: torch.Tensor  # [D]
     world_potential: WorldPotential  # learner scoring field
-    world_field: object = None  # fused CHOMP field: not ported (sdf_fused)
+    # scene-fused CHOMP collision field (cfg.sdf_fused; None = the
+    # per-object query)
+    world_field: WorldField | None = None
 
 
 class PlanResult(NamedTuple):
-    traj: torch.Tensor          # [T, 9] final trajectory
+    traj: torch.Tensor          # [T, D] final trajectory
     goal_idx: torch.Tensor
     info: CostInfo              # final-step info
     info_history: CostInfo      # stacked [S] (plan) / final info (plan_fast)
-    history: torch.Tensor       # [S, T, 9]
+    history: torch.Tensor       # [S, T, D]
     selected_goals: torch.Tensor  # [S]
     steps_used: torch.Tensor
     flag: torch.Tensor          # True => SUCCESS ("BE GENTLE")
@@ -76,7 +79,7 @@ def _where_tree(cond, a, b):
 
 
 def _chosen_goal(cfg: OMGConfig, goal_set: GoalSet, goal_idx):
-    """(termination goal [9], projection tail [k, 9])."""
+    """(termination goal [D], projection tail [k, D])."""
     grasp = goal_set.grasps[goal_idx]
     tail = goal_set.reach_grasps[goal_idx] if cfg.use_standoff \
         else grasp[None]
@@ -93,7 +96,8 @@ def _evaluate(model, cfg, hp, problem: PlanProblem, traj, goal_idx, step):
     _, grad, info = chomp.compute_total_loss(
         model, problem.scene, problem.cost_params, cfg, hp, traj,
         problem.start, goal if cfg.goal_set_proj else problem.end,
-        goal, obstacle_w, smooth_w)
+        goal, obstacle_w, smooth_w,
+        world_field=problem.world_field if cfg.sdf_fused else None)
     over_limit = chomp.check_joint_limit(
         traj, problem.joint_lower, problem.joint_upper)
     info = info._replace(violate_limit=over_limit,

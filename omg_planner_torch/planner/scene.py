@@ -21,9 +21,12 @@ from .. import resolve_device
 from ..config import OMGConfig
 from ..io.assets import (DEFAULT_END, DEFAULT_START, SceneObject,
                          synthetic_tabletop_scene)
+from ..models import api as model_api
 from ..models import panda
 from ..ops.chomp import CostParams, GoalSet
-from ..ops.sdf import (AnalyticScene, WorldPotential, bake_world_potential,
+from ..ops.sdf import (AnalyticScene, WorldField, WorldPotential,
+                       analytic_prim_arrays, bake_scene, bake_world_field,
+                       bake_world_field_analytic, bake_world_potential,
                        bake_world_potential_analytic, make_analytic_scene,
                        stage_scene_sdfs)
 from ..utils.sync import host_int
@@ -40,8 +43,7 @@ def _f32(a, device) -> torch.Tensor:
 class Env:
     """Scene container (reference ``Env``, ``omg/core.py:243-411``)."""
 
-    def __init__(self, cfg: OMGConfig, model: panda.PandaModel | None = None,
-                 device=None):
+    def __init__(self, cfg: OMGConfig, model=None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model if model is not None else panda.load_panda(
@@ -61,6 +63,10 @@ class Env:
     def set_target(self, name: str):
         self.target_idx = self.names.index(name)
         self.objects[self.target_idx].compute_grasp = True
+        self.version += 1
+
+    def update_pose(self, name: str, pose_mat: np.ndarray):
+        self.objects[self.names.index(name)].update_pose(pose_mat)
         self.version += 1
 
     @property
@@ -193,6 +199,7 @@ class PlanningScene:
         # it finds marked instead of rebuilding it (and clears the mark)
         self._staged_fresh = False
         self._wp_cache = None
+        self._wf_cache = None
         self._n_valid_goals = 0
         # host syncs of the last staging + plan of the pipelined runner
         self.dispatch_syncs = 0
@@ -231,13 +238,15 @@ class PlanningScene:
         (reference ``load_goal_from_scene``, ``omg/planner.py:155-174``)."""
         g = self.cfg.goal_set_max_num
         n = min(len(goals), g)
-        grasps = np.zeros((g, 9), np.float32)
+        dof = model_api.dof(self.model)
+        grasps = np.zeros((g, dof), np.float32)
         grasps[:n] = goals[:n]
         if reach_grasps is None:
             tails = np.repeat(grasps[:, None, :],
                               self.cfg.reach_tail_length, axis=1)
         else:
-            tails = np.zeros((g, self.cfg.reach_tail_length, 9), np.float32)
+            tails = np.zeros((g, self.cfg.reach_tail_length, dof),
+                             np.float32)
             tails[:n] = reach_grasps[:n]
         mask = np.zeros(g, bool)
         mask[:n] = True
@@ -324,10 +333,10 @@ class PlanningScene:
                     goal_set = self.build_goal_set()
                     self._staged = (self._staged_key(), goal_set, None)
         else:
-            g = cfg.goal_set_max_num
+            g, dof = cfg.goal_set_max_num, model_api.dof(self.model)
             goal_set = GoalSet(
-                grasps=torch.zeros((g, 9), device=d),
-                reach_grasps=torch.zeros((g, cfg.reach_tail_length, 9),
+                grasps=torch.zeros((g, dof), device=d),
+                reach_grasps=torch.zeros((g, cfg.reach_tail_length, dof),
                                          device=d),
                 mask=torch.zeros(g, dtype=torch.bool, device=d),
                 potentials=torch.zeros(g, device=d))
@@ -358,21 +367,49 @@ class PlanningScene:
             world_potential=self._world_potential(),
             world_field=self._world_field())
 
-    def _world_field(self):
-        """The fused CHOMP field of ``cfg.sdf_fused``: not ported, so a
-        data-backed scene under it raises (an analytic scene ignores the
-        flag, as in the JAX package)."""
-        if self.cfg.sdf_fused and not isinstance(self.env.scene_sdf(),
-                                                 AnalyticScene):
-            raise NotImplementedError(
-                "the fused world field (sdf_fused=True) is not ported yet")
-        return None
+    def _world_field(self) -> WorldField | None:
+        """The fused CHOMP field of ``cfg.sdf_fused``, cached per (env
+        version, ``cfg.jit_key()``); None when the flag is off and on an
+        analytic scene (the grid-free query is exact there).  Primitive
+        scenes bake the true SDF at the world cells (``snap=False``);
+        data-backed ones read the baked stack at the nearest cell."""
+        cfg = self.cfg
+        if not cfg.sdf_fused:
+            return None
+        scene = self.env.scene_sdf()
+        if isinstance(scene, AnalyticScene):
+            return None
+        key = (self.env.version, cfg.jit_key())
+        if self._wf_cache is not None and self._wf_cache[0] == key:
+            return self._wf_cache[1]
+        params = self.env.cost_params()
+        prims = analytic_prim_arrays([o.sdf for o in self.env.objects])
+        if prims is not None:
+            kinds, halfs, pens, _, _, dims_act, limits, _ = prims
+
+            def t(a):
+                return torch.as_tensor(a, device=self.device)
+
+            wf = bake_world_field_analytic(
+                t(kinds), t(halfs), t(pens), t(limits), params.inv_poses,
+                params.epsilons, params.padding_scales, params.clearances,
+                params.disables, t(dims_act),
+                resolution=cfg.world_field_resolution, snap=False)
+        else:
+            wf = bake_world_field(
+                bake_scene(scene), params.inv_poses, params.epsilons,
+                params.padding_scales, params.clearances, params.disables,
+                resolution=cfg.world_field_resolution)
+        self._wf_cache = (key, wf)
+        return wf
 
     def _world_potential(self) -> WorldPotential:
         """Scene-fused learner scoring field, cached per (env version,
         ``cfg.jit_key()``); a 1-cell dummy for analytic scenes (the learner
-        queries the true SDF there) and when the field is off.  A primitive
-        scene on the grid backend bakes it from the true primitive SDF."""
+        queries the true SDF there) and when the field is off.  Under
+        ``sdf_fused`` it is a view of the fused field's potential channel
+        (one bake serves both); otherwise a primitive scene on the grid
+        backend bakes it from the true primitive SDF."""
         cfg = self.cfg
         scene = self.env.scene_sdf()
         d = self.device
@@ -381,7 +418,10 @@ class PlanningScene:
             return WorldPotential(data=torch.zeros((2, 2, 2), device=d),
                                   origin=torch.zeros(3, device=d),
                                   delta=torch.tensor(1.0, device=d))
-        self._world_field()
+        if cfg.sdf_fused:
+            wf = self._world_field()
+            return WorldPotential(data=wf.data5[..., 0], origin=wf.origin,
+                                  delta=wf.delta)
         key = (self.env.version, cfg.jit_key())
         if self._wp_cache is not None and self._wp_cache[0] == key:
             return self._wp_cache[1]
@@ -401,6 +441,27 @@ class PlanningScene:
         return wp
 
     # -- planning ---------------------------------------------------------
+    def plan_fresh(self):
+        """Fresh-scene path of the planning service: the goal-set build,
+        the initial goal and spline, and the early-termination plan in one
+        call, with no host read of the valid-goal count (the JAX package's
+        one-dispatch ``_plan_fresh_fn``).  Fills the staged cache so the
+        next request takes the repeat path.  Returns ``(result,
+        goal_mask)`` as device tensors (the caller harvests and checks the
+        mask for an empty goal set), or None where the general path is
+        needed: a dynamic horizon, goal-set projection off, precomputed
+        goals or external grasps."""
+        self._sync_env_cfg()
+        cfg = self.cfg
+        if (cfg.dynamic_timestep or not cfg.goal_set_proj
+                or self._precomputed_goals is not None
+                or self.external_grasps is not None):
+            return None
+        self._staged = None
+        problem = self.build_problem(assume_goals=True)
+        res = plan_mod.plan_fast(self.model, cfg, problem)
+        return res, problem.goal_set.mask
+
     def step(self, fast: bool = False, traj_init: np.ndarray | None = None,
              goal_mask: np.ndarray | None = None):
         """One full plan (reference ``PlanningScene.step``,
@@ -440,3 +501,19 @@ class PlanningScene:
         self.history_trajectories = list(result.history)
         self.info = result
         return result
+
+    # -- attachment API for pick-and-place (trial.py:68-185) --------------
+    def attach_target(self, hand_q: np.ndarray):
+        """Attach the target to the hand at configuration ``hand_q``."""
+        hand = model_api.tip_pose(self.model, _f32(hand_q, self.device))
+        t = self.env.target
+        t.rel_hand_pose = np.linalg.inv(hand.cpu().numpy()) @ t.pose_mat
+        t.attached = True
+        self.env._scene_sdf = None
+        self.env.version += 1
+
+    def detach_target(self):
+        self.env.target.attached = False
+        self.env.target.rel_hand_pose = None
+        self.env._scene_sdf = None
+        self.env.version += 1

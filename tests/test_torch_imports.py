@@ -1,7 +1,8 @@
 """Import hygiene and device rules of the port.
 
-* ``omg_planner_torch`` (every module), ``chip_smoke.py`` and
-  ``bench_torch.py`` import neither ``jax`` nor ``omg_planner_tpu``:
+* ``omg_planner_torch`` (every module: ``models/chain.py``,
+  ``planner/tasks.py`` and ``apps/serve.py`` among them), ``chip_smoke.py``
+  and ``bench_torch.py`` import neither ``jax`` nor ``omg_planner_tpu``:
   checked in a fresh interpreter, since this test process has JAX loaded
   by ``tests/conftest.py``.
 * Entry points run on ``cuda`` unless the caller passes a device; with no
@@ -52,7 +53,7 @@ def test_port_imports_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n) >= 20  # every module of the package was imported
+    assert int(n) >= 30  # every module of the package was imported
     assert bad == "[]", bad
 
 
@@ -97,6 +98,29 @@ def test_entry_points_need_a_device_without_gpu(no_gpu, tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
     assert Env(cfg, device="cpu").device == torch.device("cpu")
     assert panda.load_panda(15, "cpu").device == torch.device("cpu")
+
+
+def test_service_and_chain_need_a_device_without_gpu(no_gpu):
+    """The planning service (``make_server``, the serve ``main``) and the
+    URDF chain loader raise without a GPU unless the CPU is asked for."""
+    from omg_planner_torch.apps import serve
+    from omg_planner_torch.models import chain
+
+    urdf = ('<robot name="r"><link name="a"/><link name="b"/>'
+            '<joint name="j" type="revolute"><parent link="a"/>'
+            '<child link="b"/><axis xyz="0 0 1"/></joint></robot>')
+    cfg = OMGConfig(silent=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.make_server(0, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--port", "0"])
+    with pytest.raises(RuntimeError):
+        serve.plan_request({"objects": []}, cfg)
+    with pytest.raises(RuntimeError):
+        chain.load_urdf_chain(urdf, "a", "b")
+    srv = serve.make_server(0, cfg, device="cpu")
+    srv.server_close()
+    assert chain.load_urdf_chain(urdf, "a", "b", device="cpu").num_dof == 1
 
 
 def test_chip_smoke_fails_without_gpu_or_package(tmp_path):
