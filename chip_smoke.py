@@ -45,14 +45,26 @@ Phases (any failure exits non-zero; no phase is skipped):
 12. the task layer on synthetic scene 0 at full width: a grasp plan
     (``plan_to_target``), then ``place_target`` (flag, steps, achieved
     pose);
-13. the planning service (``apps/serve.py``) in a thread on a free port:
+13. physics execution on suite scene 0 at full width: its plan executed
+    by ``execute_plan`` (one ``rigid_rollout`` launch, no other kernel);
+    the kernel against ``rollout_plain`` on the same inputs (same reward,
+    final position within 5 mm, the settle phase within 1e-5 m), timed as
+    runs of back-to-back launches with the SM clock sampled, the plain
+    version timed once; ``NativePanda.step(200)``; and ``python -m
+    omg_planner_torch.apps.phys_exec --scenes 8`` as a subprocess, its
+    per-scene rewards beside ``docs/phys_exec_r05_base.json``'s (at least 6
+    lifts among the 7 scenes that plan there);
+14. the planning service (``apps/serve.py``) in a thread on a free port:
     ``/health``, ``/plan`` twice (fresh, then warm: ``stage_s``,
     ``plan_s`` and host syncs per request; the warm one builds no goal
     set), ``/plan_batch`` of two scenes at depth 2 and ``/execute``
-    (must answer 501); any other status fails.
+    (200 with ``execution.reward``); any other status fails.
 
+Each phase from 10 on runs with the launch counts set to 0 and checks
+them after: ``rigid_rollout`` must launch on the physics and service
+phases and no kernel elsewhere; ``min_dist_grid`` launches only in phase 7.
 The line before the last is a JSON object listing every kernel with its
-launches on the main path, error, times and bound; the last line is
+launches on its path, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -78,6 +90,8 @@ from omg_planner_torch.ops import kernels
 from omg_planner_torch.ops import sdf as sdf_mod
 from omg_planner_torch.ops.chomp import CostParams, GoalSet
 from omg_planner_torch.ops.pointsdf import grid_cells, grid_layout
+from omg_planner_torch.physics import executor, rigid
+from omg_planner_torch.physics.panda_ctrl import HOME_POSE, NativePanda
 from omg_planner_torch.planner import plan as plan_mod
 from omg_planner_torch.planner import tasks
 from omg_planner_torch.planner.runner import SuiteRunner
@@ -101,6 +115,16 @@ HBM_BYTES = 3.35e12
 MIN_DIST_FLOPS_PER_PAIR = 8
 # the observed cloud's point cap (``__main__.observe_obstacles``)
 CAP_POINTS = 3072
+# flops that one substep of rigid_rollout cannot avoid, by item (fp32,
+# counted from rigid.py's formulas): each robot sphere and each pad sample
+# is moved into the body frame and queried (SDF + gradient + normal), each
+# body surface sample against every static; each active lane's set-up
+# (tangent basis, three effective masses, C alignment dots), each Jacobi
+# iteration per active lane and per body (patch brakes, 3 x 3 products),
+# each pseudo iteration per active lane and per body
+ROLLOUT_FLOPS = dict(robot=100, pad=130, world_static=60, lane_setup=120,
+                     lane_align=7, lane_iter=70, body_iter=150,
+                     lane_pseudo=35, body_pseudo=25)
 SMALL_CFG = OMGConfig(optim_steps=10, extra_smooth_steps=3,
                       goal_set_max_num=12, ik_seed_num=4, ik_max_iters=30,
                       learner_interp_steps=10, silent=True)
@@ -149,14 +173,14 @@ def time_launches(fn, launches: int = 50, runs: int = 5,
     return float(np.median(times))
 
 
-def clocks_under_load(fn) -> str:
+def clocks_under_load(fn, calls: int = 50) -> str:
     """``clocks.sm, power.draw, power.limit`` from nvidia-smi, sampled while
-    runs of 50 calls of ``fn`` keep the card busy."""
+    runs of ``calls`` calls of ``fn`` keep the card busy."""
     proc = subprocess.Popen(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
          "--format=csv,noheader"], stdout=subprocess.PIPE, text=True)
     while proc.poll() is None:
-        for _ in range(50):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     out, _ = proc.communicate()
@@ -709,6 +733,175 @@ def phase_tasks(dev):
         check_traj(res.traj, scene.model, "tasks place plan")
 
 
+def _rollout_flops(inputs, traces, iters: int) -> float:
+    """The flops one rollout cannot avoid on these inputs (the
+    ``ROLLOUT_FLOPS`` counts, with each substep's active lanes read from
+    the traces)."""
+    f = ROLLOUT_FLOPS
+    k = inputs["sph_track"].shape[-2]
+    sp2 = 2 * inputs["pad_samples"].shape[1]
+    s = inputs["spec"].surf.shape[0]
+    o = inputs["world"].kinds.shape[0]
+    c = (min(48, k) + min(32, sp2) + min(48, s))
+    active = (traces["robot_contacts"] + traces["world_contacts"]).reshape(
+        -1).double().cpu().numpy()
+    per_cand = f["robot"] * k + f["pad"] * sp2 + f["world_static"] * s * o
+    per_lane = (f["lane_setup"] + f["lane_align"] * c + iters * f["lane_iter"]
+                + max(iters // 4, 4) * f["lane_pseudo"])
+    per_body = iters * f["body_iter"] + max(iters // 4, 4) * f["body_pseudo"]
+    return float(len(active) * (per_cand + per_body)
+                 + per_lane * active.sum())
+
+
+def _rollout_bytes(inputs, t: int) -> int:
+    """Bytes a rollout must move: every input read once, the final state and
+    the 19-float trace row of each substep written once."""
+    n = sum(v.numel() * v.element_size() for v in inputs.values()
+            if isinstance(v, torch.Tensor))
+    for box in (inputs["spec"], inputs["world"], inputs["pp"],
+                inputs["state0"]):
+        n += sum(v.numel() * v.element_size() for v in box
+                 if isinstance(v, torch.Tensor))
+    return n + 4 * (13 + 19 * t)
+
+
+def phase_physics(dev):
+    """Suite scene 0's plan executed at full width, the kernel against its
+    plain version, ``NativePanda`` and the ``phys_exec`` app; returns the
+    ``rigid_rollout`` kernel entry."""
+    scene = PlanningScene.from_npz(OMGConfig(silent=True),
+                                   os.path.join(SUITE, "scene_0.npz"),
+                                   device=dev)
+    res = scene.step(fast=True)
+    if res is None or not bool(res.flag):
+        raise AssertionError("physics: suite scene 0 did not plan")
+    traj = np.asarray(res.traj)
+    _sync(dev)
+
+    # the main path: one executed plan
+    reset_counts()
+    t0 = time.time()
+    rep = executor.execute_plan(scene, traj)
+    _sync(dev)
+    wall_ms = (time.time() - t0) * 1e3
+    launches = kernels.rigid_rollout.launches
+    log(f"physics execute_plan suite scene 0: {rep.to_dict()}, "
+        f"{wall_ms:.1f} ms, rigid_rollout launches {launches}")
+    if launches != 1 or kernels.min_dist_grid.launches:
+        raise AssertionError("physics: execute_plan must launch rigid_rollout "
+                             "once and nothing else")
+    if not np.isfinite(list(rep.to_dict().values())).all():
+        raise AssertionError(f"physics: non-finite report {rep}")
+
+    # the kernel against its plain version on the same inputs
+    setup = executor.pick_setup(scene, traj)
+    inputs = setup.inputs
+    args, _ = rigid._defaults(
+        *(inputs[k] for k in ("state0", "sph_track", "is_finger",
+                              "pad_track", "pad_samples", "pad_axis",
+                              "jv_track", "jv_ref")))
+    batched = (inputs["spec"], inputs["world"], inputs["pp"], *args)
+
+    def run():
+        return kernels.rigid_rollout(*batched, iters=96)
+
+    fk, tk = run()
+    _sync(dev)
+    t0 = time.time()
+    fp, tp = rigid.rollout_plain(*batched, iters=96)
+    _sync(dev)
+    plain_ms = (time.time() - t0) * 1e3
+    rk = executor.pick_report(setup, *rigid._unbatch(fk, tk, True))
+    rp = executor.pick_report(setup, *rigid._unbatch(fp, tp, True))
+    settle = 30
+    gap_settle = float((tk["x"][:, :settle] - tp["x"][:, :settle]).abs().max())
+    gap_final = float((fk.x - fp.x).norm())
+    err = float((tk["x"] - tp["x"]).abs().max())
+    log(f"rigid_rollout against rollout_plain, suite scene 0 "
+        f"({tk['x'].shape[1]} substeps): reward {rk.reward} / {rp.reward}, "
+        f"final |x gap| {gap_final:.3e} m (bar 5e-3), settle max|x gap| "
+        f"{gap_settle:.3e} m (bar 1e-5), whole-trace max|x gap| {err:.3e} m, "
+        f"lifted {rk.lifted_m:.4f} / {rp.lifted_m:.4f} m, hand_dist "
+        f"{rk.hand_dist_m:.4f} / {rp.hand_dist_m:.4f} m, finger_stop "
+        f"{rk.finger_stop_m:.5f} / {rp.finger_stop_m:.5f} m")
+    if (rk.reward != rp.reward or not gap_final <= 5e-3
+            or not gap_settle <= 1e-5):
+        raise AssertionError("rigid_rollout disagrees with rollout_plain")
+
+    ms = time_launches(run, launches=5, runs=5, warmup=1)
+    smi = clocks_under_load(run, calls=5)
+    t = tk["x"].shape[1]
+    flops = _rollout_flops(inputs, tk, 96)
+    nbytes = _rollout_bytes(inputs, t)
+    op_ms, byte_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    bound = max(op_ms, byte_ms)
+    log(f"rigid_rollout timing (B=1, T={t}, K={inputs['sph_track'].shape[1]},"
+        f" Sp={inputs['pad_samples'].shape[1]}, S="
+        f"{inputs['spec'].surf.shape[0]}, O={inputs['world'].kinds.shape[0]},"
+        f" C=128, iters=96): kernel {ms:.3f} ms (median of 5 runs of 5 "
+        f"launches), {1e3 * ms / t:.1f} us a substep; roofline bound "
+        f"{bound:.5f} ms ({flops:.3e} flop, {nbytes} B); plain {plain_ms:.1f}"
+        f" ms; under load clocks.sm, power.draw, power.limit = {smi}")
+    entry = dict(name="rigid_rollout", route="cuda",
+                 source="omg_planner_torch/csrc/rigid_rollout.cu",
+                 replaces="omg_planner_tpu/physics/rigid.py:857",
+                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound,
+                 bound_by="operations" if op_ms >= byte_ms else "bytes",
+                 library_ms=None, share_of_bound=bound / ms,
+                 sm_clock_mhz=float(smi.split()[0]))
+
+    robot = NativePanda(device=dev)
+    robot.step(2)
+    _sync(dev)
+    t0 = time.time()
+    robot.step(200)
+    _sync(dev)
+    hold = float(np.abs(robot.q - HOME_POSE).max())
+    log(f"NativePanda.step(200) (position hold at home, 1 ms substeps): "
+        f"{time.time() - t0:.2f} s, max|q - home| {hold:.2e} rad")
+    if not (np.isfinite(robot.q).all() and hold < 1e-2):
+        raise AssertionError("NativePanda did not hold its pose")
+
+    _phase_phys_exec()
+    return entry
+
+
+def _phase_phys_exec():
+    """``apps/phys_exec.py --scenes 8`` in a subprocess, beside the JAX
+    package's record of the same scenes."""
+    with open(os.path.join(ROOT, "docs", "phys_exec_r05_base.json")) as f:
+        ref = {r["scene"]: r for r in json.load(f)["scenes"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "phys_exec.json")
+        t0 = time.time()
+        out = subprocess.run(
+            [sys.executable, "-m", "omg_planner_torch.apps.phys_exec",
+             "--scenes", "8", "--out", out_path],
+            capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if out.returncode != 0:
+            log(out.stderr[-3000:])
+            raise AssertionError(f"phys_exec exited {out.returncode}")
+        with open(out_path) as f:
+            report = json.load(f)
+    log(f"phys_exec --scenes 8 ({time.time() - t0:.1f} s with start-up): "
+        f"{json.dumps({k: v for k, v in report.items() if k != 'scenes'})}")
+    planned_ref = [s for s in range(8) if ref[s].get("plan_flag")]
+    lifts = 0
+    for row in report["scenes"]:
+        sid, r = row["scene"], ref[row["scene"]]
+        log(f"  scene {sid}: port plan {row.get('plan_flag')} reward "
+            f"{row['reward']} lifted {row.get('lifted_m', 0):.4f} exec "
+            f"{row.get('exec_wall_s', 0)} s | JAX record plan "
+            f"{r.get('plan_flag')} reward {r['reward']} lifted "
+            f"{r.get('lifted_m', 0):.4f}")
+        lifts += int(sid in planned_ref and row["reward"] == 1)
+    log(f"phys_exec: {lifts} lifts among the {len(planned_ref)} scenes that "
+        f"plan in the JAX record (bar 6)")
+    if lifts < 6:
+        raise AssertionError(f"phys_exec: {lifts} lifts, bar 6")
+
+
 def _scene_body(y=0.1):
     return {"objects": [
         {"name": "table", "kind": "box", "extents": [0.9, 1.2, 0.04],
@@ -778,8 +971,13 @@ def phase_serve(dev):
             f"{[r['flag'] for r in out['results']]}, "
             f"{out['plans_per_s']} plans/s, request {ms:.1f} ms, {syncs} "
             f"host syncs")
-        out, _, _ = call("/execute", _scene_body(), want=501)
-        log(f"serve /execute: 501 {out}")
+        out, ms, syncs = call("/execute", _scene_body())
+        ex = out.get("execution", {})
+        log(f"serve /execute: flag {out['flag']}, execution {ex}, exec_s "
+            f"{out['timings'].get('exec_s')}, request {ms:.1f} ms, {syncs} "
+            f"host syncs")
+        if "reward" not in ex or "exec_s" not in out["timings"]:
+            raise AssertionError(f"serve /execute: no execution: {out}")
     finally:
         srv.shutdown()
         srv.server_close()
@@ -807,14 +1005,25 @@ def main() -> int:
     entry["launches"] = timed("perception", phase_perception, "cuda")
     timed("suite runner", phase_suite_runner, "cuda")
     timed("bench", phase_bench)
+    # phases from here on: the kernels each path must launch
+    expect = {"fused": (), "chain": (), "tasks": (),
+              "physics": ("rigid_rollout",), "serve": ("rigid_rollout",)}
+    entries = [entry]
     for name, fn in (("fused", phase_fused), ("chain", phase_chain),
-                     ("tasks", phase_tasks), ("serve", phase_serve)):
+                     ("tasks", phase_tasks), ("physics", phase_physics),
+                     ("serve", phase_serve)):
         reset_counts()
-        timed(name, fn, "cuda")
-        if any(k.launches for k in kernels.KERNELS.values()):
-            raise AssertionError(f"a kernel launched on the {name} path")
+        out = timed(name, fn, "cuda")
+        if name == "physics":
+            entries.append(out)
+        counts = {k: fn_.launches for k, fn_ in kernels.KERNELS.items()}
+        log(f"[{name} launches: {counts}]")
+        for k, n in counts.items():
+            if (k in expect[name]) != (n > 0):
+                raise AssertionError(f"{k} launched {n} times on the {name} "
+                                     "path")
     log(f"total {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

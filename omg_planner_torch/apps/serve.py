@@ -34,8 +34,15 @@ plans anyway); response keys and status codes are the JAX service's:
 * ``POST /plan_batch`` -> ``{"scenes": [<plan body>, ...],
   "pipeline_depth": int}`` through the pipelined runner
   (``planner/runner.py::plan_pipelined``).
-* ``POST /execute`` answers 501: physics execution is not ported yet
-  (``ROADMAP.md``).
+* ``POST /execute`` -> a ``/plan`` body (plus optional ``"density"`` and
+  ``"exec_retries"``): plans, then executes the plan in the rigid-body
+  stepper on the service's device (on a GPU one launch of the
+  ``rigid_rollout`` kernel) and adds ``execution`` (the lift scorecard,
+  ``physics.executor.PhysExecReport``) and ``timings.exec_s``.
+  ``exec_retries > 0`` runs execution-verified planning
+  (``planner/exec_verify.py``): the response then carries the verified
+  (possibly re-planned) trajectory and ``execution.verified`` /
+  ``execution.exec_attempts``.
 """
 
 from __future__ import annotations
@@ -55,9 +62,6 @@ from ..io.assets import make_primitive
 from ..planner.plan import plan_fast
 from ..planner.runner import PackedResult, plan_pipelined
 from ..planner.scene import PlanningScene
-
-EXECUTE_NOT_PORTED = "physics execution is not ported yet (ROADMAP.md)"
-
 
 def _build_scene(cfg: OMGConfig, spec: dict, device) -> PlanningScene:
     objs = []
@@ -159,8 +163,50 @@ def plan_request(body: dict, base_cfg: OMGConfig,
 
 def execute_request(body: dict, base_cfg: OMGConfig,
                     device=None) -> tuple[int, dict]:
-    """/execute: plan and replay in physics, which is not ported yet."""
-    return 501, {"error": EXECUTE_NOT_PORTED}
+    """Handle /execute: plan, then replay the plan in the rigid-body
+    stepper (:mod:`omg_planner_torch.physics`) and attach the lift-reward
+    scorecard, so a client can gate on the simulated grasp.  Body knob
+    ``"exec_retries"`` (default 0) enables execution-verified planning."""
+    retries = int(body.get("exec_retries", 0))
+    code, payload = plan_request(body, base_cfg, device)
+    if code != 200:
+        return code, payload
+    if not payload["flag"]:
+        payload["execution"] = {"reward": 0, "skipped": "plan failed"}
+        return 200, payload
+    from ..physics import NoMassModelError, execute_plan
+
+    cfg, _ = _request_cfg(body, base_cfg)
+    scene = _cached_scene(cfg, body, resolve_device(device))  # staged
+    t0 = time.time()
+    density = float(body.get("density", 300.0))
+    try:
+        if retries > 0:
+            from ..planner.exec_verify import plan_execute_verified
+
+            out = plan_execute_verified(scene, exec_retries=retries,
+                                        density=density)
+            if out is not None and out.report is not None:
+                payload["execution"] = dict(
+                    out.report.to_dict(), verified=out.verified,
+                    exec_attempts=out.exec_attempts)
+                # the verified (possibly re-planned) trajectory is the one
+                # the client should execute
+                payload["traj"] = np.asarray(out.result.traj).tolist()
+                payload["flag"] = bool(np.asarray(out.result.flag))
+                payload["goal_idx"] = int(np.asarray(out.result.goal_idx))
+            else:
+                reason = (out.reason if out is not None
+                          else "re-plan refused (IK FAIL)")
+                payload["execution"] = {"reward": 0, "skipped": reason}
+        else:
+            rep = execute_plan(scene, np.asarray(payload["traj"]),
+                               density=density)
+            payload["execution"] = rep.to_dict()
+    except NoMassModelError as e:            # no mass model for this target
+        payload["execution"] = {"reward": 0, "skipped": str(e)}
+    payload["timings"]["exec_s"] = round(time.time() - t0, 4)
+    return 200, payload
 
 
 def plan_batch_request(body: dict, base_cfg: OMGConfig,

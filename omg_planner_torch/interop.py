@@ -15,12 +15,15 @@ from .models.panda import PandaModel
 from .ops.chomp import CostParams, GoalSet
 from .ops.sdf import (AnalyticScene, BakedSceneSDF, SceneSDF, WorldField,
                       WorldPotential)
+from .physics.rigid import BodyState, PhysParams, RigidBodySpec, StaticWorld
 from .planner.plan import PlanProblem
 
 
-def to_tensor(a, device) -> torch.Tensor:
+def to_tensor(a, device) -> torch.Tensor | None:
     """numpy (or scalar, or tensor) -> tensor on ``device``; floats become
-    float32, integer and bool arrays keep their type."""
+    float32, integer and bool arrays keep their type; None stays None."""
+    if a is None:
+        return None
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().numpy()
     a = np.array(a)  # a writable copy
@@ -75,3 +78,21 @@ def plan_problem(x, device) -> PlanProblem:
         joint_upper=to_tensor(x.joint_upper, device),
         world_potential=world_potential(x.world_potential, device),
         world_field=None if wf is None else world_field(wf, device))
+
+
+def phys_params(x, device) -> PhysParams:
+    return convert(x, PhysParams, device)
+
+
+def rigid_body_spec(x, device) -> RigidBodySpec:
+    return convert(x, RigidBodySpec, device)
+
+
+def static_world(x, device) -> StaticWorld:
+    """StaticWorld, the optional grid colliders (None) included."""
+    return StaticWorld(**{f: to_tensor(getattr(x, f, None), device)
+                          for f in StaticWorld._fields})
+
+
+def body_state(x, device) -> BodyState:
+    return convert(x, BodyState, device)

@@ -150,10 +150,12 @@ def forward_kinematics(model: PandaModel, q: torch.Tensor,
         cur = pre @ _rotz_mat(q[i]) @ model.chain_post[i]
         links.append(cur)
     hand = links[6] @ model.pose_0[7]
-    lf = model.pose_0[8].clone()
-    lf[1, 3] += q[7]
-    rf = model.pose_0[9].clone()
-    rf[1, 3] -= q[8]
+    # the finger offsets as out-of-place sums, so torch.func transforms
+    # (physics/dynamics.py) can differentiate through them
+    e13 = torch.zeros(4, 4, dtype=q.dtype, device=q.device)
+    e13[1, 3] = 1.0
+    lf = model.pose_0[8] + q[7] * e13
+    rf = model.pose_0[9] - q[8] * e13
     links += [hand, hand @ lf, hand @ rf]
     out = torch.stack(links)
     if return_joint_info:

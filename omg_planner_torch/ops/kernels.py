@@ -14,6 +14,11 @@ Kernels:
 * :func:`min_dist_grid` (``csrc/min_dist_grid.cu``) — nearest-point
   distance of every grid cell, replacing the Pallas kernel
   ``omg_planner_tpu/ops/pallas_kernels.py::min_dist_grid``.
+* :func:`rigid_rollout` (``csrc/rigid_rollout.cu``) — the physics
+  executor's whole substep loop, one thread block per rollout.  It has no
+  Pallas counterpart (the JAX package runs that ``lax.scan`` in XLA on the
+  host CPU); its plain version is ``physics/rigid.py::rollout_plain``, and
+  ``physics/rigid.py::rollout`` picks one or the other by device.
 """
 
 from __future__ import annotations
@@ -40,6 +45,10 @@ _SOURCES = {
                               ctypes.c_void_p],
         "omg_min_dist_grid_layout": [ctypes.c_int, ctypes.c_int,
                                      ctypes.POINTER(ctypes.c_int)],
+    },
+    "rigid_rollout.cu": {
+        "omg_rigid_rollout": [ctypes.POINTER(ctypes.c_void_p),
+                              ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
     },
 }
 _ENTRIES: dict = {}
@@ -170,5 +179,128 @@ def min_dist_grid_layout(g: int, n: int) -> dict:
     return dict(zip(("blocks", "threads", "smem_bytes", "blocks_per_sm",
                      "sms", "units", "unit_cells"), info))
 
+
+def _dev_f32(name: str, t: torch.Tensor, device) -> torch.Tensor:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    return t.to(torch.float32).contiguous()
+
+
+def _rigid_rollout_pack(spec, world, pp, state0, sph_track, is_finger,
+                        pad_track, pad_samples, pad_axis, jv_track, jv_ref,
+                        k_robot, k_pad, k_world, iters):
+    """Check shapes and lay out the C entry point's arguments: (tensors to
+    keep alive, out_state [B, 13], out_trace [B, T, 19], the 23 pointers,
+    the 13 ints)."""
+    from ..physics.rigid import TRACE_FIELDS
+
+    dev = sph_track.device
+    b, t1, k = sph_track.shape[:3]
+    sp = pad_samples.shape[1]
+    s = spec.surf.shape[0]
+    if sph_track.shape != (b, t1, k, 3) or t1 < 2:
+        raise ValueError(f"sph_track must be [B, T+1, K, 3] with T >= 1, got "
+                         f"{tuple(sph_track.shape)}")
+    shapes = {"pad_track": (pad_track, (b, t1, 2, 4, 4)),
+              "pad_samples": (pad_samples, (2, sp, 3)),
+              "pad_axis": (pad_axis, (b, 2, 3)),
+              "jv_track": (jv_track, (b, t1, 2)), "jv_ref": (jv_ref, (b, 2)),
+              "is_finger": (is_finger, (k,))}
+    for name, (a, want) in shapes.items():
+        if tuple(a.shape) != want:
+            raise ValueError(f"{name} must be {want}, got {tuple(a.shape)}")
+    kr, kp, kw = min(k_robot, k), min(k_pad, 2 * sp), min(k_world, s)
+    if kr + kp + kw > 1024:
+        raise ValueError(f"rigid_rollout: {kr + kp + kw} contact lanes, "
+                         "at most 1024")
+
+    def f(name, a):
+        return _dev_f32(name, a, dev)
+
+    state = f("state0", torch.cat([state0.x, state0.q, state0.v, state0.w],
+                                  -1))
+    params = f("params", torch.cat([torch.stack(list(pp[:-1])),
+                                    pp.gravity]))
+    body = f("spec", torch.cat([spec.kind.to(torch.float32)[None],
+                                spec.half, spec.round[None],
+                                spec.inv_mass[None],
+                                spec.inv_inertia.reshape(9)]))
+    def f4(name, a):        # read as float4: 16-byte aligned rows of 4
+        a = f(name, a)
+        return a if a.data_ptr() % 16 == 0 else a.clone()
+
+    grid4 = f4("spec.grid4", spec.grid4)
+    n_grid = world.grid4.shape[0] if world.grid4 is not None else 0
+    empty = torch.zeros(0, dtype=torch.float32, device=dev)
+    wg = f4("world.grid4", world.grid4) if n_grid else empty
+    keep = [
+        f("sph_track", sph_track), f("is_finger", is_finger),
+        f("pad_track", pad_track), f("pad_samples", pad_samples),
+        f("pad_axis", pad_axis), f("jv_track", jv_track),
+        f("jv_ref", jv_ref), state, params, body, f("spec.surf", spec.surf),
+        grid4, f("spec.grid_limits", spec.grid_limits),
+        world.kinds.to(device=dev, dtype=torch.int32).contiguous(),
+        f("world.halfs", world.halfs), f("world.rounds", world.rounds),
+        f("world.inv_poses", world.inv_poses), f("world.mask", world.mask),
+        wg, f("world.grid_limits", world.grid_limits) if n_grid else empty,
+        f("world.grid_inv_poses", world.grid_inv_poses) if n_grid else empty,
+    ]
+    width = sum(n for _, n in TRACE_FIELDS)
+    out_state = torch.empty(b, 13, dtype=torch.float32, device=dev)
+    out_trace = torch.empty(b, t1 - 1, width, dtype=torch.float32,
+                            device=dev)
+    ptrs = (ctypes.c_void_p * 23)(*[a.data_ptr() for a in keep],
+                                   out_state.data_ptr(), out_trace.data_ptr())
+    dims = (ctypes.c_int * 13)(
+        b, t1 - 1, k, sp, s, world.kinds.shape[0], n_grid,
+        wg.shape[1] if n_grid else 0, grid4.shape[0], kr, kp, kw, iters)
+    return keep, out_state, out_trace, ptrs, dims
+
+
+def _rigid_rollout_unpack(out_state, out_trace):
+    """(final BodyState, traces) from the kernel's packed outputs."""
+    from ..physics.rigid import TRACE_FIELDS, BodyState
+
+    final = BodyState(x=out_state[:, 0:3], q=out_state[:, 3:7],
+                      v=out_state[:, 7:10], w=out_state[:, 10:13])
+    traces, at = {}, 0
+    for name, n in TRACE_FIELDS:
+        col = out_trace[..., at:at + n]
+        traces[name] = col[..., 0] if n == 1 else col
+        at += n
+    return final, traces
+
+
+def rigid_rollout(spec, world, pp, state0, sph_track, is_finger, pad_track,
+                  pad_samples, pad_axis, jv_track, jv_ref, k_robot: int = 48,
+                  k_pad: int = 32, k_world: int = 48, iters: int = 48):
+    """Launch the rollout kernel on CUDA tensors, batched as
+    ``physics/rigid.py::rollout`` documents (every argument given, leading
+    B on the state and the tracks).  One launch for the whole batch; raises
+    for tensors off the card (``rigid.rollout`` runs the plain version on
+    the CPU) and when the launch fails.  Returns (final BodyState,
+    traces)."""
+    dev = sph_track.device
+    if dev.type != "cuda":
+        raise ValueError(f"rigid_rollout: tensors on {dev}; the kernel runs "
+                         "on cuda (physics.rigid.rollout takes the plain "
+                         "version on the CPU)")
+    keep, out_state, out_trace, ptrs, dims = _rigid_rollout_pack(
+        spec, world, pp, state0, sph_track, is_finger, pad_track,
+        pad_samples, pad_axis, jv_track, jv_ref, k_robot, k_pad, k_world,
+        iters)
+    fn = _entry("rigid_rollout.cu", "omg_rigid_rollout")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(ptrs, dims, stream)
+    del keep  # the stream orders any reuse of these blocks after the launch
+    if status != 0:
+        raise RuntimeError(f"rigid_rollout launch failed: CUDA error {status}")
+    rigid_rollout.launches += 1
+    return _rigid_rollout_unpack(out_state, out_trace)
+
+
+rigid_rollout.launches = 0
+
 # every kernel wrapper of the package, for launch accounting
-KERNELS = {"min_dist_grid": min_dist_grid}
+KERNELS = {"min_dist_grid": min_dist_grid, "rigid_rollout": rigid_rollout}

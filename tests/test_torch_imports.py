@@ -1,7 +1,9 @@
 """Import hygiene and device rules of the port.
 
 * ``omg_planner_torch`` (every module: ``models/chain.py``,
-  ``planner/tasks.py`` and ``apps/serve.py`` among them), ``chip_smoke.py``
+  ``planner/tasks.py``, ``apps/serve.py``, ``physics/*``,
+  ``planner/exec_verify.py`` and ``apps/phys_exec.py`` among them),
+  ``chip_smoke.py``
   and ``bench_torch.py`` import neither ``jax`` nor ``omg_planner_tpu``:
   checked in a fresh interpreter, since this test process has JAX loaded
   by ``tests/conftest.py``.
@@ -53,7 +55,7 @@ def test_port_imports_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n) >= 30  # every module of the package was imported
+    assert int(n) >= 38  # every module of the package was imported
     assert bad == "[]", bad
 
 
@@ -121,6 +123,30 @@ def test_service_and_chain_need_a_device_without_gpu(no_gpu):
     srv = serve.make_server(0, cfg, device="cpu")
     srv.server_close()
     assert chain.load_urdf_chain(urdf, "a", "b", device="cpu").num_dof == 1
+
+
+def test_physics_needs_a_device_without_gpu(no_gpu):
+    """The physics entry points run on cuda unless told otherwise: the
+    solver constants, the body builders, ``NativePanda`` and the
+    ``phys_exec`` app raise without a GPU, and work on the CPU when asked."""
+    import numpy as np
+
+    from omg_planner_torch.apps import phys_exec
+    from omg_planner_torch.physics import rigid
+    from omg_planner_torch.physics.panda_ctrl import NativePanda
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rigid.default_params()
+    with pytest.raises(RuntimeError):
+        rigid.body_spec_from_primitive(0, np.full(3, 0.03))
+    with pytest.raises(RuntimeError):
+        NativePanda()
+    with pytest.raises(RuntimeError):
+        phys_exec.main(["--scenes", "1"])
+    with pytest.raises(NotImplementedError, match="viz/render.py"):
+        phys_exec.main(["--scenes", "1", "--cpu", "--video", "x.mp4"])
+    assert rigid.default_params(device="cpu").dt.device.type == "cpu"
+    assert NativePanda(device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_gpu_or_package(tmp_path):

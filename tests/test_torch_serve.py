@@ -1,7 +1,9 @@
 """The port's planning service (``omg_planner_torch/apps/serve.py``) on the
 CPU, mirroring ``tests/test_serve.py``: the same requests and every one of
 its assertions for ``/health``, ``/plan`` (fresh, then warm with a smaller
-``stage_s``), the 400s and ``/plan_batch``; ``/execute`` answers 501.
+``stage_s``), the 400s, ``/plan_batch`` and ``/execute`` (200, the lift
+scorecard under ``execution``, ``timings.exec_s``; the rollout runs as the
+plain loop on the CPU).
 
 Against the JAX service: the ``/plan`` response has exactly the JAX
 response's keys, and ``plan_request`` gives JAX's ``flag`` on the same
@@ -131,11 +133,14 @@ def test_serve_plan_roundtrip(server, monkeypatch):
     code6, _ = _post("/plan_batch", {"scenes": []})
     assert code6 == 400
 
-    # physics execution is a stated gap
+    # plan, then execute in the rigid-body stepper
     code7, out7 = _post("/execute", _scene_body())
-    assert code7 == 501
-    assert out7 == {"error": "physics execution is not ported yet "
-                             "(ROADMAP.md)"}
+    assert code7 == 200, out7
+    assert out7["execution"]["reward"] in (0, 1)
+    assert out7["timings"]["exec_s"] > 0
+    if out7["flag"]:
+        assert set(out7["execution"]) >= {"lifted_m", "hand_dist_m",
+                                          "grasp_impulse"}
     assert _post("/nowhere", {})[0] == 404
 
 
