@@ -765,10 +765,10 @@ def _rollout_bytes(inputs, t: int) -> int:
     return n + 4 * (13 + 19 * t)
 
 
-def phase_physics(dev):
-    """Suite scene 0's plan executed at full width, the kernel against its
-    plain version, ``NativePanda`` and the ``phys_exec`` app; returns the
-    ``rigid_rollout`` kernel entry."""
+def _pick(dev):
+    """Suite scene 0 planned at full width and its pick rollout's inputs:
+    (scene, trajectory, PickSetup, the batched arguments of
+    ``kernels.rigid_rollout``)."""
     scene = PlanningScene.from_npz(OMGConfig(silent=True),
                                    os.path.join(SUITE, "scene_0.npz"),
                                    device=dev)
@@ -776,7 +776,84 @@ def phase_physics(dev):
     if res is None or not bool(res.flag):
         raise AssertionError("physics: suite scene 0 did not plan")
     traj = np.asarray(res.traj)
+    setup = executor.pick_setup(scene, traj)
+    inputs = setup.inputs
+    args, _ = rigid._defaults(
+        *(inputs[k] for k in ("state0", "sph_track", "is_finger",
+                              "pad_track", "pad_samples", "pad_axis",
+                              "jv_track", "jv_ref")))
     _sync(dev)
+    return scene, traj, setup, (inputs["spec"], inputs["world"],
+                                inputs["pp"], *args)
+
+
+def rollout_cycles(batched, what: str) -> dict:
+    """One launch of the profile build (``kernels.rigid_rollout_cycles``)
+    on ``batched``: clock64() cycles per substep in each phase, logged and
+    returned by phase name."""
+    _, tr, cyc = kernels.rigid_rollout_cycles(*batched, iters=96)
+    torch.cuda.synchronize()
+    t = tr["x"].shape[1]
+    per = (cyc[0].double() / t).cpu().numpy()
+    out = dict(zip(kernels.ROLLOUT_PHASES, per.tolist()))
+    log(f"rigid_rollout cycles per substep by phase, {what} ({t} substeps, "
+        f"profile build): " + ", ".join(f"{k} {v:.0f}" for k, v in
+                                         out.items())
+        + f"; total {per.sum():.0f}")
+    return out
+
+
+def _place(scene, traj):
+    """A placement rollout's batched inputs on suite scene 0: the target
+    held at the pick plan's grasp and carried back along the reversed plan
+    (``executor.place_setup``'s 923 substeps at its defaults)."""
+    scene.attach_target(traj[-1])
+    rel = scene.env.target.rel_hand_pose.copy()
+    scene.detach_target()
+    setup = executor.place_setup(scene, np.ascontiguousarray(traj[::-1]),
+                                 rel)
+    inputs = setup.inputs
+    return (inputs["spec"], inputs["world"], inputs["pp"],
+            *rigid._defaults(*(inputs[k] for k in (
+                "state0", "sph_track", "is_finger", "pad_track",
+                "pad_samples", "pad_axis", "jv_track", "jv_ref")))[0])
+
+
+def rollout_profile(scene, traj, batched, what: str) -> dict:
+    """The rollout kernel's numbers on suite scene 0: the pick rollout's
+    time (median of 5 runs of 5 back-to-back launches) with the SM clock
+    sampled under load, the profile build's cycles by phase, and one
+    placement rollout's time (median of 3 runs of 2 launches)."""
+    def run():
+        return kernels.rigid_rollout(*batched, iters=96)
+
+    ms = time_launches(run, launches=5, runs=5, warmup=1)
+    smi = clocks_under_load(run, calls=5)
+    t = batched[4].shape[1] - 1
+    log(f"rigid_rollout pick, {what} (B=1, T={t}, K={batched[4].shape[2]}, "
+        f"Sp={batched[7].shape[1]}, S={batched[0].surf.shape[0]}, "
+        f"O={batched[1].kinds.shape[0]}, C=128, iters=96): {ms:.3f} ms "
+        f"(median of 5 runs of 5 launches), {1e3 * ms / t:.2f} us a "
+        f"substep; under load clocks.sm, power.draw, power.limit = {smi}")
+    cycles = rollout_cycles(batched, what)
+    placed = _place(scene, traj)
+    t_place = placed[4].shape[1] - 1
+    place_ms = time_launches(
+        lambda: kernels.rigid_rollout(*placed, iters=96), launches=2,
+        runs=3, warmup=1)
+    log(f"rigid_rollout placement, {what} (T={t_place}): {place_ms:.3f} ms "
+        f"(median of 3 runs of 2 launches), {1e3 * place_ms / t_place:.2f} "
+        f"us a substep")
+    return dict(ms=ms, sm_clock_mhz=float(smi.split()[0]), cycles=cycles,
+                place_ms=place_ms)
+
+
+def phase_physics(dev):
+    """Suite scene 0's plan executed at full width, the kernel against its
+    plain version, ``NativePanda`` and the ``phys_exec`` app; returns the
+    ``rigid_rollout`` kernel entry."""
+    scene, traj, setup, batched = _pick(dev)
+    inputs = setup.inputs
 
     # the main path: one executed plan
     reset_counts()
@@ -794,14 +871,6 @@ def phase_physics(dev):
         raise AssertionError(f"physics: non-finite report {rep}")
 
     # the kernel against its plain version on the same inputs
-    setup = executor.pick_setup(scene, traj)
-    inputs = setup.inputs
-    args, _ = rigid._defaults(
-        *(inputs[k] for k in ("state0", "sph_track", "is_finger",
-                              "pad_track", "pad_samples", "pad_axis",
-                              "jv_track", "jv_ref")))
-    batched = (inputs["spec"], inputs["world"], inputs["pp"], *args)
-
     def run():
         return kernels.rigid_rollout(*batched, iters=96)
 
@@ -828,20 +897,39 @@ def phase_physics(dev):
             or not gap_settle <= 1e-5):
         raise AssertionError("rigid_rollout disagrees with rollout_plain")
 
-    ms = time_launches(run, launches=5, runs=5, warmup=1)
-    smi = clocks_under_load(run, calls=5)
+    # a batch of two different states in one launch, bit for bit the two
+    # single launches
+    other = batched[3]._replace(x=batched[3].x + torch.tensor(
+        [0.0, 0.0, 0.02], device=dev))
+    pair = (*batched[:3], rigid.BodyState(*(torch.cat([a, b]) for a, b in
+                                            zip(batched[3], other))),
+            *(torch.cat([a, a]) for a in batched[4:5]), batched[5],
+            *(torch.cat([a, a]) for a in batched[6:7]), batched[7],
+            *(torch.cat([a, a]) for a in batched[8:]))
+    f2, t2 = kernels.rigid_rollout(*pair, iters=96)
+    f1, t1 = kernels.rigid_rollout(*batched[:3], other, *batched[4:],
+                                   iters=96)
+    _sync(dev)
+    same = all(torch.equal(t2[k][0], tk[k][0]) and torch.equal(t2[k][1],
+                                                                t1[k][0])
+               for k in tk) and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], c[0])
+        for a, b, c in zip(f2, fk, f1))
+    log(f"rigid_rollout B=2 (scene 0's pick, and its state raised 2 cm) "
+        f"against two B=1 launches: {'bit-equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("rigid_rollout: a B=2 launch differs from two "
+                             "B=1 launches")
+
+    prof = rollout_profile(scene, traj, batched, "this kernel")
     t = tk["x"].shape[1]
     flops = _rollout_flops(inputs, tk, 96)
     nbytes = _rollout_bytes(inputs, t)
     op_ms, byte_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
     bound = max(op_ms, byte_ms)
-    log(f"rigid_rollout timing (B=1, T={t}, K={inputs['sph_track'].shape[1]},"
-        f" Sp={inputs['pad_samples'].shape[1]}, S="
-        f"{inputs['spec'].surf.shape[0]}, O={inputs['world'].kinds.shape[0]},"
-        f" C=128, iters=96): kernel {ms:.3f} ms (median of 5 runs of 5 "
-        f"launches), {1e3 * ms / t:.1f} us a substep; roofline bound "
-        f"{bound:.5f} ms ({flops:.3e} flop, {nbytes} B); plain {plain_ms:.1f}"
-        f" ms; under load clocks.sm, power.draw, power.limit = {smi}")
+    log(f"rigid_rollout roofline bound {bound:.5f} ms ({flops:.3e} flop, "
+        f"{nbytes} B); plain {plain_ms:.1f} ms")
+    ms = prof["ms"]
     entry = dict(name="rigid_rollout", route="cuda",
                  source="omg_planner_torch/csrc/rigid_rollout.cu",
                  replaces="omg_planner_tpu/physics/rigid.py:857",
@@ -849,7 +937,8 @@ def phase_physics(dev):
                  bound_ms=bound,
                  bound_by="operations" if op_ms >= byte_ms else "bytes",
                  library_ms=None, share_of_bound=bound / ms,
-                 sm_clock_mhz=float(smi.split()[0]))
+                 sm_clock_mhz=prof["sm_clock_mhz"],
+                 place_ms=prof["place_ms"], cycles=prof["cycles"])
 
     robot = NativePanda(device=dev)
     robot.step(2)

@@ -46,11 +46,33 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+// -DOMG_ROLLOUT_CYCLES builds the profile library: Ptrs gains one output,
+// cycles [B, kPhases] (long long), where thread 0 adds the clock64() span
+// of each phase of every substep, and the entry point is
+// omg_rigid_rollout_cycles.  The main path never loads that build.
+#ifdef OMG_ROLLOUT_CYCLES
+#define OMG_ROLLOUT_ENTRY omg_rigid_rollout_cycles
+#define PHASE_MARK(i)                 \
+  do {                                \
+    const long long now_ = clock64(); \
+    cyc[i] += now_ - t_mark;          \
+    t_mark = now_;                    \
+  } while (0)
+#else
+#define OMG_ROLLOUT_ENTRY omg_rigid_rollout
+#define PHASE_MARK(i) \
+  do {                \
+  } while (0)
+#endif
+
 namespace {
 
 constexpr int kMaxWarps = 32;
 constexpr int kRed = 16;  // most floats in one block reduction
 constexpr int kTrace = 19;  // x3 v3 q4 w3 jv2 impulse robot# world# pad_pen
+// phases of a substep: scoring, rank, lane set-up (r1, r2v, r3), Jacobi,
+// pseudo pass, pools and integration
+constexpr int kPhases = 6;
 
 struct Ptrs {
   const float* sph;          // [B, T+1, K, 3]
@@ -77,6 +99,9 @@ struct Ptrs {
   const float* wg_inv;       // [Og, 4, 4]
   float* out_state;          // [B, 13]
   float* out_trace;          // [B, T, kTrace]
+#ifdef OMG_ROLLOUT_CYCLES
+  long long* cycles;         // [B, kPhases]
+#endif
 };
 
 struct Dims {
@@ -504,6 +529,11 @@ __global__ void rigid_rollout_kernel(Ptrs P, Dims D) {
   const float jv_ref[2] = {P.jv_ref[b * 2], P.jv_ref[b * 2 + 1]};
 
   for (int i = tid; i < 3 * NP; i += nthr) pool[i] = 0.f;
+#ifdef OMG_ROLLOUT_CYCLES
+  long long cyc[kPhases] = {0, 0, 0, 0, 0, 0};
+  __syncthreads();
+  long long t_mark = clock64();
+#endif
 
   for (int t = 0; t < D.T; ++t) {
     Frame fr;
@@ -537,6 +567,7 @@ __global__ void rigid_rollout_kernel(Ptrs P, Dims D) {
     }
     for (int c = tid; c < C; c += nthr) lane_src[c] = -1;
     block_reduce<2, true>(pmax, red, buf);  // also publishes the scores
+    PHASE_MARK(0);
 
     // finger motors: advance toward the command unless stalled
     const float* cmd = jvt + (t + 1) * 2;
@@ -570,6 +601,7 @@ __global__ void rigid_rollout_kernel(Ptrs P, Dims D) {
       if (rank < k) lane_src[lane0 + rank] = i;
     }
     __syncthreads();
+    PHASE_MARK(1);
 
     // 3. each lane's contact, recomputed from its candidate
     const int c = tid;
@@ -705,6 +737,7 @@ __global__ void rigid_rollout_kernel(Ptrs P, Dims D) {
       w = w + mv(i_inv, v3(r3[3], r3[4], r3[5]));
     }
 
+    PHASE_MARK(2);
     // 4. projected Jacobi
     V3 la = v3(0.f, 0.f, 0.f), ll = v3(0.f, 0.f, 0.f);
     for (int it = 0; it < D.iters; ++it) {
@@ -749,6 +782,7 @@ __global__ void rigid_rollout_kernel(Ptrs P, Dims D) {
       ln = ln_new, l1 = l1_new, l2 = l2_new, la = la_new, ll = ll_new;
     }
 
+    PHASE_MARK(3);
     // pseudo pass: split-impulse projection, finger contacts excluded
     const float bias = fminf(beta / dt * fmaxf(cd.pen - slop, 0.f),
                              v_depen_max) *
@@ -769,6 +803,7 @@ __global__ void rigid_rollout_kernel(Ptrs P, Dims D) {
       pl = pl_new;
     }
 
+    PHASE_MARK(4);
     // 5. diagnostics, new warm pools, damping, integration
     const bool hand = c < kr + kp;
     float r6[3] = {hand ? ln : 0.f, hand ? act : 0.f, hand ? 0.f : act};
@@ -810,6 +845,7 @@ __global__ void rigid_rollout_kernel(Ptrs P, Dims D) {
       o[15] = r6[0], o[16] = r6[1], o[17] = r6[2];
       o[18] = fmaxf(fmaxf(pmax[0], pmax[1]), 0.f);
     }
+    PHASE_MARK(5);
     // the next substep's first barrier orders these pool writes before
     // its reads
   }
@@ -819,6 +855,9 @@ __global__ void rigid_rollout_kernel(Ptrs P, Dims D) {
     o[3] = q[0], o[4] = q[1], o[5] = q[2], o[6] = q[3];
     o[7] = v.x, o[8] = v.y, o[9] = v.z;
     o[10] = w.x, o[11] = w.y, o[12] = w.z;
+#ifdef OMG_ROLLOUT_CYCLES
+    for (int i = 0; i < kPhases; ++i) P.cycles[b * kPhases + i] = cyc[i];
+#endif
   }
 }
 
@@ -829,10 +868,10 @@ size_t smem_bytes(const Dims& D) {
 
 }  // namespace
 
-// ptrs: the 23 device pointers of Ptrs in order; dims: the 13 ints of
-// Dims.  Launches on `stream`; returns the first CUDA error of the set-up,
-// or cudaGetLastError() after the launch.
-extern "C" int omg_rigid_rollout(void* const* ptrs, const int* dims,
+// ptrs: the 23 device pointers of Ptrs in order (24 in the profile
+// build); dims: the 13 ints of Dims.  Launches on `stream`; returns the
+// first CUDA error of the set-up, or cudaGetLastError() after the launch.
+extern "C" int OMG_ROLLOUT_ENTRY(void* const* ptrs, const int* dims,
                                  void* stream) {
   Ptrs P;
   void** dst = reinterpret_cast<void**>(&P);

@@ -37,19 +37,24 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "omg_torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-# source file -> {C entry point: argtypes}
-_SOURCES = {
-    "min_dist_grid.cu": {
+_ROLLOUT_ARGS = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                 ctypes.c_void_p]
+# library -> (source file, extra nvcc flags, {C entry point: argtypes}).
+# ``rigid_rollout_cycles`` is the rollout kernel built with its per-phase
+# cycle counters (``-DOMG_ROLLOUT_CYCLES``): a profile of the kernel, which
+# no wrapper of the main path loads.
+_LIBS = {
+    "min_dist_grid": ("min_dist_grid.cu", (), {
         "omg_min_dist_grid": [ctypes.c_void_p, ctypes.c_void_p,
                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                               ctypes.c_void_p],
         "omg_min_dist_grid_layout": [ctypes.c_int, ctypes.c_int,
                                      ctypes.POINTER(ctypes.c_int)],
-    },
-    "rigid_rollout.cu": {
-        "omg_rigid_rollout": [ctypes.POINTER(ctypes.c_void_p),
-                              ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
-    },
+    }),
+    "rigid_rollout": ("rigid_rollout.cu", (), {
+        "omg_rigid_rollout": _ROLLOUT_ARGS}),
+    "rigid_rollout_cycles": ("rigid_rollout.cu", ("-DOMG_ROLLOUT_CYCLES",), {
+        "omg_rigid_rollout_cycles": _ROLLOUT_ARGS}),
 }
 _ENTRIES: dict = {}
 
@@ -63,49 +68,52 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(src: str) -> str:
+def _lib_path(lib: str) -> str:
+    src, flags, _ = _LIBS[lib]
     with open(os.path.join(CSRC, src), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    stem = os.path.splitext(src)[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+        digest = hashlib.sha256(f.read() + " ".join(
+            NVCC_FLAGS + list(flags)).encode())
+    return os.path.join(BUILD_DIR, f"lib{lib}_{digest.hexdigest()[:16]}.so")
 
 
-def build(extra_flags: tuple = ()) -> dict:
-    """Compile every kernel source whose library is missing, one ``nvcc``
-    per source, all started together.  Returns {source: compiler output}
-    for the sources it built; raises if any build fails."""
+def build(extra_flags: tuple = (), libs=None) -> dict:
+    """Compile every library of ``libs`` (default: all) that is missing, or
+    all of them when ``extra_flags`` are given: one ``nvcc`` per library,
+    all started together.  Returns {library: compiler output} for the
+    libraries it built; raises if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
-    for src in _SOURCES:
-        out = _lib_path(src)
+    for lib in (_LIBS if libs is None else libs):
+        src, flags, _ = _LIBS[lib]
+        out = _lib_path(lib)
         if os.path.exists(out) and not extra_flags:
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp,
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, *extra_flags, "-o", tmp,
                os.path.join(CSRC, src)]
-        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[lib] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)
     logs = {}
-    for src, (proc, tmp, out) in procs.items():
+    for lib, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+            raise RuntimeError(f"nvcc failed on {lib}:\n{log}")
         os.replace(tmp, out)
-        logs[src] = log
+        logs[lib] = log
     return logs
 
 
-def _entry(src: str, name: str):
-    """The loaded C entry point ``name`` of ``src`` (building it if
+def _entry(lib: str, name: str):
+    """The loaded C entry point ``name`` of library ``lib`` (building it if
     needed)."""
     fn = _ENTRIES.get(name)
     if fn is None:
-        path = _lib_path(src)
+        path = _lib_path(lib)
         if not os.path.exists(path):
-            build()
+            build(libs=[lib])
         fn = getattr(ctypes.CDLL(path), name)
-        fn.argtypes = _SOURCES[src][name]
+        fn.argtypes = _LIBS[lib][2][name]
         fn.restype = ctypes.c_int
         _ENTRIES[name] = fn
     return fn
@@ -151,7 +159,7 @@ def min_dist_grid(grid: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     g, n = grid.shape[0], points.shape[0]
     if g >= 2**31 // 3 or n >= 2**31 // 3:
         raise ValueError("min_dist_grid: more than 2^31 coordinates")
-    fn = _entry("min_dist_grid.cu", "omg_min_dist_grid")
+    fn = _entry("min_dist_grid", "omg_min_dist_grid")
     out = torch.empty(g, dtype=torch.float32, device=grid.device)
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -172,7 +180,7 @@ def min_dist_grid_layout(g: int, n: int) -> dict:
     threads per block, dynamic shared memory bytes, resident blocks per SM,
     SMs, warp units and cells per unit."""
     info = (ctypes.c_int * 7)()
-    fn = _entry("min_dist_grid.cu", "omg_min_dist_grid_layout")
+    fn = _entry("min_dist_grid", "omg_min_dist_grid_layout")
     status = fn(g, n, info)
     if status != 0:
         raise RuntimeError(f"min_dist_grid layout failed: CUDA error {status}")
@@ -271,6 +279,34 @@ def _rigid_rollout_unpack(out_state, out_trace):
     return final, traces
 
 
+def _launch_rollout(lib: str, name: str, args, kw, cycles: bool = False):
+    """Pack, launch ``name`` of ``lib`` on the current stream, unpack;
+    with ``cycles`` the launch also fills the [B, 6] int64 per-phase cycle
+    counts of the profile build (appended to the pointers)."""
+    dev = args[4].device
+    if dev.type != "cuda":
+        raise ValueError(f"rigid_rollout: tensors on {dev}; the kernel runs "
+                         "on cuda (physics.rigid.rollout takes the plain "
+                         "version on the CPU)")
+    keep, out_state, out_trace, ptrs, dims = _rigid_rollout_pack(
+        *args, kw.get("k_robot", 48), kw.get("k_pad", 32),
+        kw.get("k_world", 48), kw.get("iters", 48))
+    out_cyc = None
+    if cycles:
+        out_cyc = torch.zeros(dims[0], len(ROLLOUT_PHASES), dtype=torch.int64,
+                              device=dev)
+        ptrs = (ctypes.c_void_p * (len(ptrs) + 1))(*ptrs,
+                                                   out_cyc.data_ptr())
+    fn = _entry(lib, name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(ptrs, dims, stream)
+    del keep  # the stream orders any reuse of these blocks after the launch
+    if status != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {status}")
+    return _rigid_rollout_unpack(out_state, out_trace), out_cyc
+
+
 def rigid_rollout(spec, world, pp, state0, sph_track, is_finger, pad_track,
                   pad_samples, pad_axis, jv_track, jv_ref, k_robot: int = 48,
                   k_pad: int = 32, k_world: int = 48, iters: int = 48):
@@ -280,27 +316,35 @@ def rigid_rollout(spec, world, pp, state0, sph_track, is_finger, pad_track,
     for tensors off the card (``rigid.rollout`` runs the plain version on
     the CPU) and when the launch fails.  Returns (final BodyState,
     traces)."""
-    dev = sph_track.device
-    if dev.type != "cuda":
-        raise ValueError(f"rigid_rollout: tensors on {dev}; the kernel runs "
-                         "on cuda (physics.rigid.rollout takes the plain "
-                         "version on the CPU)")
-    keep, out_state, out_trace, ptrs, dims = _rigid_rollout_pack(
-        spec, world, pp, state0, sph_track, is_finger, pad_track,
-        pad_samples, pad_axis, jv_track, jv_ref, k_robot, k_pad, k_world,
-        iters)
-    fn = _entry("rigid_rollout.cu", "omg_rigid_rollout")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(ptrs, dims, stream)
-    del keep  # the stream orders any reuse of these blocks after the launch
-    if status != 0:
-        raise RuntimeError(f"rigid_rollout launch failed: CUDA error {status}")
+    out, _ = _launch_rollout(
+        "rigid_rollout", "omg_rigid_rollout",
+        (spec, world, pp, state0, sph_track, is_finger, pad_track,
+         pad_samples, pad_axis, jv_track, jv_ref),
+        dict(k_robot=k_robot, k_pad=k_pad, k_world=k_world, iters=iters))
     rigid_rollout.launches += 1
-    return _rigid_rollout_unpack(out_state, out_trace)
+    return out
 
 
 rigid_rollout.launches = 0
+
+#: the phases of a substep that the profile build times, in its order
+ROLLOUT_PHASES = ("scoring", "rank", "lane_setup", "jacobi", "pseudo",
+                  "pools_integration")
+
+
+def rigid_rollout_cycles(*args, **kw):
+    """The profile build of the rollout kernel (``-DOMG_ROLLOUT_CYCLES``,
+    its own library) on the arguments of :func:`rigid_rollout`: the same
+    rollout, plus the ``clock64()`` cycles that each block spent in each
+    phase of :data:`ROLLOUT_PHASES`, summed over the substeps, [B, 6]
+    int64.  A measurement tool, not a path of the package: it is never
+    counted as a launch of ``rigid_rollout``.  Returns (final, traces,
+    cycles)."""
+    (final, traces), cyc = _launch_rollout(
+        "rigid_rollout_cycles", "omg_rigid_rollout_cycles", args, kw,
+        cycles=True)
+    return final, traces, cyc
+
 
 # every kernel wrapper of the package, for launch accounting
 KERNELS = {"min_dist_grid": min_dist_grid, "rigid_rollout": rigid_rollout}

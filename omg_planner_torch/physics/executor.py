@@ -421,22 +421,24 @@ def _finger_hold_width(model, spec: rigid.RigidBodySpec, q9: np.ndarray,
     return float(grid[ok.max()]) if len(ok) else 0.0
 
 
-def execute_place(scene, traj: np.ndarray, place_pose: np.ndarray,
-                  rel_hand_pose: np.ndarray, params=None,
-                  density: float = 300.0, sub_plan: int = 24,
-                  settle: int = 30, open_steps: int = 90,
-                  retract_height: float = 0.1, retract_stages: int = 4,
-                  sub_lift: int = 12, pad_statics: int = 0, iters: int = 96,
-                  tol_xy: float = 0.05, tol_z: float = 0.05,
-                  return_trace: bool = False):
-    """Execute a placement plan and score it: the object starts in the
-    grip (held pose = hand(traj[0]) @ ``rel_hand_pose``), rides the
-    playback under gravity, is released and must come to rest within
-    tolerance of ``place_pose`` (reference ``real_world/trial.py:68-185``).
+class PlaceSetup(NamedTuple):
+    """Everything :func:`execute_place` builds before its rollout."""
 
-    Reward = horizontal error < ``tol_xy`` and vertical error < ``tol_z``
-    and settled (final speed < 5 cm/s); ``carried`` = still at its
-    attach-relative pose (within 5 cm) when the playback ends."""
+    model: object
+    inputs: dict            # keyword arguments of rigid.rollout
+    configs: np.ndarray     # [T+1, 9] configuration track
+    playback_end: int
+    release_end: int
+    com: np.ndarray         # [3] COM in the object's own frame
+
+
+def place_setup(scene, traj: np.ndarray, rel_hand_pose: np.ndarray,
+                params=None, density: float = 300.0, sub_plan: int = 24,
+                settle: int = 30, open_steps: int = 90,
+                retract_height: float = 0.1, retract_stages: int = 4,
+                sub_lift: int = 12, pad_statics: int = 0) -> PlaceSetup:
+    """The body, world, tracks and initial state of :func:`execute_place`'s
+    rollout (its arguments as there)."""
     dev = scene.device
     env = scene.env
     model = _phys_model(dev)
@@ -476,10 +478,37 @@ def execute_place(scene, traj: np.ndarray, place_pose: np.ndarray,
         v=torch.zeros(3, device=dev), w=torch.zeros(3, device=dev))
     pad_center, pad_samples = _pad_geometry(model)
     pad_axis = _pad_axes(model, traj[0])
-    final, trace = rigid.rollout(**_rollout_inputs(
+    inputs = _rollout_inputs(
         model, spec, world, pp, _f32(configs, dev), state0, pad_center,
         pad_samples, _f32(pad_axis, dev), _f32(jv_cmd, dev),
-        _f32(jv_ref, dev)), iters=iters)
+        _f32(jv_ref, dev))
+    return PlaceSetup(model, inputs, configs, playback_end, release_end, com)
+
+
+def execute_place(scene, traj: np.ndarray, place_pose: np.ndarray,
+                  rel_hand_pose: np.ndarray, params=None,
+                  density: float = 300.0, sub_plan: int = 24,
+                  settle: int = 30, open_steps: int = 90,
+                  retract_height: float = 0.1, retract_stages: int = 4,
+                  sub_lift: int = 12, pad_statics: int = 0, iters: int = 96,
+                  tol_xy: float = 0.05, tol_z: float = 0.05,
+                  return_trace: bool = False):
+    """Execute a placement plan and score it: the object starts in the
+    grip (held pose = hand(traj[0]) @ ``rel_hand_pose``), rides the
+    playback under gravity, is released and must come to rest within
+    tolerance of ``place_pose`` (reference ``real_world/trial.py:68-185``).
+
+    Reward = horizontal error < ``tol_xy`` and vertical error < ``tol_z``
+    and settled (final speed < 5 cm/s); ``carried`` = still at its
+    attach-relative pose (within 5 cm) when the playback ends."""
+    setup = place_setup(scene, traj, rel_hand_pose, params, density,
+                        sub_plan, settle, open_steps, retract_height,
+                        retract_stages, sub_lift, pad_statics)
+    model, com = setup.model, setup.com
+    configs = setup.configs
+    playback_end, release_end = setup.playback_end, setup.release_end
+    dev = scene.device
+    final, trace = rigid.rollout(**setup.inputs, iters=iters)
 
     xs = trace["x"].cpu().numpy()
     x_end = final.x.cpu().numpy()

@@ -486,6 +486,8 @@ class PlanningScene:
             if not cfg.silent:
                 print("planning not run... (empty goal set)")
             return None
+        if cfg.report_time:
+            print(f"goal set num: {n_valid}")
         t0 = time.time()
         fn = plan_mod.plan_fast if fast else plan_mod.plan
         result = fn(self.model, cfg, problem)
@@ -500,7 +502,25 @@ class PlanningScene:
                   f"Length: {len(result.traj)}")
         self.history_trajectories = list(result.history)
         self.info = result
+        if self.cfg.report_cost and result.info_history is not None:
+            self.report_cost(result)
         return result
+
+    def report_cost(self, result):
+        """Per-iteration cost table (reference ``Optimizer.report``,
+        ``omg/optimizer.py:23-57``) from the host copy of
+        ``result.info_history``."""
+        ih = result.info_history
+        steps = int(result.steps_used)
+        for t in range(min(steps, len(np.atleast_1d(ih.cost)))):
+            print(
+                f"step {t:3d} | obs {float(ih.obs[t]):8.3f} "
+                f"smooth {float(ih.smooth[t]):8.3f} "
+                f"cost {float(ih.cost[t]):8.3f} | "
+                f"grad {float(ih.grad_norm[t]):7.3f} "
+                f"collide {float(ih.collide[t]):4.0f} "
+                f"reach {float(ih.reach[t]):6.4f} "
+                f"violate {bool(ih.violate_limit[t])}")
 
     # -- attachment API for pick-and-place (trial.py:68-185) --------------
     def attach_target(self, hand_q: np.ndarray):
