@@ -48,12 +48,16 @@ Phases (any failure exits non-zero; no phase is skipped):
 13. physics execution on suite scene 0 at full width: its plan executed
     by ``execute_plan`` (one ``rigid_rollout`` launch, no other kernel);
     the kernel against ``rollout_plain`` on the same inputs (same reward,
-    final position within 5 mm, the settle phase within 1e-5 m), timed as
-    runs of back-to-back launches with the SM clock sampled, the plain
-    version timed once; ``NativePanda.step(200)``; and ``python -m
-    omg_planner_torch.apps.phys_exec --scenes 8`` as a subprocess, its
-    per-scene rewards beside ``docs/phys_exec_r05_base.json``'s (at least 6
-    lifts among the 7 scenes that plan there);
+    final position within 5 mm, the settle phase within 1e-5 m); a B = 2
+    launch bit for bit equal to two B = 1 launches; the pick rollout timed
+    as runs of back-to-back launches with the SM clock sampled, the plain
+    version timed once, one placement rollout (923 substeps) timed, and
+    the profile build's cycles by phase; ``NativePanda.step(200)``; and
+    ``python -m omg_planner_torch.apps.phys_exec`` (its 30 scenes) as a
+    subprocess: the reward rate on the scenes the port plans at least
+    0.893 (the low end of ``docs/phys_sensitivity_r05.json``), and on the
+    scenes whose JAX execution is stable (``STABLE_SCENES``) the reward of
+    ``docs/phys_exec_r04.json``;
 14. the planning service (``apps/serve.py``) in a thread on a free port:
     ``/health``, ``/plan`` twice (fresh, then warm: ``stage_s``,
     ``plan_s`` and host syncs per request; the warm one builds no goal
@@ -125,6 +129,15 @@ CAP_POINTS = 3072
 ROLLOUT_FLOPS = dict(robot=100, pad=130, world_static=60, lane_setup=120,
                      lane_align=7, lane_iter=70, body_iter=150,
                      lane_pseudo=35, body_pseudo=25)
+# apps/phys_exec.py's 30-scene set: the scenes whose JAX execution keeps
+# its reward and lifted height (within 1e-3 m) when the plan moves by
+# N(0, 1e-6) (tests/test_torch_exec_stable.py's probe); only these are held
+# per scene against docs/phys_exec_r04.json
+STABLE_SCENES = (0, 1, 3, 6, 7, 8, 9, 10, 11, 12, 13, 15, 16, 17, 18, 20, 22,
+                 24, 26, 27, 28, 29)
+# the low end of the JAX package's reward-rate band on that set
+# (docs/phys_sensitivity_r05.json)
+PHYS_EXEC_RATE_BAR = 0.893
 SMALL_CFG = OMGConfig(optim_steps=10, extra_smooth_steps=3,
                       goal_set_max_num=12, ik_seed_num=4, ik_max_iters=30,
                       learner_interp_steps=10, silent=True)
@@ -819,6 +832,17 @@ def _place(scene, traj):
                 "pad_samples", "pad_axis", "jv_track", "jv_ref")))[0])
 
 
+def _cat_rollouts(x, y):
+    """Two batched argument tuples of ``kernels.rigid_rollout`` as one
+    batch (body, world, parameters, finger mask and pad samples shared)."""
+    def cat(i, a, b):
+        if i == 3:
+            return rigid.BodyState(*(torch.cat(p) for p in zip(a, b)))
+        return torch.cat([a, b]) if i in (4, 6, 8, 9, 10) else a
+
+    return tuple(cat(i, a, b) for i, (a, b) in enumerate(zip(x, y)))
+
+
 def rollout_profile(scene, traj, batched, what: str) -> dict:
     """The rollout kernel's numbers on suite scene 0: the pick rollout's
     time (median of 5 runs of 5 back-to-back launches) with the SM clock
@@ -899,22 +923,14 @@ def phase_physics(dev):
 
     # a batch of two different states in one launch, bit for bit the two
     # single launches
-    other = batched[3]._replace(x=batched[3].x + torch.tensor(
-        [0.0, 0.0, 0.02], device=dev))
-    pair = (*batched[:3], rigid.BodyState(*(torch.cat([a, b]) for a, b in
-                                            zip(batched[3], other))),
-            *(torch.cat([a, a]) for a in batched[4:5]), batched[5],
-            *(torch.cat([a, a]) for a in batched[6:7]), batched[7],
-            *(torch.cat([a, a]) for a in batched[8:]))
-    f2, t2 = kernels.rigid_rollout(*pair, iters=96)
-    f1, t1 = kernels.rigid_rollout(*batched[:3], other, *batched[4:],
-                                   iters=96)
+    raised = (*batched[:3], batched[3]._replace(x=batched[3].x + torch.tensor(
+        [0.0, 0.0, 0.02], device=dev)), *batched[4:])
+    f2, t2 = kernels.rigid_rollout(*_cat_rollouts(batched, raised), iters=96)
+    f1, t1 = kernels.rigid_rollout(*raised, iters=96)
     _sync(dev)
-    same = all(torch.equal(t2[k][0], tk[k][0]) and torch.equal(t2[k][1],
-                                                                t1[k][0])
-               for k in tk) and all(
-        torch.equal(a[0], b[0]) and torch.equal(a[1], c[0])
-        for a, b, c in zip(f2, fk, f1))
+    same = all(torch.equal(t2[k], torch.cat([tk[k], t1[k]])) for k in tk) \
+        and all(torch.equal(a, torch.cat([b, c]))
+                for a, b, c in zip(f2, fk, f1))
     log(f"rigid_rollout B=2 (scene 0's pick, and its state raised 2 cm) "
         f"against two B=1 launches: {'bit-equal' if same else 'DIFFERENT'}")
     if not same:
@@ -957,38 +973,49 @@ def phase_physics(dev):
 
 
 def _phase_phys_exec():
-    """``apps/phys_exec.py --scenes 8`` in a subprocess, beside the JAX
-    package's record of the same scenes."""
-    with open(os.path.join(ROOT, "docs", "phys_exec_r05_base.json")) as f:
-        ref = {r["scene"]: r for r in json.load(f)["scenes"]}
+    """``apps/phys_exec.py`` over its default 30-scene set in a
+    subprocess, beside the JAX package's record of the same set
+    (``docs/phys_exec_r04.json``): the reward rate on the scenes the port
+    plans held to JAX's band, and per-scene equality only on the scenes
+    whose JAX execution is stable (``STABLE_SCENES``)."""
+    with open(os.path.join(ROOT, "docs", "phys_exec_r04.json")) as f:
+        record = json.load(f)
+    ref = {r["scene"]: r for r in record["scenes"]}
     with tempfile.TemporaryDirectory() as tmp:
         out_path = os.path.join(tmp, "phys_exec.json")
         t0 = time.time()
         out = subprocess.run(
             [sys.executable, "-m", "omg_planner_torch.apps.phys_exec",
-             "--scenes", "8", "--out", out_path],
-            capture_output=True, text=True, timeout=600, cwd=ROOT)
+             "--out", out_path],
+            capture_output=True, text=True, timeout=900, cwd=ROOT)
         if out.returncode != 0:
             log(out.stderr[-3000:])
             raise AssertionError(f"phys_exec exited {out.returncode}")
         with open(out_path) as f:
             report = json.load(f)
-    log(f"phys_exec --scenes 8 ({time.time() - t0:.1f} s with start-up): "
+    log(f"phys_exec --scenes {report['n_scenes']} ({time.time() - t0:.1f} s "
+        f"with start-up): "
         f"{json.dumps({k: v for k, v in report.items() if k != 'scenes'})}")
-    planned_ref = [s for s in range(8) if ref[s].get("plan_flag")]
-    lifts = 0
+    differ = []
     for row in report["scenes"]:
         sid, r = row["scene"], ref[row["scene"]]
-        log(f"  scene {sid}: port plan {row.get('plan_flag')} reward "
-            f"{row['reward']} lifted {row.get('lifted_m', 0):.4f} exec "
-            f"{row.get('exec_wall_s', 0)} s | JAX record plan "
-            f"{r.get('plan_flag')} reward {r['reward']} lifted "
-            f"{r.get('lifted_m', 0):.4f}")
-        lifts += int(sid in planned_ref and row["reward"] == 1)
-    log(f"phys_exec: {lifts} lifts among the {len(planned_ref)} scenes that "
-        f"plan in the JAX record (bar 6)")
-    if lifts < 6:
-        raise AssertionError(f"phys_exec: {lifts} lifts, bar 6")
+        stable = sid in STABLE_SCENES
+        log(f"  scene {sid}{' (stable)' if stable else ''}: port plan "
+            f"{row.get('plan_flag')} reward {row['reward']} lifted "
+            f"{row.get('lifted_m', 0):.4f} exec {row.get('exec_wall_s', 0)} "
+            f"s | JAX record plan {r.get('plan_flag')} reward {r['reward']} "
+            f"lifted {r.get('lifted_m') or 0:.4f}")
+        if stable and row.get("plan_flag") and r.get("plan_flag") \
+                and row["reward"] != r["reward"]:
+            differ.append(sid)
+    rate = report["exec_reward_rate_on_planned"]
+    log(f"phys_exec: reward rate on the port's planned scenes {rate} (bar "
+        f"{PHYS_EXEC_RATE_BAR}; JAX record "
+        f"{record['exec_reward_rate_on_planned']}); stable scenes with "
+        f"another reward than the record: {differ}")
+    if rate < PHYS_EXEC_RATE_BAR or differ:
+        raise AssertionError(f"phys_exec: reward rate {rate}, stable scenes "
+                             f"{differ} differ from the record")
 
 
 def _scene_body(y=0.1):

@@ -15,7 +15,8 @@ Kernels:
   distance of every grid cell, replacing the Pallas kernel
   ``omg_planner_tpu/ops/pallas_kernels.py::min_dist_grid``.
 * :func:`rigid_rollout` (``csrc/rigid_rollout.cu``) — the physics
-  executor's whole substep loop, one thread block per rollout.  It has no
+  executor's whole substep loop, one thread block per rollout (8 warps
+  score the contact candidates, one warp solves).  It has no
   Pallas counterpart (the JAX package runs that ``lax.scan`` in XLA on the
   host CPU); its plain version is ``physics/rigid.py::rollout_plain``, and
   ``physics/rigid.py::rollout`` picks one or the other by device.
@@ -194,6 +195,11 @@ def _dev_f32(name: str, t: torch.Tensor, device) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
+#: contact lanes the rollout kernel takes: its one solving warp holds 4
+#: lanes a thread up to 128 lanes, 8 up to 256
+MAX_ROLLOUT_LANES = 256
+
+
 def _rigid_rollout_pack(spec, world, pp, state0, sph_track, is_finger,
                         pad_track, pad_samples, pad_axis, jv_track, jv_ref,
                         k_robot, k_pad, k_world, iters):
@@ -218,9 +224,10 @@ def _rigid_rollout_pack(spec, world, pp, state0, sph_track, is_finger,
         if tuple(a.shape) != want:
             raise ValueError(f"{name} must be {want}, got {tuple(a.shape)}")
     kr, kp, kw = min(k_robot, k), min(k_pad, 2 * sp), min(k_world, s)
-    if kr + kp + kw > 1024:
-        raise ValueError(f"rigid_rollout: {kr + kp + kw} contact lanes, "
-                         "at most 1024")
+    if kr + kp + kw > MAX_ROLLOUT_LANES:
+        raise ValueError(f"rigid_rollout: {kr + kp + kw} contact lanes, at "
+                         f"most {MAX_ROLLOUT_LANES} (8 a thread of the "
+                         "solving warp)")
 
     def f(name, a):
         return _dev_f32(name, a, dev)

@@ -18,8 +18,12 @@ Two forms of the rollout:
   batch dimension added.
 * :func:`rollout` — the entry point.  CPU tensors take the plain version;
   CUDA tensors launch the hand-written kernel ``csrc/rigid_rollout.cu``
-  (one thread block per rollout, the whole substep loop inside one launch,
-  :func:`omg_planner_torch.ops.kernels.rigid_rollout`) or raise.
+  (one thread block per rollout, the whole substep loop inside one launch:
+  8 warps score and rank the candidates, one warp runs the solve with warp
+  shuffles only; :func:`omg_planner_torch.ops.kernels.rigid_rollout`, at
+  most 256 contact lanes) or raise.  The kernel reassociates a few of
+  this module's sums and quotients (its header lists them), so the two
+  agree to float32 rounding, not bit for bit.
 
 Every tensor of a call lives on one device; builders take ``device`` and
 resolve it as the entry points do (``cuda`` unless the caller names
