@@ -778,6 +778,16 @@ def _rollout_bytes(inputs, t: int) -> int:
     return n + 4 * (13 + 19 * t)
 
 
+def _batched(inputs):
+    """The keyword arguments of ``rigid.rollout`` as the positional,
+    batched arguments of ``kernels.rigid_rollout``."""
+    args, _ = rigid._defaults(
+        *(inputs[k] for k in ("state0", "sph_track", "is_finger",
+                              "pad_track", "pad_samples", "pad_axis",
+                              "jv_track", "jv_ref")))
+    return (inputs["spec"], inputs["world"], inputs["pp"], *args)
+
+
 def _pick(dev):
     """Suite scene 0 planned at full width and its pick rollout's inputs:
     (scene, trajectory, PickSetup, the batched arguments of
@@ -790,14 +800,8 @@ def _pick(dev):
         raise AssertionError("physics: suite scene 0 did not plan")
     traj = np.asarray(res.traj)
     setup = executor.pick_setup(scene, traj)
-    inputs = setup.inputs
-    args, _ = rigid._defaults(
-        *(inputs[k] for k in ("state0", "sph_track", "is_finger",
-                              "pad_track", "pad_samples", "pad_axis",
-                              "jv_track", "jv_ref")))
     _sync(dev)
-    return scene, traj, setup, (inputs["spec"], inputs["world"],
-                                inputs["pp"], *args)
+    return scene, traj, setup, _batched(setup.inputs)
 
 
 def rollout_cycles(batched, what: str) -> dict:
@@ -823,13 +827,8 @@ def _place(scene, traj):
     scene.attach_target(traj[-1])
     rel = scene.env.target.rel_hand_pose.copy()
     scene.detach_target()
-    setup = executor.place_setup(scene, np.ascontiguousarray(traj[::-1]),
-                                 rel)
-    inputs = setup.inputs
-    return (inputs["spec"], inputs["world"], inputs["pp"],
-            *rigid._defaults(*(inputs[k] for k in (
-                "state0", "sph_track", "is_finger", "pad_track",
-                "pad_samples", "pad_axis", "jv_track", "jv_ref")))[0])
+    return _batched(executor.place_setup(
+        scene, np.ascontiguousarray(traj[::-1]), rel).inputs)
 
 
 def _cat_rollouts(x, y):

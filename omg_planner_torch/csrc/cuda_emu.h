@@ -169,6 +169,19 @@ inline long long clock64() {
 
 namespace emu {
 
+// Give fiber t of blk its stack and its entry, and queue it.
+inline __attribute__((noinline)) void start_fiber(Block& blk, int t) {
+  Fiber& f = blk.fibers[t];
+  f.tid = static_cast<unsigned>(t);
+  f.stack.reset(new char[kStack]);
+  getcontext(&f.ctx);
+  f.ctx.uc_stack.ss_sp = f.stack.get();
+  f.ctx.uc_stack.ss_size = kStack;
+  f.ctx.uc_link = &blk.scheduler;
+  makecontext(&f.ctx, fiber_main, 0);
+  blk.ready.push_back(&f);
+}
+
 // kernel<<<blocks, threads, smem>>>(args...), one block after another.
 template <class... A, class... B>
 void launch(void (*kernel)(A...), int blocks, int threads, size_t smem,
@@ -180,17 +193,7 @@ void launch(void (*kernel)(A...), int blocks, int threads, size_t smem,
     blockIdx.x = b;
     blockDim.x = threads;
     gridDim.x = blocks;
-    for (int t = 0; t < threads; ++t) {
-      Fiber& f = blk.fibers[t];
-      f.tid = t;
-      f.stack.reset(new char[kStack]);
-      getcontext(&f.ctx);
-      f.ctx.uc_stack.ss_sp = f.stack.get();
-      f.ctx.uc_stack.ss_size = kStack;
-      f.ctx.uc_link = &blk.scheduler;
-      makecontext(&f.ctx, fiber_main, 0);
-      blk.ready.push_back(&f);
-    }
+    for (int t = 0; t < threads; ++t) start_fiber(blk, t);
     while (!blk.ready.empty()) {
       Fiber* f = blk.ready.front();
       blk.ready.pop_front();

@@ -53,7 +53,9 @@
 //    with omega folded in, the angular brake omega * i_world, applied as
 //    IW w + (IW HS) d_l to the linear brake's w + HS d_l;
 //  * sums over lanes run in the order above, not torch's: a lane's terms
-//    by fused multiply-adds, a thread's lanes by a pairwise tree.
+//    by fused multiply-adds, a thread's lanes by a pairwise tree;
+//  * a lane's mass split sum_c (n . n_c)^2 over active lanes c is
+//    n^T (sum_c n_c n_c^T) n, one 3 x 3 sum for all lanes.
 // The IEEE divisions that stay inside the loop are the two pads' pin
 // factors and the two brake clamps, whose divisors change every iteration.
 // Branches that skip work are exact: the pad pin when no lane is a pinned
@@ -70,7 +72,7 @@
 // solve keeps its registers), and the entry point is
 // omg_rigid_rollout_cycles.  The main path never loads that build.
 // -DOMG_CUDA_EMU compiles the file with g++ against cuda_emu.h, a
-// test-only emulation of the CUDA subset used here on std::threads
+// test-only emulation of the CUDA subset used here on host fibers
 // (tests/test_torch_rollout_emu.py).
 
 #ifdef OMG_CUDA_EMU
@@ -394,6 +396,16 @@ __device__ __forceinline__ Pose load_pose(const float* m) {
   return p;
 }
 
+// a or b by value, so that an array of two poses never needs an address
+__device__ __forceinline__ Pose pick(bool second, const Pose& a,
+                                     const Pose& b) {
+  Pose p;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) p.r.m[i] = second ? b.r.m[i] : a.r.m[i];
+  p.t = second ? b.t : a.t;
+  return p;
+}
+
 // Pad pose at joint offset dv: the tracked pose m translated by
 // R (axis * dv) (rigid.py::_pad_pose).
 __device__ __forceinline__ Pose pad_pose(const float* m, const float* axis,
@@ -528,7 +540,7 @@ __device__ __forceinline__ void acc2(float* r, float a, V3 x, float b, V3 y) {
 // Shared memory of one block, carved from the dynamic allocation.
 template <int LPT>
 struct Smem {
-  float4* lane_n;  // [32 LPT]: each lane's normal and activity
+  long long* cyc;  // [kPhases]: the profile build's cycle sums
   float* pool;     // [3][NP]: warm ln, l1, l2 keyed by candidate index
   float* cand;     // [kCandF][NP]: each candidate's scored contact
   float* list_s;   // [NP]: active candidates' scores, in their pool's range
@@ -538,12 +550,10 @@ struct Smem {
   float* pmax_w;   // [kWarps][2]: each warp's largest pad penetrations
   float* bc;       // [9]: the body's x, q and finger joints, for all warps
   float* ahead;    // [34]: the next boundary's pad poses and finger command
-  long long* cyc;  // [kPhases]: the profile build's cycle sums
 
   __device__ Smem(float* base, int NP) {
-    lane_n = reinterpret_cast<float4*>(base);
-    cyc = reinterpret_cast<long long*>(base + 4 * 32 * LPT);
-    pool = base + 4 * 32 * LPT + 4 * kPhases;
+    cyc = reinterpret_cast<long long*>(base);
+    pool = base + 2 * kPhases;
     cand = pool + 3 * NP;
     list_s = cand + kCandF * NP;
     list_i = reinterpret_cast<int*>(list_s + NP);
@@ -554,7 +564,7 @@ struct Smem {
     ahead = bc + 9;
   }
   static size_t bytes(int NP) {
-    return sizeof(float) * (4 * 32 * LPT + 4 * kPhases +
+    return sizeof(float) * (2 * kPhases +
                             (3 + kCandF + 2) * NP + 32 * LPT + 4 +
                             2 * kWarps + 9 + 34);
   }
@@ -622,6 +632,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* track = P.pad_track +
                          (static_cast<long long>(b) * (D.T + 1) + t) * 32;
     Pose pad[2];
+#pragma unroll
     for (int f = 0; f < 2; ++f)
       pad[f] = pad_pose(track + 16 * f, P.pad_axis + (b * 2 + f) * 3,
                         jv[f] - jv_ref[f]);
@@ -645,7 +656,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         pool_id = 0;
       } else if (i < K + Sp2) {
         const int j = i - K, f = j >= D.Sp ? 1 : 0;
-        c = pad_cand(P, D, bd, fr, f ? pad[1] : pad[0], f, j - f * D.Sp);
+        c = pad_cand(P, D, bd, fr, pick(f, pad[0], pad[1]), f, j - f * D.Sp);
         pmax[f] = fmaxf(pmax[f], c.pen);
         act = c.pen > 0.f;
         pool_id = 1;
@@ -719,6 +730,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       float jv_next[2];
       Pose pad_next[2];
       const float rate = finger_rate * dt;
+#pragma unroll
       for (int f = 0; f < 2; ++f) {
         const float step = fminf(fmaxf(cmd[f] - jv[f], -rate), rate);
         const bool stalled = pm[f] >= stall_pen && step < 0.f;
@@ -750,42 +762,27 @@ __global__ void __launch_bounds__(kThreads, 1)
           } else if (s < K + Sp2) {
             const int jj = s - K, f = jj >= D.Sp ? 1 : 0;
             const V3 ps = load3(P.pad_samples + jj * 3);
-            const Pose& pn = f ? pad_next[1] : pad_next[0];
+            const Pose pn = pick(f, pad_next[0], pad_next[1]);
             const V3 nx = mv(pn.r, ps) + pn.t;
             vo[j] = v3((nx.x - cv.x) / dt, (nx.y - cv.y) / dt,
                        (nx.z - cv.z) / dt);
             finger[j] = 1.f + static_cast<float>(f);
           }
+#pragma unroll
           for (int i = 0; i < 3; ++i) wl[j][i] = sm.pool[i * NP + s];
         }
-        sm.lane_n[c] = make_float4(n[j].x, n[j].y, n[j].z, act[j]);
       }
       // gravity enters before the solve
       v = v + dt * gravity;
       const M3 i_inv = mm(mm(fr.r, bd.inv_inertia), transpose(fr.r));
-      __syncwarp();  // lane normals visible
 
-      // mass splitting: the alignment-weighted count of active contacts
-      float split[LPT];
-#pragma unroll
-      for (int j = 0; j < LPT; ++j) split[j] = 0.f;
-#pragma unroll 4
-      for (int c2 = 0; c2 < C; ++c2) {
-        const float4 o = sm.lane_n[c2];
-#pragma unroll
-        for (int j = 0; j < LPT; ++j) {
-          const float nn = n[j].x * o.x + n[j].y * o.y + n[j].z * o.z;
-          split[j] += nn * nn * o.w;
-        }
-      }
-
-      // per lane: tangent basis, Jacobian rows, relaxation factors, patch
-      // weights
+      // per lane: tangent basis, Jacobian rows, patch weights; with the
+      // patch sums, the active normals' second moment N = sum n n^T
       V3 t1[LPT], t2[LPT], rxn[LPT], rx1[LPT], rx2[LPT];
       float von[LPT], vo1[LPT], vo2[LPT], okn[LPT], ok1[LPT], ok2[LPT];
       float pw0[LPT], pw1[LPT];
       bool m0[LPT], m1[LPT], is_f[LPT];
-      float r1[15] = {};
+      float r1[21] = {};
       bool any_f = false;
 #pragma unroll
       for (int j = 0; j < LPT; ++j) {
@@ -794,13 +791,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                                             : v3(1.f, 0.f, 0.f);
         t1[j] = unit(cross(n[j], ref));
         t2[j] = cross(n[j], t1[j]);
-        auto eff_k = [&](V3 d) {
-          return bd.inv_mass + dot(cross(mv(i_inv, cross(rarm, d)), rarm), d);
-        };
-        const float sp = act[j] > 0.f ? fmaxf(split[j], 1.f) : 1.f;
-        okn[j] = omega / (fmaxf(eff_k(n[j]), 1e-6f) * sp);
-        ok1[j] = omega / (fmaxf(eff_k(t1[j]), 1e-6f) * sp);
-        ok2[j] = omega / (fmaxf(eff_k(t2[j]), 1e-6f) * sp);
         rxn[j] = cross(rarm, n[j]);
         rx1[j] = cross(rarm, t1[j]);
         rx2[j] = cross(rarm, t2[j]);
@@ -816,19 +806,41 @@ __global__ void __launch_bounds__(kThreads, 1)
         m0[j] = pw0[j] > 0.f;
         m1[j] = pw1[j] > 0.f;
         const float w_pat = pw0[j] + pw1[j];
-        const float add[15] = {pw0[j], pw1[j], w_pat,
+        const V3 nn = n[j];  // 0 on inactive lanes
+        const float add[21] = {pw0[j], pw1[j], w_pat,
                                w_pat * p[j].x, w_pat * p[j].y, w_pat * p[j].z,
                                w_pat * vo[j].x, w_pat * vo[j].y,
                                w_pat * vo[j].z,
                                pw0[j] * n[j].x, pw0[j] * n[j].y,
                                pw0[j] * n[j].z,
-                               w_pat * rarm.x, w_pat * rarm.y, w_pat * rarm.z};
+                               w_pat * rarm.x, w_pat * rarm.y, w_pat * rarm.z,
+                               nn.x * nn.x, nn.y * nn.y, nn.z * nn.z,
+                               nn.x * nn.y, nn.x * nn.z, nn.y * nn.z};
 #pragma unroll
-        for (int k = 0; k < 15; ++k) r1[k] += add[k];
+        for (int k = 0; k < 21; ++k) r1[k] += add[k];
         any_f = any_f || is_f[j];
       }
       warp_sum(r1);
       any_f = __any_sync(kFull, any_f);
+      // mass splitting by the alignment-weighted count of active contacts,
+      // sum_c (n . n_c)^2 = n^T N n; relaxation factors omega / k
+      M3 Nn;
+      Nn.m[0] = r1[15], Nn.m[4] = r1[16], Nn.m[8] = r1[17];
+      Nn.m[1] = Nn.m[3] = r1[18];
+      Nn.m[2] = Nn.m[6] = r1[19];
+      Nn.m[5] = Nn.m[7] = r1[20];
+#pragma unroll
+      for (int j = 0; j < LPT; ++j) {
+        const V3 rarm = p[j] - fr.x;
+        auto eff_k = [&](V3 d) {
+          return bd.inv_mass + dot(cross(mv(i_inv, cross(rarm, d)), rarm), d);
+        };
+        const float sp =
+            act[j] > 0.f ? fmaxf(dot(n[j], mv(Nn, n[j])), 1.f) : 1.f;
+        okn[j] = omega / (fmaxf(eff_k(n[j]), 1e-6f) * sp);
+        ok1[j] = omega / (fmaxf(eff_k(t1[j]), 1e-6f) * sp);
+        ok2[j] = omega / (fmaxf(eff_k(t2[j]), 1e-6f) * sp);
+      }
       const float eng0 = fminf(r1[0], 1.f), eng1 = fminf(r1[1], 1.f);
       const float tot0 = pinch * dt * eng0 * eng1;
       const float tot1 = pinch * dt * eng1 * eng0;
@@ -1077,15 +1089,18 @@ __global__ void __launch_bounds__(kThreads, 1)
             -wq.x * q[3] + wq.y * q[0] + wq.z * q[1],
             wq.x * q[2] - wq.y * q[1] + wq.z * q[0]};
         float qn[4], s = 0.f;
+#pragma unroll
         for (int i = 0; i < 4; ++i) {
           qn[i] = q[i] + 0.5f * dt * dq[i];
           s += qn[i] * qn[i];
         }
         const float nq = fmaxf(sqrtf(s), 1e-9f);
+#pragma unroll
         for (int i = 0; i < 4; ++i) q[i] = qn[i] / nq;
       }
       if (lane == 0) {
         sm.bc[0] = x.x, sm.bc[1] = x.y, sm.bc[2] = x.z;
+#pragma unroll
         for (int i = 0; i < 4; ++i) sm.bc[3 + i] = q[i];
         sm.bc[7] = jv_next[0], sm.bc[8] = jv_next[1];
         for (int i = 0; i < 4; ++i) sm.count[i] = 0;

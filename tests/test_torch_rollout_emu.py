@@ -2,19 +2,24 @@
 compiled with g++ against ``csrc/cuda_emu.h`` and run on the CPU, against
 ``physics/rigid.py::rollout_plain`` on the same packed arguments.
 
-The emulation runs one std::thread per CUDA thread with barriers for
-``__syncthreads``, ``__syncwarp`` and each warp shuffle, so it executes the
-kernel's control flow, shared-memory layout, ranks, lane ownership and
-warp sums as written; only the card's own instruction selection (FMA
-contraction) differs.  Cases, at small width and few substeps:
+The emulation runs one fiber per CUDA thread on one host thread, with a
+wait for ``__syncthreads``, ``__syncwarp`` and each warp shuffle, so it
+executes the kernel's control flow, shared-memory layout, ranks, lane
+ownership and warp sums as written; only the card's own instruction
+selection (FMA contraction) differs.  Cases, at small width and few
+substeps:
 * a resting cube on a slab with 144 lanes (8 lanes a thread): world
   contacts, the pseudo pass;
 * a batch of two in one launch: a cube pinched by two closing finger pads
   under robot spheres pressing down (pinned pads, patch brakes, robot
   contacts with velocity), and a cube in free fall; then each rollout
-  alone, which must give the same bits as its row of the batch;
+  alone, which must give the same bits as its row of the batch.  Every
+  pad and world sample may take a lane there: a flat pad face on a flat
+  box face ties whole groups of samples, and a top-k cut through such a
+  group follows the last bit of the arithmetic;
 * the profile build (``-DOMG_ROLLOUT_CYCLES``): the same trace bits and a
-  positive count in every phase.
+  positive count in every phase but the pseudo pass;
+* the packer's lane cap.
 Bar: 1e-5 on x, v, q, w against the plain loop (float32 in another
 summation order), contact counts equal."""
 
