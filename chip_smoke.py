@@ -62,7 +62,21 @@ Phases (any failure exits non-zero; no phase is skipped):
     ``/health``, ``/plan`` twice (fresh, then warm: ``stage_s``,
     ``plan_s`` and host syncs per request; the warm one builds no goal
     set), ``/plan_batch`` of two scenes at depth 2 and ``/execute``
-    (200 with ``execution.reward``); any other status fails.
+    (200 with ``execution.reward``); any other status fails;
+15. scale-out: a world-size-1 NCCL group on the card (``FileStore``
+    under ``build/``) as a 1 x 1 (scene x goal) mesh;
+    ``make_sharded_pipeline`` (goal-set build with the sharded IK, then
+    the goal-sharded plan) over ``data/suite_v2`` scenes 0-3 at the full
+    ``OMGConfig()`` width, each scene against the same pipeline without a
+    group (the plain IK and ``plan_fast``) from the same seed: the same
+    ``goal_idx``, ``flag`` and ``steps_used`` and the trajectory bit for
+    bit, with wall time and host syncs per scene; the stacked four-scene
+    batch in one call equal to the per-scene results; ``make_sharded_plan``
+    with ``learner_active_goals=0`` on scene 0 (the per-step all-gather on
+    the card) under the same bar against ``plan_fast``; then
+    ``python -m omg_planner_torch.apps.multihost_demo --world 2
+    --goal-parallel 2 --backend gloo`` as a subprocess: two gloo ranks on
+    the one card, which must print ``MULTIHOST DEMO: PASS``.
 
 Each phase from 10 on runs with the launch counts set to 0 and checks
 them after: ``rigid_rollout`` must launch on the physics and service
@@ -94,6 +108,8 @@ from omg_planner_torch.ops import kernels
 from omg_planner_torch.ops import sdf as sdf_mod
 from omg_planner_torch.ops.chomp import CostParams, GoalSet
 from omg_planner_torch.ops.pointsdf import grid_cells, grid_layout
+from omg_planner_torch.parallel import batch as batch_mod
+from omg_planner_torch.parallel import multihost
 from omg_planner_torch.physics import executor, rigid
 from omg_planner_torch.physics.panda_ctrl import HOME_POSE, NativePanda
 from omg_planner_torch.planner import plan as plan_mod
@@ -1099,6 +1115,108 @@ def phase_serve(dev):
         thread.join()
 
 
+def _same_plan(a, b, what):
+    """The scale-out bar: the same goal, verdict and steps, and the
+    trajectory bit for bit."""
+    for name in ("goal_idx", "flag", "steps_used"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"{what}: {name} {getattr(a, name)} vs "
+                                 f"{getattr(b, name)}")
+    if not torch.equal(a.traj, b.traj):
+        gap = float((a.traj - b.traj).abs().max())
+        raise AssertionError(f"{what}: trajectories differ by {gap:.3g}")
+
+
+def _timed(fn, dev):
+    """(result, wall ms, host syncs) of ``fn()``."""
+    SYNCS.count = 0
+    _sync(dev)
+    t0 = time.time()
+    out = fn()
+    _sync(dev)
+    return out, (time.time() - t0) * 1e3, SYNCS.count
+
+
+def phase_scaleout(dev):
+    """The goal-sharded pipeline and plan over a world-size-1 NCCL group,
+    against the same paths without a group; then two gloo ranks on the
+    card through the multi-process demo."""
+    import torch.distributed as dist
+
+    store = os.path.join(ROOT, "build", "scaleout_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1, timeout=multihost.GROUP_TIMEOUT)
+    try:
+        mesh = multihost.make_scene_mesh(goal_parallel=1, device=dev)
+        cfg = OMGConfig(silent=True)
+        ids = multihost.my_scene_ids(4, mesh)
+        scenes = [PlanningScene.from_npz(
+            cfg, os.path.join(SUITE, f"scene_{i}.npz"), device=dev)
+            for i in ids]
+        n_obj = max(len(sc.env.objects) for sc in scenes)
+        n_grasp = max(len(sc.env.grasp_poses_world()) for sc in scenes)
+        inputs = [batch_mod.scene_pipeline_input(
+            sc, seed=i, num_objects=n_obj, num_grasps=n_grasp)
+            for i, sc in zip(ids, scenes)]
+        model = scenes[0].model
+        sharded = batch_mod.make_sharded_pipeline(mesh, model, cfg)
+        plain = batch_mod.make_sharded_pipeline(None, model, cfg)
+        # the stacked batch first: its wall includes the first collective's
+        # NCCL communicator set-up
+        batch = multihost.host_local_batch(mesh, inputs)
+        stacked, ms, syncs = _timed(lambda: sharded(batch), dev)
+        log(f"scale-out pipeline, scenes {ids} stacked in one call (first "
+            f"collectives included): {ms:.1f} ms, {syncs} host syncs")
+        for k, (i, inp) in enumerate(zip(ids, inputs)):
+            one = multihost.host_local_batch(mesh, [inp])
+            res, ms, syncs = _timed(lambda: sharded(one), dev)
+            ref, ref_ms, ref_syncs = _timed(lambda: plain(one), dev)
+            check_traj(res.traj[0].cpu(), model, f"sharded scene {i}")
+            _same_plan(res, ref, f"sharded pipeline suite scene {i}")
+            _same_plan(batch_mod._index(stacked, k), batch_mod._index(res, 0),
+                       f"stacked batch entry {k}")
+            log(f"scale-out pipeline suite scene {i}: "
+                f"{'SUCCESS' if bool(res.flag[0]) else 'FAIL'} steps "
+                f"{int(res.steps_used[0])} goal {int(res.goal_idx[0])} | "
+                f"sharded {ms:.1f} ms, {syncs} host syncs | no group "
+                f"{ref_ms:.1f} ms, {ref_syncs} host syncs | equal to the "
+                "stacked call")
+
+        cfg0 = cfg.replace(learner_active_goals=0)
+        scene = PlanningScene.from_npz(
+            cfg0, os.path.join(SUITE, "scene_0.npz"), device=dev)
+        problem = scene.build_problem()
+        fn = batch_mod.make_sharded_plan(mesh, model, cfg0)
+        res, ms, syncs = _timed(
+            lambda: fn(batch_mod.stack_problems([problem])), dev)
+        ref, ref_ms, ref_syncs = _timed(
+            lambda: plan_mod.plan_fast(model, cfg0, problem), dev)
+        _same_plan(batch_mod._index(res, 0), ref,
+                   "sharded plan, active goals 0")
+        log(f"scale-out plan suite scene 0, learner_active_goals=0 (per-step "
+            f"all-gather): {'SUCCESS' if bool(ref.flag) else 'FAIL'} steps "
+            f"{int(ref.steps_used)} | sharded {ms:.1f} ms, {syncs} host "
+            f"syncs | plan_fast {ref_ms:.1f} ms, {ref_syncs} host syncs")
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", "omg_planner_torch.apps.multihost_demo",
+         "--world", "2", "--goal-parallel", "2", "--backend", "gloo",
+         "--timeout", "240"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    log(out.stdout.strip())
+    if out.returncode != 0 or "MULTIHOST DEMO: PASS" not in out.stdout:
+        raise AssertionError(f"multihost demo on the card failed "
+                             f"(rc {out.returncode}):\n{out.stderr[-3000:]}")
+    log(f"multihost demo, 2 gloo ranks on one card: "
+        f"{time.time() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1122,11 +1240,12 @@ def main() -> int:
     timed("bench", phase_bench)
     # phases from here on: the kernels each path must launch
     expect = {"fused": (), "chain": (), "tasks": (),
-              "physics": ("rigid_rollout",), "serve": ("rigid_rollout",)}
+              "physics": ("rigid_rollout",), "serve": ("rigid_rollout",),
+              "scale-out": ()}
     entries = [entry]
     for name, fn in (("fused", phase_fused), ("chain", phase_chain),
                      ("tasks", phase_tasks), ("physics", phase_physics),
-                     ("serve", phase_serve)):
+                     ("serve", phase_serve), ("scale-out", phase_scaleout)):
         reset_counts()
         out = timed(name, fn, "cuda")
         if name == "physics":

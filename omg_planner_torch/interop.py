@@ -15,6 +15,7 @@ from .models.panda import PandaModel
 from .ops.chomp import CostParams, GoalSet
 from .ops.sdf import (AnalyticScene, BakedSceneSDF, SceneSDF, WorldField,
                       WorldPotential)
+from .parallel.batch import PipelineInput
 from .physics.rigid import BodyState, PhysParams, RigidBodySpec, StaticWorld
 from .planner.plan import PlanProblem
 
@@ -96,3 +97,15 @@ def static_world(x, device) -> StaticWorld:
 
 def body_state(x, device) -> BodyState:
     return convert(x, BodyState, device)
+
+
+def pipeline_input(x, seed: int, device) -> PipelineInput:
+    """The port's ``PipelineInput`` from the pieces of JAX's (``problem``,
+    ``grasps_world``, ``grasp_valid``, ``obj_pos``).  JAX's ``key`` is not
+    carried: the goal set's Gumbel draws come from the port's own
+    generator, made from ``seed``."""
+    return PipelineInput(
+        problem=plan_problem(x.problem, device),
+        grasps_world=to_tensor(x.grasps_world, device),
+        grasp_valid=to_tensor(x.grasp_valid, device), seed=int(seed),
+        obj_pos=to_tensor(getattr(x, "obj_pos", None), device))

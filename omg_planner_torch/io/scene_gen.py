@@ -1,7 +1,8 @@
 """Difficulty-calibrated scene generation with settle-and-reject
-(numpy copy of ``synthetic_hard_scene`` and its helpers from
-``omg_planner_tpu/io/scene_gen.py``, where the families and the placement
-rules are documented; the port imports nothing of the JAX package).
+(numpy copy of ``synthetic_hard_scene``, ``random_settled_scene`` and
+their helpers from ``omg_planner_tpu/io/scene_gen.py``, where the
+families and the placement rules are documented; the port imports nothing
+of the JAX package).
 
 Objects are dropped onto their support surface (primitives settle
 analytically) and placements are rejected when any object's surface
@@ -227,3 +228,27 @@ def synthetic_hard_scene(scene_id: int, family: str | None = None):
     objects.append(_table())
     return objects, objects[0].name
 
+
+def random_settled_scene(seed: int, n_obstacles: int = 4):
+    """Unbounded randomized generator (reference
+    ``panda_scene.py:308-405`` role): uniform placements with analytic
+    settling + SDF-overlap rejection; target first."""
+    rng = np.random.default_rng(seed)
+    tkind = _OBJ_KINDS[int(rng.integers(len(_OBJ_KINDS)))]
+
+    def anywhere(rng):
+        ro = rng.uniform(0.40, 0.70)
+        tho = rng.uniform(-0.6, 0.6)
+        return (ro * np.cos(tho), ro * np.sin(tho))
+
+    target = place_settled([], tkind[0], tkind[1], tkind[2], rng, anywhere,
+                           target=True, compute_grasp=True)
+    objects = [target]
+    for i in range(n_obstacles):
+        okind = _OBJ_KINDS[int(rng.integers(len(_OBJ_KINDS)))]
+        o = place_settled(objects, f"{okind[0]}_{i}", okind[1], okind[2],
+                          rng, anywhere)
+        if o is not None:
+            objects.append(o)
+    objects.append(_table())
+    return objects, objects[0].name

@@ -47,6 +47,11 @@ class GoalSet(NamedTuple):
     def capacity(self) -> int:
         return self.grasps.shape[0]
 
+    @property
+    def num_valid(self) -> torch.Tensor:
+        """The number of valid goals, a 0-d tensor on the set's device."""
+        return self.mask.sum()
+
 
 class CostInfo(NamedTuple):
     """Per-step diagnostics (the reference's ``info`` dict,

@@ -11,12 +11,15 @@ solution.  Every data-dependent loop exit (the JAX package's
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import OMGConfig
 from ..models import panda
+from ..utils.collectives import all_gather_cat, all_reduce_max
 from ..utils.linalg import solve_spd_unrolled, take_rows, top_k
 from ..utils.pose import so3_angle, so3_log
 from ..utils.sync import host_bool
@@ -102,11 +105,17 @@ def _newton_step(jac, e, q, lam, lower7, upper7):
 
 
 def ik_batch(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
-             active=None) -> IKResult:
+             active=None, err_reduce=None) -> IKResult:
     """Damped Newton IK over a batch in one loop, exiting when every gating
     lane converges.  ``active`` masks the exit (hopeless lanes can't hold
     the batch); a lane whose twist error hasn't improved >=15% in
-    ``ik_stall_window`` iterations stops gating too (sticky)."""
+    ``ik_stall_window`` iterations stops gating too (sticky).
+
+    ``err_reduce`` reduces the 0-d exit gate each iteration: the
+    goal-sharded solve passes an all-reduce MAX over its group, so every
+    rank runs as many iterations as the single-process solve of the whole
+    batch (lanes are independent, so a synced exit makes the sharded chain
+    interchangeable with the unsharded one)."""
     b = seeds.shape[0]
     act = (torch.ones(b, dtype=torch.bool, device=seeds.device)
            if active is None else active)
@@ -127,6 +136,8 @@ def ik_batch(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
         err_best = torch.minimum(err_best, err)
         gate = act if window == 0 else act & (stall < window)
         gate_err = torch.where(gate, err, torch.zeros_like(err)).max()
+        if err_reduce is not None:
+            gate_err = err_reduce(gate_err)
         it += 1
     e, _ = _batch_error_and_jac(model, q, targets)
     q9 = torch.cat([q, _fingers((b,), q)], dim=1)
@@ -244,7 +255,8 @@ def solve_lanes(cfg: OMGConfig, n_grasps: int, n_seeds: int) -> int:
 
 
 def solve_goal_set(model, cfg: OMGConfig, grasp_poses_world, seeds, lower7,
-                   upper7, attached: bool = False, grasp_valid=None):
+                   upper7, attached: bool = False, grasp_valid=None,
+                   group=None):
     """All (grasp x seed) standoff chains as staged batched solves
     (replaces ``multiprocessing.Pool(4)``, ``omg/planner.py:395-443``).
 
@@ -252,7 +264,17 @@ def solve_goal_set(model, cfg: OMGConfig, grasp_poses_world, seeds, lower7,
     lanes, the best ``ik_survivor_cap`` lanes by post-sweep error survive
     (ties to the lower lane), and only they run the standoff chain, warm
     started.  Returns (reach [K, tail, 9], standoff [K, 9], valid [K],
-    lane_idx [K]) with ``lane_idx`` the (grasp-major, seed-minor) lane."""
+    lane_idx [K]) with ``lane_idx`` the (grasp-major, seed-minor) lane.
+
+    ``group`` (a ``torch.distributed`` process group; JAX's ``axis``)
+    shards the chain lanes over its ranks.  The prefilter and the ranking
+    run replicated, so every rank compacts to the same survivor list; each
+    rank solves a contiguous slice of it, padded to a multiple of the
+    group size with inactive dummy lanes.  The non-fused chain syncs its
+    convergence exit with an all-reduce MAX; the fused chain needs none
+    (its lanes advance independently and its budget counts global
+    iterations, alike on every rank).  One all-gather per output, in rank
+    order, trimmed to K, restores the single-process lane order."""
     tail = cfg.reach_tail_length
     dev = grasp_poses_world.device
     offs = torch.eye(4, device=dev).repeat(tail, 1, 1)
@@ -278,15 +300,37 @@ def solve_goal_set(model, cfg: OMGConfig, grasp_poses_world, seeds, lower7,
                             torch.full_like(err_pre, torch.inf))
         k_cap = solve_lanes(cfg, n, s)
         lane_idx = top_k(-score, k_cap)[1]
+        warm = q_pre
         act_full = lane_valid & (err_pre < cfg.ik_prefilter_tol)
-        tgt = take_rows(tgt, lane_idx)
-        seeds_b = take_rows(q_pre, lane_idx)
-        active = act_full[lane_idx]
-        b = k_cap
     else:
         k_cap = b
         lane_idx = torch.arange(b, device=dev)
-        active = lane_valid
+        warm = seeds_b
+        act_full = lane_valid
+
+    err_reduce = None
+    if group is not None:
+        # this rank's contiguous slice of the (replicated) survivor list,
+        # padded with inactive dummy lanes that the gather trims
+        ns, shard = dist.get_world_size(group), dist.get_rank(group)
+        per = -(-k_cap // ns)
+        lane_padded = torch.cat([lane_idx,
+                                 lane_idx.new_zeros(per * ns - k_cap)])
+        my_lane = lane_padded[shard * per:(shard + 1) * per]
+        my_live = torch.arange(shard * per, (shard + 1) * per,
+                               device=dev) < k_cap
+        tgt = take_rows(tgt, my_lane)
+        seeds_b = take_rows(warm, my_lane)
+        active = act_full[my_lane] & my_live
+        err_reduce = functools.partial(all_reduce_max, group=group)
+        b = per
+    elif cfg.ik_two_stage:
+        tgt = take_rows(tgt, lane_idx)
+        seeds_b = take_rows(warm, lane_idx)
+        active = act_full[lane_idx]
+        b = k_cap
+    else:
+        active = act_full
 
     chain_cfg = (cfg.replace(ik_max_iters=cfg.ik_chain_max_iters)
                  if cfg.ik_chain_max_iters else cfg)
@@ -304,7 +348,8 @@ def solve_goal_set(model, cfg: OMGConfig, grasp_poses_world, seeds, lower7,
         sols = []
         for kk in range(chain_tgts.shape[1]):
             res = ik_batch(model, chain_tgts[:, kk], prev, chain_cfg,
-                           lower7, upper7, active=active)
+                           lower7, upper7, active=active,
+                           err_reduce=err_reduce)
             ok = ok & res.success
             active = active & res.success
             prev = res.q
@@ -317,4 +362,7 @@ def solve_goal_set(model, cfg: OMGConfig, grasp_poses_world, seeds, lower7,
     reach = torch.cat([qs, _fingers((b, tail), qs)], dim=-1)
     standoff_q = qs[:, -1] if attached else qs[:, 0]
     standoff = torch.cat([standoff_q, _fingers((b,), qs)], dim=-1)
+    if group is not None:
+        reach, standoff, valid = (all_gather_cat(x, group)[:k_cap]
+                                  for x in (reach, standoff, valid))
     return reach, standoff, valid, lane_idx

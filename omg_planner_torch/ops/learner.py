@@ -307,16 +307,26 @@ def update_goal_dist(cfg: OMGConfig, state: LearnerState, cv,
 def update_goal(model, scene, params: CostParams, cfg: OMGConfig,
                 hp: DeviceHorizon, traj, goal_set: GoalSet,
                 state: LearnerState,
-                world_potential: WorldPotential | None = None):
+                world_potential: WorldPotential | None = None,
+                cv_fn=None):
     """Advance the learner one step and pick the argmax goal (reference
     ``update_goal``, ``:237-249``).  With the active-lane restriction only
     the K active lanes are scored, except every ``learner_refresh_every``
-    steps, when a full sweep re-ranks all lanes.  Returns
-    (new_state, goal_idx 0-d int64 tensor)."""
+    steps, when a full sweep re-ranks all lanes.
+
+    ``cv_fn(traj, t, mask) -> [G]`` overrides the candidate-cost
+    evaluation (the goal-sharded plan of ``parallel/batch.py`` injects a
+    local sweep and an all-gather here).  A caller-supplied ``cv_fn`` is
+    authoritative: it disables the active-lane restriction.  ``mask`` is
+    the current goal validity (the in-plan blacklist narrows it); an
+    injected sweep applies it only at the finalize.
+
+    Returns (new_state, goal_idx 0-d int64 tensor)."""
     t = state.t + 1.0
     state = state._replace(t=t)
     restrict = (sweep_restricted(cfg, goal_set.capacity)
-                and state.active_idx.shape[0] > 0)
+                and state.active_idx.shape[0] > 0
+                and cv_fn is None)
     if cfg.ol_alg == "Proj":
         state = update_goal_dist(cfg, state, torch.zeros_like(goal_set.mask,
                                                               dtype=torch.float32),
@@ -338,8 +348,9 @@ def update_goal(model, scene, params: CostParams, cfg: OMGConfig,
         state = state._replace(last_raw=raw_full, active_idx=active)
         state = update_goal_dist(cfg, state, cv, goal_set, traj[-1])
     else:
-        cv = cost_vector(model, scene, params, cfg, hp, traj, goal_set, t,
-                         world_potential)
+        cv = (cv_fn(traj, t, goal_set.mask) if cv_fn is not None else
+              cost_vector(model, scene, params, cfg, hp, traj, goal_set, t,
+                          world_potential))
         state = update_goal_dist(cfg, state, cv, goal_set, traj[-1])
     goal_idx = torch.argmax(torch.where(
         goal_set.mask, state.p, torch.full_like(state.p, -torch.inf)))

@@ -73,6 +73,19 @@ class SignedDensityField:
     def max_coords(self) -> np.ndarray:
         return self.origin + self.delta * np.array(self.shape)
 
+    def resize(self, ratio: float) -> "SignedDensityField":
+        """Uniform metric rescale (reference ``sdf_tools.py:37-45``).  The
+        SDFs of box, sphere and cylinder are positively homogeneous, so the
+        analytic metadata rescales exactly and a lazy grid stays lazy."""
+        if self._data is not None:
+            self._data = self._data * ratio
+        if self.analytic is not None:
+            k, half, pen = self.analytic
+            self.analytic = (k, half * ratio, pen)
+        self.delta *= ratio
+        self.origin = self.origin * ratio
+        return self
+
     def penalize_inside(self, constant: float) -> "SignedDensityField":
         """Scale negative (inside) distances (reference ``core.py:110``)."""
         if self.analytic is not None:
@@ -91,6 +104,51 @@ class SignedDensityField:
     def get_distance(self, rel_pos):
         i = self._idx(rel_pos)
         return self.data[i[..., 0], i[..., 1], i[..., 2]]
+
+    # ---- loaders of the reference's formats
+    @classmethod
+    def from_pth(cls, path: str) -> "SignedDensityField":
+        """Load the reference's ``*_chomp.pth`` layout (a torch dict with
+        ``sdf_torch [1,1,X,Y,Z]``, ``min_coords``, ``max_coords``,
+        ``delta``; written by ``real_world/convert_sdf.py:66-78``)."""
+        # weights_only=False: the layout stores numpy scalars beside the
+        # tensor (convert_sdf.py:66-78)
+        d = torch.load(path, map_location="cpu", weights_only=False)
+        # the reference loader swaps the first two axes of the stored
+        # volume (sdf_tools.py:191: ``permute(1, 0, 2)``), which its writer
+        # relies on for pose and limits
+        data = d["sdf_torch"][0, 0].permute(1, 0, 2).numpy()
+        origin = np.asarray(d["min_coords"], np.float64)
+        delta = float(np.asarray(d["delta"]).reshape(-1)[0])
+        return cls(data, origin, delta)
+
+    @classmethod
+    def from_sdf_file(cls, path: str) -> "SignedDensityField":
+        """Parse SDFGen's text format (``sdf_tools.py:168-183``)."""
+        with open(path) as f:
+            dims = [int(v) for v in f.readline().split()]
+            origin = np.array([float(v) for v in f.readline().split()])
+            delta = float(f.readline().strip())
+            data = np.loadtxt(f).reshape(dims[::-1]).transpose(2, 1, 0)
+        return cls(data, origin, delta)
+
+    @classmethod
+    def from_pkl(cls, path: str) -> "SignedDensityField":
+        """Load a field written by :meth:`dump` (pickle: only load files
+        this program wrote)."""
+        import pickle
+
+        with open(path, "rb") as f:
+            d = pickle.load(f)
+        return cls(d["data"], d["origin"], d["delta"])
+
+    def dump(self, path: str):
+        """Write the grid, origin and cell size as a pickle."""
+        import pickle
+
+        with open(path, "wb") as f:
+            pickle.dump({"data": self.data, "origin": self.origin,
+                         "delta": self.delta}, f)
 
     @classmethod
     def from_analytic(cls, kind: str, extents, delta: float = 0.0075,

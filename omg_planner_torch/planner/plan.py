@@ -186,23 +186,28 @@ def _blacklist_restart(cfg: OMGConfig, problem: PlanProblem, mask,
     return new_traj, new_goal, rt
 
 
-def _learner_init(model, cfg, hp, problem: PlanProblem):
+def _learner_init(model, cfg, hp, problem: PlanProblem, cv_fn=None):
     """Initial goal choice + respline (reference Learner.__init__,
-    online_learner.py:94-102)."""
+    online_learner.py:94-102).  A ``cv_fn`` scores the candidates instead
+    of the built-in sweep, and the active lanes stay unset (the learner
+    bypasses them for it)."""
     goal_idx0 = _init_goal_idx(cfg, problem)
     traj0 = problem.traj_init
     restrict = ol.sweep_restricted(cfg, problem.goal_set.capacity)
     learner0 = ol.init_learner_state(
         problem.goal_set, cfg.learner_active_goals if restrict else 0)
     if _learner_enabled(cfg):
-        raw0 = ol.cost_vector_raw(
-            model, problem.scene, problem.cost_params, cfg, hp, traj0,
-            problem.goal_set, 0.0, problem.world_potential)
-        cv0 = ol.finalize_cost_vector(cfg, raw0, problem.goal_set.mask)
-        if restrict:
-            k = min(cfg.learner_active_goals, problem.goal_set.capacity)
-            learner0 = learner0._replace(last_raw=raw0,
-                                         active_idx=top_k(-cv0, k)[1])
+        if cv_fn is not None:
+            cv0 = cv_fn(traj0, 0.0, problem.goal_set.mask)
+        else:
+            raw0 = ol.cost_vector_raw(
+                model, problem.scene, problem.cost_params, cfg, hp, traj0,
+                problem.goal_set, 0.0, problem.world_potential)
+            cv0 = ol.finalize_cost_vector(cfg, raw0, problem.goal_set.mask)
+            if restrict:
+                k = min(cfg.learner_active_goals, problem.goal_set.capacity)
+                learner0 = learner0._replace(last_raw=raw0,
+                                             active_idx=top_k(-cv0, k)[1])
         goal_idx0 = torch.argmin(cv0)
         if not cfg.warm_start_init:
             traj0 = cubic_interpolate(
@@ -221,8 +226,15 @@ def _dummy_info(cfg: OMGConfig, device) -> CostInfo:
         violate_limit=f, cost_traj=torch.zeros(cfg.timesteps, device=device))
 
 
-def _step(model, cfg, hp, problem: PlanProblem, carry: _Carry) -> _Carry:
-    """One plan iteration (the body of the JAX package's loop)."""
+def _step(model, cfg, hp, problem: PlanProblem, carry: _Carry,
+          cv_fn=None) -> _Carry:
+    """One plan iteration (the body of the JAX package's loop).
+
+    The learner's gate (``step < optim_steps`` and the sweep cadence) is a
+    host ``if`` on the step count, so every rank of a goal-sharded plan
+    takes it alike and a ``cv_fn`` holding collectives may be skipped on
+    the smoothing steps.  (JAX runs such a sweep unconditionally and masks
+    its result, since SPMD forbids collectives inside ``lax.cond``.)"""
     traj, goal_idx, lstate = carry.traj, carry.goal_idx, carry.learner
     use_bl = _blacklist_enabled(cfg)
     if _learner_enabled(cfg):
@@ -234,7 +246,8 @@ def _step(model, cfg, hp, problem: PlanProblem, carry: _Carry) -> _Carry:
                 mask=carry.goal_mask)) if use_bl else problem)
             lstate, goal_idx = ol.update_goal(
                 model, problem_l.scene, problem_l.cost_params, cfg, hp, traj,
-                problem_l.goal_set, lstate, problem_l.world_potential)
+                problem_l.goal_set, lstate, problem_l.world_potential,
+                cv_fn=cv_fn)
     new_traj, info = _optimize_once(model, cfg, hp, problem, traj, goal_idx,
                                     carry.step - carry.sched0)
     ex_traj, ex_ok, ex_info = carry.exec_traj, carry.exec_ok, carry.exec_info
@@ -260,9 +273,10 @@ def _step(model, cfg, hp, problem: PlanProblem, carry: _Carry) -> _Carry:
         exec_traj=ex_traj, exec_ok=ex_ok, exec_info=ex_info)
 
 
-def _init_carry(model, cfg, hp, problem: PlanProblem) -> _Carry:
+def _init_carry(model, cfg, hp, problem: PlanProblem, cv_fn=None) -> _Carry:
     dev = problem.start.device
-    traj0, goal_idx0, learner0 = _learner_init(model, cfg, hp, problem)
+    traj0, goal_idx0, learner0 = _learner_init(model, cfg, hp, problem,
+                                               cv_fn)
     info0 = _dummy_info(cfg, dev)
     snap = cfg.exec_snapshot
     return _Carry(traj0, goal_idx0, learner0, 0, False, info0,
@@ -288,16 +302,20 @@ def _finish(model, cfg, hp, problem, carry: _Carry):
             _where_tree(use, carry.exec_info, info))
 
 
-def plan(model, cfg: OMGConfig, problem: PlanProblem) -> PlanResult:
+def plan(model, cfg: OMGConfig, problem: PlanProblem,
+         cv_fn=None) -> PlanResult:
     """Full OMG plan with per-step history (``cfg.total_steps`` entries;
     steps after termination repeat the frozen state, as the JAX package's
-    scan does)."""
+    scan does).  ``cv_fn(traj, t, mask) -> [G]`` optionally overrides the
+    learner's candidate costs (``ops/learner.py::update_goal``); the
+    goal-sharded plan (``parallel/batch.py``) runs this same loop with
+    it."""
     hp = cfg.horizon().on(problem.start.device)
-    carry = _init_carry(model, cfg, hp, problem)
+    carry = _init_carry(model, cfg, hp, problem, cv_fn)
     history, infos, selected = [], [], []
     for _ in range(cfg.total_steps):
         if not carry.done:
-            carry = _step(model, cfg, hp, problem, carry)
+            carry = _step(model, cfg, hp, problem, carry, cv_fn)
         history.append(carry.traj)
         infos.append(carry.last_info)
         selected.append(carry.goal_idx)
@@ -311,13 +329,14 @@ def plan(model, cfg: OMGConfig, problem: PlanProblem) -> PlanResult:
         goal_mask=carry.goal_mask)
 
 
-def plan_fast(model, cfg: OMGConfig, problem: PlanProblem) -> PlanResult:
+def plan_fast(model, cfg: OMGConfig, problem: PlanProblem,
+              cv_fn=None) -> PlanResult:
     """History-free plan: early termination ends the loop (the benchmark
-    path)."""
+    path).  ``cv_fn`` as in :func:`plan`."""
     hp = cfg.horizon().on(problem.start.device)
-    carry = _init_carry(model, cfg, hp, problem)
+    carry = _init_carry(model, cfg, hp, problem, cv_fn)
     while not carry.done and carry.step < cfg.total_steps:
-        carry = _step(model, cfg, hp, problem, carry)
+        carry = _step(model, cfg, hp, problem, carry, cv_fn)
     traj_out, info = _finish(model, cfg, hp, problem, carry)
     return PlanResult(
         traj=traj_out, goal_idx=carry.goal_idx, info=info,

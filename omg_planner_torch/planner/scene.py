@@ -20,7 +20,7 @@ import torch
 from .. import resolve_device
 from ..config import OMGConfig
 from ..io.assets import (DEFAULT_END, DEFAULT_START, SceneObject,
-                         synthetic_tabletop_scene)
+                         make_primitive, pose_at, synthetic_tabletop_scene)
 from ..models import api as model_api
 from ..models import panda
 from ..ops.chomp import CostParams, GoalSet
@@ -60,6 +60,23 @@ class Env:
         self._scene_sdf = None
         self.version += 1
 
+    def remove_object(self, name: str):
+        idx = self.names.index(name)
+        del self.objects[idx]
+        if idx == self.target_idx:
+            self.target_idx = 0
+        elif idx < self.target_idx:
+            self.target_idx -= 1
+        if self.target_idx >= len(self.objects):
+            self.target_idx = 0
+        self._scene_sdf = None
+        self.version += 1
+
+    def clear(self):
+        self.objects = []
+        self._scene_sdf = None
+        self.version += 1
+
     def set_target(self, name: str):
         self.target_idx = self.names.index(name)
         self.objects[self.target_idx].compute_grasp = True
@@ -68,6 +85,21 @@ class Env:
     def update_pose(self, name: str, pose_mat: np.ndarray):
         self.objects[self.names.index(name)].update_pose(pose_mat)
         self.version += 1
+
+    def add_table(self, trans, extents=(1.0, 1.6, 0.36), delta=0.02):
+        """A box table (reference ``Env.add_table``,
+        ``omg/core.py:294-306``)."""
+        self.add_object(make_primitive(
+            "table", "box", list(extents), pose_at(trans),
+            compute_grasp=False, delta=delta))
+
+    def add_plane(self, z: float = 0.0):
+        """The floor, collision-disabled by name (reference
+        ``Env.add_plane``; 'floor' is skipped in the cost layer,
+        ``omg/cost.py:311``)."""
+        self.add_object(make_primitive(
+            "floor", "box", [3.0, 3.0, 0.02], pose_at([0, 0, z - 0.01]),
+            compute_grasp=False, delta=0.05))
 
     @property
     def names(self):

@@ -82,3 +82,16 @@ def render_point_observation(
     vis = winner[winner >= 0]
     return pts_w[vis], labels[vis], depth, seg
 
+
+
+def back_project(depth: np.ndarray, view: np.ndarray,
+                 fx: float, fy: float) -> np.ndarray:
+    """Depth image -> base-frame points (the reference's perception
+    back-projection, ``omg/core.py:851-854``)."""
+    h, w = depth.shape
+    cx, cy = w / 2, h / 2
+    v, u = np.nonzero(np.isfinite(depth))
+    z = depth[v, u]
+    cam = np.stack([(u - cx) * z / fx, (v - cy) * z / fy, z], axis=1)
+    inv = np.linalg.inv(view)
+    return cam @ inv[:3, :3].T + inv[:3, 3]
