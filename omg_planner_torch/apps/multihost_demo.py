@@ -19,7 +19,8 @@ The parent prints each rank's last lines and ``MULTIHOST DEMO: PASS`` or
 ``FAIL``, and exits non-zero on a failure or a rank's time-out.
 
     python -m omg_planner_torch.apps.multihost_demo --cpu   # 4 gloo ranks
-    python -m omg_planner_torch.apps.multihost_demo         # NCCL, a card each
+    python -m omg_planner_torch.apps.multihost_demo         # NCCL, a card
+                                                # for each of the 4 ranks
     python -m omg_planner_torch.apps.multihost_demo --world 2 \\
         --goal-parallel 2 --backend gloo   # two ranks on one card
 """
@@ -46,12 +47,13 @@ DEMO_CFG = OMGConfig(
 TRAJ_ATOL = 1e-6
 
 
-def child(mesh, cfg: OMGConfig = DEMO_CFG):
+def child(mesh):
     """One rank: stage, plan sharded and unsharded, compare, report."""
     from ..parallel.batch import make_sharded_pipeline, scene_pipeline_input
     from ..parallel.multihost import host_local_batch, my_scene_ids
     from ..planner.scene import PlanningScene
 
+    cfg = DEMO_CFG
     ids = my_scene_ids(SCENES_PER_ROW * mesh.rows, mesh)
     scenes = [PlanningScene.synthetic(cfg, scene_id=sid % 2, n_obstacles=1,
                                       device=mesh.device) for sid in ids]

@@ -10,8 +10,8 @@ rank r sits at scene row ``r // goal_parallel`` and goal column
   * :func:`plan_batch`: ``plan_fast`` over a stacked scene batch, one
     scene after another (JAX's is a sequential ``lax.map``).
   * :func:`make_sharded_plan`: each rank plans its row's scenes with the
-    goal set sharded over the goal group; the learner's full candidate
-    sweep is reassembled with one all-gather per step.
+    learner's full candidate sweep sharded over the goal group and
+    reassembled with one all-gather per step.
   * :func:`make_sharded_pipeline`: goal-set build (the IK chain lanes
     sharded over the goal group) followed by the goal-sharded plan.
 
@@ -157,36 +157,32 @@ def plan_batch(model, cfg, problems: PlanProblem) -> PlanResult:
 # goal-sharded plan: scenes x goals
 # ---------------------------------------------------------------------------
 
-def _goal_shard(problem: PlanProblem, mesh) -> PlanProblem:
-    """The problem with its goal set cut to this rank's contiguous slice
-    on G (what JAX's ``P('scene', 'goal')`` sharding hands a device).
-    Raises ``ValueError`` when the group size does not divide G, as JAX's
-    sharding does (on every rank alike, so no rank waits on the others)."""
-    g = problem.goal_set.grasps.shape[0]
+def _plan_goal_sharded(model, cfg, problem: PlanProblem, mesh,
+                       fast: bool = True) -> PlanResult:
+    """The plan of ONE scene on this rank of its goal group: the single
+    plan loop (``planner/plan.py``) on the whole goal set, which every
+    rank holds (the port has no global array to gather it from).
+
+    When the learner sweeps every lane (``ol.sweep_restricted`` false) the
+    per-step sweep is the sharded part: ``cost_vector_raw`` over this
+    rank's contiguous slice on G (what JAX's ``P('scene', 'goal')``
+    sharding hands a device), one all-gather, and ``finalize_cost_vector``
+    on the whole vector with the current mask.  Under the active-lane
+    restriction (the default) the sweep touches only K lanes and runs
+    replicated.  The ranks' results are then compared.  Raises
+    ``ValueError`` when the group size does not divide G, as JAX's
+    sharding does (on every rank alike, before any collective, so no rank
+    waits on the others)."""
+    gs = problem.goal_set
+    g = gs.grasps.shape[0]
     if g % mesh.goal_parallel:
         raise ValueError(f"goal capacity {g} is not divisible by the goal "
                          f"group size {mesh.goal_parallel}")
     per = g // mesh.goal_parallel
     lo = mesh.goal_col * per
-    return problem._replace(goal_set=GoalSet(
-        *(a[lo:lo + per] for a in problem.goal_set)))
-
-
-def _plan_goal_sharded(model, cfg, problem: PlanProblem, group,
-                       fast: bool = True) -> PlanResult:
-    """The plan of ONE scene whose goal set is this rank's slice: the
-    single plan loop (``planner/plan.py``) on the gathered goal set.
-
-    The goal-set arrays are all-gathered once, so the loop runs on the
-    global goal set, replicated over the group.  When the learner sweeps
-    every lane (``ol.sweep_restricted`` false) the per-step sweep is the
-    sharded part: ``cost_vector_raw`` over the local lanes, one all-gather,
-    and ``finalize_cost_vector`` on the whole vector with the current mask.
-    Under the active-lane restriction (the default) the sweep touches only
-    K lanes and runs replicated.  The ranks' results are then compared."""
+    gs_local = GoalSet(*(a[lo:lo + per] for a in gs))
+    group = mesh.goal_group
     hp = cfg.horizon().on(problem.start.device)
-    gs_local = problem.goal_set
-    gs_global = GoalSet(*(all_gather_cat(a, group) for a in gs_local))
 
     def cv_fn(traj, t, mask):
         raw = ol.cost_vector_raw(
@@ -194,9 +190,9 @@ def _plan_goal_sharded(model, cfg, problem: PlanProblem, group,
             gs_local, t, problem.world_potential)
         return ol.finalize_cost_vector(cfg, all_gather_cat(raw, group), mask)
 
-    cv = None if ol.sweep_restricted(cfg, gs_global.capacity) else cv_fn
+    cv = None if ol.sweep_restricted(cfg, gs.capacity) else cv_fn
     loop = plan_fast if fast else plan
-    res = loop(model, cfg, problem._replace(goal_set=gs_global), cv_fn=cv)
+    res = loop(model, cfg, problem, cv_fn=cv)
     check_agreement(torch.stack([
         res.goal_idx.long(), res.steps_used.long(), res.flag.long(),
         bits_checksum(res.traj)]), group, "goal-sharded plan")
@@ -207,7 +203,7 @@ def make_sharded_plan(mesh, model, cfg, fast: bool = True):
     """The (scenes x goals)-sharded batch planner for this rank.
 
     Input: the stacked problems of this rank's scene row, the whole goal
-    set on every rank; each rank plans with its contiguous slice on G.
+    set on every rank; each rank sweeps its contiguous slice on G.
     Raises ``ValueError`` when G is not divisible by the goal group size,
     as JAX's sharding does.  Returns the row's stacked ``PlanResult``, the
     same on every rank of the row, equal in semantics to
@@ -215,9 +211,7 @@ def make_sharded_plan(mesh, model, cfg, fast: bool = True):
 
     def call(problems: PlanProblem) -> PlanResult:
         return _stack([
-            _plan_goal_sharded(model, cfg,
-                               _goal_shard(_index(problems, i), mesh),
-                               mesh.goal_group, fast)
+            _plan_goal_sharded(model, cfg, _index(problems, i), mesh, fast)
             for i in range(_batch_size(problems))])
 
     return call
@@ -298,8 +292,8 @@ def make_sharded_pipeline(mesh, model, cfg, attached: bool = False,
                           fast: bool = True):
     """The whole per-scene pipeline for this rank: the goal-set build
     (the IK chain lanes sharded over the goal group, the filter, prune
-    and sample replicated), then the goal-sharded plan on this rank's
-    slice of the built goal set.  ``mesh=None`` runs the same pipeline in
+    and sample replicated), then the goal-sharded plan on the built goal
+    set.  ``mesh=None`` runs the same pipeline in
     one process (the plain IK and ``plan_fast``).
 
     Input: a stacked :class:`PipelineInput` batch of this rank's scene
@@ -307,7 +301,7 @@ def make_sharded_pipeline(mesh, model, cfg, attached: bool = False,
 
     (JAX's pipeline hands the replicated goal set to its goal-sharded
     plan, which gathers it again, so its plan sees every goal once per
-    goal shard; this one slices the built set first, so the sharded
+    goal shard; this one plans on the built set as it is, so the sharded
     pipeline equals the single-process one.)"""
     from ..planner import goal_set as gs_mod
     from ..planner.plan import init_trajectory
@@ -328,8 +322,7 @@ def make_sharded_pipeline(mesh, model, cfg, attached: bool = False,
                          traj_init=init_trajectory(cfg, pr.start, end))
         if group is None:
             return (plan_fast if fast else plan)(model, cfg, pr)
-        return _plan_goal_sharded(model, cfg, _goal_shard(pr, mesh), group,
-                                  fast)
+        return _plan_goal_sharded(model, cfg, pr, mesh, fast)
 
     def call(inps: PipelineInput) -> PlanResult:
         return _stack([one(_index(inps, i))

@@ -1,7 +1,8 @@
 """Run a function on every rank of a process group spawned on this host.
 
     ranks = spawn("omg_planner_torch.parallel.launch:plan_job", world=2,
-                  goal_parallel=2, kwargs=dict(...), workdir=tmp)
+                  goal_parallel=2, kwargs=dict(...), workdir=tmp,
+                  device="cpu")
 
 The parent writes a job file into ``workdir`` and starts ``world``
 processes of ``python -m omg_planner_torch.parallel.launch JOB RANK``.
@@ -28,6 +29,9 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from .. import resolve_device
+from .multihost import GROUP_TIMEOUT, default_backend, make_scene_mesh
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -41,20 +45,31 @@ class RankRun(NamedTuple):
 
 
 def spawn(target: str, world: int, workdir: str, goal_parallel: int = 1,
-          kwargs: dict | None = None, device: str = "cpu",
+          kwargs: dict | None = None, device=None,
           backend: str | None = None,
           timeout: float = 300.0) -> list[RankRun]:
     """Run ``target`` ("module:function") on ``world`` spawned ranks.
 
-    ``device`` is "cpu" or "cuda"; a CUDA rank takes card ``rank % count``.
-    ``backend`` defaults to NCCL for "cuda" and gloo for "cpu"."""
+    ``device`` is ``cuda`` unless the caller names another (raising
+    without a GPU, as every entry point does); a rank on ``cuda`` with no
+    index takes card ``rank % count``.  ``backend`` defaults to NCCL for
+    CUDA and gloo for the CPU.  NCCL needs a card for each rank: asking
+    it for more ranks than cards raises ``ValueError`` here, before any
+    rank starts."""
+    dev = resolve_device(device)
+    backend = backend or default_backend(dev)
+    if backend == "nccl" and world > torch.cuda.device_count():
+        raise ValueError(
+            f"NCCL needs a card for each rank: {world} ranks, "
+            f"{torch.cuda.device_count()} cards (pass backend='gloo' to "
+            f"share cards)")
     os.makedirs(workdir, exist_ok=True)
     job = os.path.join(workdir, "job.pt")
     store = os.path.join(workdir, "store")
     if os.path.exists(store):
         os.remove(store)
     torch.save(dict(target=target, world=world, goal_parallel=goal_parallel,
-                    kwargs=kwargs or {}, device=device, backend=backend,
+                    kwargs=kwargs or {}, device=str(dev), backend=backend,
                     store=store), job)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [_ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
@@ -109,16 +124,14 @@ def _resolve(target: str):
 
 
 def _child(job_path: str, rank: int):
-    from .multihost import GROUP_TIMEOUT, default_backend, make_scene_mesh
-
     torch.set_num_threads(1)
     job = torch.load(job_path, weights_only=False)
-    world = job["world"]
-    device = job["device"]
-    if device == "cuda":
-        device = f"cuda:{rank % torch.cuda.device_count()}"
+    world, backend = job["world"], job["backend"]
+    device = torch.device(job["device"])
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(device)
-    backend = job["backend"] or default_backend(device)
     dist.init_process_group(
         backend, store=dist.FileStore(job["store"], world), rank=rank,
         world_size=world, timeout=GROUP_TIMEOUT)

@@ -55,14 +55,13 @@ def default_backend(device) -> str:
 
 
 def make_scene_mesh(goal_parallel: int = 1, backend: str | None = None,
-                    device=None,
-                    timeout: timedelta = GROUP_TIMEOUT) -> SceneMesh:
+                    device=None) -> SceneMesh:
     """This rank's (scene x goal) mesh over the initialised default group.
 
     Every rank creates every row's goal group, in the same order (as
-    ``dist.new_group`` requires), with ``timeout``.  ``device`` is where
-    this rank's tensors live (``cuda`` unless named; a multi-GPU caller
-    names ``cuda:<local rank>``); ``backend`` defaults to
+    ``dist.new_group`` requires), with ``GROUP_TIMEOUT``.  ``device`` is
+    where this rank's tensors live (``cuda`` unless named; a multi-GPU
+    caller names ``cuda:<local rank>``); ``backend`` defaults to
     :func:`default_backend` of it.  Raises when ``torch.distributed`` is
     not initialised or when the world size is not divisible by
     ``goal_parallel``."""
@@ -78,7 +77,8 @@ def make_scene_mesh(goal_parallel: int = 1, backend: str | None = None,
     mine = None
     for row in range(world // goal_parallel):
         ranks = list(range(row * goal_parallel, (row + 1) * goal_parallel))
-        group = dist.new_group(ranks, timeout=timeout, backend=backend)
+        group = dist.new_group(ranks, timeout=GROUP_TIMEOUT,
+                               backend=backend)
         if rank in ranks:
             mine = group
     return SceneMesh(rank=rank, world=world,

@@ -7,6 +7,9 @@ multihost.py`` and ``apps/multihost_demo.py``) on the CPU.
 * ``make_scene_mesh`` raises without an initialised group, and at world
   size 1 (a gloo group in this process) gives the 1 x 1 mesh and rejects
   a goal axis that does not divide the world;
+* ``launch.spawn`` runs on ``cuda`` unless told otherwise, so without a
+  GPU and no device named it raises, and it refuses NCCL for more ranks
+  than cards before starting any rank;
 * the demo as a subprocess with a time limit: 4 gloo ranks as scene 2 x
   goal 2 print ``MULTIHOST DEMO: PASS``.
 """
@@ -21,6 +24,7 @@ import torch
 import torch.distributed as dist
 
 from omg_planner_tpu.parallel import multihost as jmultihost
+from omg_planner_torch.parallel import launch
 from omg_planner_torch.parallel.multihost import (SceneMesh, make_scene_mesh,
                                                   my_scene_ids)
 from omg_planner_torch.utils.collectives import all_gather_cat
@@ -73,6 +77,24 @@ def test_make_scene_mesh_world_one(tmp_path):
             make_scene_mesh(goal_parallel=2, device="cpu")
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="needs a host "
+                    "without a GPU")
+def test_spawn_defaults_to_cuda(tmp_path):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.spawn("omg_planner_torch.parallel.launch:jobs", 2,
+                     str(tmp_path), kwargs=dict(calls={}))
+    assert not os.listdir(tmp_path)
+
+
+def test_spawn_refuses_nccl_beyond_the_cards(tmp_path):
+    world = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match="a card for each rank"):
+        launch.spawn("omg_planner_torch.parallel.launch:jobs", world,
+                     str(tmp_path), kwargs=dict(calls={}), device="cpu",
+                     backend="nccl")
+    assert not os.listdir(tmp_path)
 
 
 def test_demo_passes_on_four_gloo_ranks():

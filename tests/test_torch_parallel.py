@@ -23,7 +23,11 @@ Cases:
   equal to the single-process solve, ``reach`` and ``standoff`` within
   1e-6; the same for the scanned chain over every lane from cold seeds
   (two-stage off), where the two ranks' lanes converge at different
-  iterations, so only the synced exit keeps them equal;
+  iterations, so only the synced exit keeps them equal; each also
+  against JAX's ``solve_goal_set_sharded`` over a two-device goal mesh
+  (lane for lane from cold seeds; on the lanes both keep in two-stage,
+  whose survivor ranking ties at float rounding), within the IK bar of
+  ``tests/test_torch_goal_set.py``, 1e-3 rad;
 * the whole sharded pipeline (IK goal-set build, then the goal-sharded
   plan) on a JAX-staged ``PipelineInput`` carried across by
   ``interop.pipeline_input``: equal to the port's one-process pipeline
@@ -60,6 +64,7 @@ ACTIVE_GOALS = (0, 4)
 # chain variants: fused and scanned two-stage; scanned from cold seeds
 CHAINS = ("fused", "scanned", "scanned_cold")
 SPAWN_TIMEOUT_S = 240
+IK_TOL = 1e-3   # the IK bar of tests/test_torch_goal_set.py
 
 
 def tcfg(cfg):
@@ -142,7 +147,7 @@ def sharded(staged, tmp_path_factory):
     runs = launch.spawn("omg_planner_torch.parallel.launch:jobs", 2,
                         str(tmp_path_factory.mktemp("ranks")),
                         goal_parallel=2, kwargs=dict(calls=calls),
-                        timeout=SPAWN_TIMEOUT_S)
+                        device="cpu", timeout=SPAWN_TIMEOUT_S)
     return launch.check(runs)
 
 
@@ -204,6 +209,22 @@ def test_sharded_plan_matches_single_process_and_jax(staged, sharded,
                                   np.asarray(jres.goal_mask))
 
 
+def _jax_solve_sharded(model, cfg, ik):
+    """JAX's ``solve_goal_set_sharded`` over a two-device goal mesh."""
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    mesh = Mesh(np.array(jax.devices()[:2]), ("goal",))
+    lo, hi = (jnp.asarray(ik[k].numpy()) for k in ("lower7", "upper7"))
+    fn = jax.jit(jax.shard_map(
+        lambda g, s, v: jbatch.solve_goal_set_sharded(
+            model, cfg, g, s, lo, hi, grasp_valid=v, axis="goal"),
+        mesh=mesh, in_specs=(P(), P(), P()), out_specs=P(),
+        check_vma=False))
+    out = fn(*(jnp.asarray(ik[k].numpy())
+               for k in ("grasps", "seeds", "grasp_valid")))
+    return [np.asarray(x) for x in out]
+
+
 @pytest.mark.parametrize("chain", CHAINS)
 def test_solve_goal_set_sharded_matches_single(staged, sharded, chain):
     ik = staged["ik"]
@@ -224,6 +245,32 @@ def test_solve_goal_set_sharded_matches_single(staged, sharded, chain):
                 np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6,
                                            err_msg=name)
     assert int(single[2].sum()) > 0
+
+    # against JAX's goal-sharded solve on the same inputs
+    reach, standoff, valid, lanes = (
+        x.numpy() for x in sharded[0][f"solve_{chain}"])
+    jreach, jstand, jvalid, jlanes = _jax_solve_sharded(
+        staged["model"], ik_cfg(chain), ik)
+    assert lanes.shape == jlanes.shape
+    if chain == "scanned_cold":
+        # every lane is chained, in lane order: equal lane for lane
+        np.testing.assert_array_equal(lanes, jlanes)
+        np.testing.assert_array_equal(valid, jvalid)
+        # failed lanes hold wherever their iterations stopped
+        np.testing.assert_allclose(reach[valid], jreach[valid], atol=IK_TOL)
+        np.testing.assert_allclose(standoff[valid], jstand[valid],
+                                   atol=IK_TOL)
+        return
+    # two-stage: the survivors are ranked by prefilter errors that tie at
+    # float rounding (``tests/test_torch_goal_set.py``'s lane-order note),
+    # so the two packages keep different lanes; the lanes both keep agree
+    common, ti, ji = np.intersect1d(lanes, jlanes, return_indices=True)
+    assert len(common) > 0
+    np.testing.assert_array_equal(valid[ti], jvalid[ji])
+    ok = valid[ti]
+    np.testing.assert_allclose(reach[ti][ok], jreach[ji][ok], atol=IK_TOL)
+    np.testing.assert_allclose(standoff[ti][ok], jstand[ji][ok], atol=IK_TOL)
+    assert valid.sum() == jvalid.sum()
 
 
 def test_sharded_pipeline_matches_one_process(staged, sharded):
