@@ -76,11 +76,28 @@ Phases (any failure exits non-zero; no phase is skipped):
     the card) under the same bar against ``plan_fast``; then
     ``python -m omg_planner_torch.apps.multihost_demo --world 2
     --goal-parallel 2 --backend gloo`` as a subprocess: two gloo ranks on
-    the one card, which must print ``MULTIHOST DEMO: PASS``.
+    the one card, which must print ``MULTIHOST DEMO: PASS``;
+16. viz and apps, on the card, writing into a temporary directory: whether
+    matplotlib and cv2 are importable here; the CLI with ``-f 0 -vc -vg
+    --fast`` at full width (the frames written, one every second
+    waypoint, and the file), the collision probe's ms per frame, and the
+    probe on the card against the CPU over the same trajectory (points
+    within 1e-5 m, potentials and gradients within 1e-4); without
+    matplotlib the probe runs over the planned trajectory alone and no
+    frame is drawn; ``apps.gen_demos.generate(2, ..., observations=True)``
+    (kept demos: a finite [T, 9] trajectory, simulated reward 1, lifted
+    above 0.05 m; at least one ``rigid_rollout`` launch);
+    ``apps.kitchen.run_script`` on the default script with
+    ``execute=True`` (two launches: the pick and the place);
+    ``apps.phys_exec --scenes 1 --video`` (one launch, the replay's frames
+    counted; without matplotlib the execution alone); the inspector on an
+    ephemeral port (``/state``, ``/plan`` pick then place,
+    ``/render.png``), with each request's wall.
 
 Each phase from 10 on runs with the launch counts set to 0 and checks
-them after: ``rigid_rollout`` must launch on the physics and service
-phases and no kernel elsewhere; ``min_dist_grid`` launches only in phase 7.
+them after: ``rigid_rollout`` must launch on the physics, service and viz
+and apps phases and no kernel elsewhere; ``min_dist_grid`` launches only
+in phase 7.
 The line before the last is a JSON object listing every kernel with its
 launches on its path, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -99,8 +116,10 @@ import numpy as np
 import torch
 
 from omg_planner_torch import interop
+from omg_planner_torch.__main__ import main as cli_main
 from omg_planner_torch.__main__ import observe_obstacles, perception_plan
-from omg_planner_torch.apps import serve
+from omg_planner_torch.apps import (gen_demos, inspector, kitchen, phys_exec,
+                                    serve)
 from omg_planner_torch.config import OMGConfig
 from omg_planner_torch.io.assets import pose_at
 from omg_planner_torch.models import chain
@@ -118,6 +137,7 @@ from omg_planner_torch.planner.runner import SuiteRunner
 from omg_planner_torch.planner.scene import PlanningScene
 from omg_planner_torch.utils.sync import SYNCS
 from omg_planner_torch.utils.timing import RETRIES
+from omg_planner_torch.viz.render import collision_probe
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SUITE = os.path.join(ROOT, "data", "suite_v2")
@@ -1217,6 +1237,230 @@ def phase_scaleout(dev):
         f"{time.time() - t0:.1f} s")
 
 
+def _importable(name: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
+def _video_frames(path: str) -> int:
+    """Frames in a video that ``viz.render.write_video`` wrote: the
+    ``.avi`` (read back with cv2) or its ``.npz`` fallback."""
+    if path.endswith(".npz"):
+        return len(np.load(path)["frames"])
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    try:
+        return int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    finally:
+        cap.release()
+
+
+def _written(stem: str) -> str:
+    found = [p for p in (stem, stem + ".npz") if os.path.exists(p)]
+    if len(found) != 1:
+        raise AssertionError(f"{stem}: expected one video file, found "
+                             f"{found}")
+    return found[0]
+
+
+def _rollouts_since(n0: int) -> int:
+    return kernels.rigid_rollout.launches - n0
+
+
+def _viz_cli(dev, tmp, have_mpl):
+    """The CLI's ``-f 0 -vc -vg --fast`` at full width, then the collision
+    probe over the plan's rendered waypoints: ms per frame on the card,
+    and the card against the CPU."""
+    cfg = OMGConfig()
+    t0 = time.time()
+    if have_mpl:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            res = cli_main(["-f", "0", "-vc", "-vg", "--fast"])
+        finally:
+            os.chdir(cwd)
+        path = _written(os.path.join(tmp, "output_videos", "scene_0.avi"))
+        frames = _video_frames(path)
+    else:
+        res = PlanningScene.synthetic(cfg, scene_id=0, n_obstacles=2,
+                                      device=dev).step(fast=True)
+        path, frames = None, 0
+    wall = time.time() - t0
+    if res is None or not np.isfinite(res.traj).all():
+        raise AssertionError("viz CLI: no finite plan of scene 0")
+    traj = np.asarray(res.traj)[::2]
+    if have_mpl:
+        log(f"viz CLI -f 0 -vc -vg --fast: {frames} frames (T = "
+            f"{len(res.traj)}) written to {os.path.relpath(path, tmp)}, "
+            f"{wall:.1f} s with the plan")
+        if frames != len(traj):
+            raise AssertionError(f"viz CLI: {frames} frames, want "
+                                 f"{len(traj)}")
+    else:
+        log(f"viz CLI: frames not drawn because matplotlib is missing on "
+            f"this machine; the plan ({wall:.1f} s) and the collision probe "
+            f"over its {len(traj)} rendered waypoints run on the card")
+    scene = PlanningScene.synthetic(cfg, scene_id=0, n_obstacles=2,
+                                    device=dev)
+    collision_probe(scene, traj[0])     # stage the scene and warm up
+    _sync(dev)
+    t0 = time.time()
+    card = [tuple(a.cpu().numpy() for a in collision_probe(scene, q))
+            for q in traj]
+    probe_ms = (time.time() - t0) * 1e3 / len(traj)
+    ref = PlanningScene.synthetic(cfg, scene_id=0, n_obstacles=2,
+                                  device="cpu")
+    cpu = [tuple(a.numpy() for a in collision_probe(ref, q)) for q in traj]
+    gaps = [max(float(np.abs(a[i] - b[i]).max()) for a, b in zip(card, cpu))
+            for i in range(3)]
+    log(f"viz collision probe: {probe_ms:.3f} ms a frame on the card (FK, "
+        f"points, potentials, one host read; {len(traj)} frames, "
+        f"{card[0][0].shape[0] * card[0][0].shape[1]} points); card vs cpu "
+        f"max|points| {gaps[0]:.2e} m (bar 1e-5), max|pot| {gaps[1]:.2e}, "
+        f"max|grad| {gaps[2]:.2e} (bars 1e-4)")
+    if not (gaps[0] <= 1e-5 and gaps[1] <= 1e-4 and gaps[2] <= 1e-4):
+        raise AssertionError("viz: the collision probe on the card "
+                             "disagrees with the cpu")
+
+
+def _viz_gen_demos(dev, tmp):
+    out = os.path.join(tmp, "demos")
+    n0 = kernels.rigid_rollout.launches
+    t0 = time.time()
+    kept = gen_demos.generate(2, out, observations=True, device=dev)
+    wall = time.time() - t0
+    launches = _rollouts_since(n0)
+    demos = sorted(f for f in os.listdir(out) if f.startswith("demo_"))
+    log(f"gen_demos.generate(2, observations=True): kept {kept}, "
+        f"{wall:.1f} s, rigid_rollout launches {launches}")
+    if launches < 1 or len(demos) != kept:
+        raise AssertionError("gen_demos: no rollout launched or demos "
+                             "missing")
+    for name in demos:
+        d = np.load(os.path.join(out, name))
+        traj, reward = d["traj"], int(d["scene_sim_reward"])
+        lifted = float(d["scene_sim_lifted_m"])
+        log(f"  {name}: traj {traj.shape}, sim_reward {reward}, "
+            f"sim_lifted_m {lifted:.4f}, obs_rgb {d['obs_rgb'].shape}")
+        if (traj.ndim != 2 or traj.shape[1] != 9
+                or not np.isfinite(traj).all() or reward != 1
+                or not lifted > 0.05):
+            raise AssertionError(f"gen_demos: bad demo {name}")
+
+
+def _viz_kitchen(dev):
+    scene = kitchen.kitchen_scene(OMGConfig(silent=True), device=dev)
+    steps = [("T", "mug"), ("P", [0.0, 0.25, 0.0]), ("E", 0)]
+    n0 = kernels.rigid_rollout.launches
+    t0 = time.time()
+    results, reports = kitchen.run_script(scene, steps, execute=True)
+    _sync(dev)
+    wall = time.time() - t0
+    launches = _rollouts_since(n0)
+    for i, (kind, _, res) in enumerate(results):
+        verdict = ("no plan" if res is None else
+                   f"{'OK' if bool(res.flag) else 'FAIL'}, "
+                   f"{int(res.steps_used)} steps")
+        log(f"kitchen --exec {kind}: {verdict}  {reports.get(i, '')}")
+    pick, place = reports.get(0), reports.get(1)
+    if pick is None or place is None or launches != 2:
+        raise AssertionError(f"kitchen --exec: {launches} rollouts, "
+                             f"reports {sorted(reports)}")
+    log(f"kitchen --exec: pick reward {pick['reward']} lifted "
+        f"{pick['lifted_m']:.4f} m; place carried {place['carried']} error "
+        f"{place['place_err_xy_m'] * 1e3:.1f} mm; {wall:.1f} s, "
+        f"rigid_rollout launches {launches}")
+
+
+def _viz_replay(tmp, have_mpl):
+    n0 = kernels.rigid_rollout.launches
+    path = os.path.join(tmp, "replay.avi")
+    argv = ["--scenes", "1"] + (["--video", path] if have_mpl else [])
+    t0 = time.time()
+    report = phys_exec.main(argv)
+    wall = time.time() - t0
+    launches = _rollouts_since(n0)
+    row = report["scenes"][0]
+    if have_mpl:
+        frames = _video_frames(_written(path))
+        what = f"replay of {frames} frames"
+    else:
+        frames = None
+        what = "replay not drawn because matplotlib is missing"
+    log(f"phys_exec --scenes 1{' --video' if have_mpl else ''}: reward "
+        f"{row.get('reward')}, {what}, {wall:.1f} s, rigid_rollout launches "
+        f"{launches}")
+    if launches != 1 or not row.get("executed") or frames == 0:
+        raise AssertionError("phys_exec --video: no execution or replay")
+
+
+def _viz_inspector(dev):
+    import threading
+    import urllib.request
+
+    scene = PlanningScene.synthetic(OMGConfig(silent=True), scene_id=0,
+                                    n_obstacles=2, device=dev)
+    app = inspector.InspectorApp(scene)
+    srv = inspector.make_server(app, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def call(path, body=None):
+        req = (urllib.request.Request(base + path) if body is None else
+               urllib.request.Request(base + path, method="POST",
+                                      data=json.dumps(body).encode()))
+        t0 = time.time()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            if r.status != 200:
+                raise AssertionError(f"inspector {path}: {r.status}")
+            data = r.read()
+        return data, (time.time() - t0) * 1e3
+
+    try:
+        walls = []
+        _, ms = call("/state")
+        walls.append(f"/state {ms:.1f}")
+        t = scene.env.target
+        x, y = float(t.pose_mat[0, 3]), float(t.pose_mat[1, 3])
+        out, ms = call("/plan", {"action": "pick", "x": x, "y": y})
+        pick = json.loads(out)
+        walls.append(f"/plan pick {ms:.1f} ({pick['message']})")
+        if not pick["ok"]:
+            raise AssertionError(f"inspector pick: {pick['message']}")
+        out, ms = call("/plan", {"action": "place", "x": x + 0.08,
+                                 "y": y - 0.1})
+        walls.append(f"/plan place {ms:.1f} ({json.loads(out)['message']})")
+        png, ms = call("/render.png")
+        walls.append(f"/render.png {ms:.1f} ({len(png)} B)")
+        out, ms = call("/state")
+        state = json.loads(out)
+        walls.append(f"/state after the plans {ms:.1f}")
+        log("inspector request walls, ms: " + "; ".join(walls))
+        if (png[:8] != b"\x89PNG\r\n\x1a\n" or len(state["ee_path"]) < 4
+                or not state["goal_ghosts"]):
+            raise AssertionError("inspector: bad /render.png or /state")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+
+
+def phase_viz_apps(dev):
+    """Viz and apps on the card (phase 16)."""
+    have_mpl, have_cv2 = _importable("matplotlib"), _importable("cv2")
+    log(f"viz libraries here: matplotlib {have_mpl}, cv2 {have_cv2}")
+    with tempfile.TemporaryDirectory() as tmp:
+        _viz_cli(dev, tmp, have_mpl)
+        _viz_gen_demos(dev, tmp)
+        _viz_kitchen(dev)
+        _viz_replay(tmp, have_mpl)
+        _viz_inspector(dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1241,11 +1485,12 @@ def main() -> int:
     # phases from here on: the kernels each path must launch
     expect = {"fused": (), "chain": (), "tasks": (),
               "physics": ("rigid_rollout",), "serve": ("rigid_rollout",),
-              "scale-out": ()}
+              "scale-out": (), "viz and apps": ("rigid_rollout",)}
     entries = [entry]
     for name, fn in (("fused", phase_fused), ("chain", phase_chain),
                      ("tasks", phase_tasks), ("physics", phase_physics),
-                     ("serve", phase_serve), ("scale-out", phase_scaleout)):
+                     ("serve", phase_serve), ("scale-out", phase_scaleout),
+                     ("viz and apps", phase_viz_apps)):
         reset_counts()
         out = timed(name, fn, "cuda")
         if name == "physics":

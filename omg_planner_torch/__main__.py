@@ -10,6 +10,11 @@ Modes:
   python -m omg_planner_torch -exp              plan the pinned suite
                                                 (data/suite_v2) through the
                                                 suite runner into output_suite/
+  add -w to write a playback video to output_videos/<name>.avi (every
+  second waypoint), -v for the same frames, -vc to overlay the collision
+  points coloured by potential with gradient quivers, -vg to overlay
+  goal-set ghost skeletons (drawing needs matplotlib; without cv2 the
+  frames go to <name>.avi.npz)
   add --fast for the history-free plan, --cpu to run on the CPU
   (the default device is cuda; without a GPU the CLI raises)
 """
@@ -83,6 +88,32 @@ def perception_plan(cfg, scene_id: int, n_obstacles: int, device=None):
     return scene
 
 
+def write_playback(scene, traj, name: str, collision: bool = False,
+                   goalset: bool = False):
+    """Render ``traj`` every second waypoint (collision overlay with
+    ``collision``, the first 16 valid goals as ghosts with ``goalset``)
+    into ``output_videos/<name>.avi`` (or its ``.npz`` without cv2)."""
+    from .viz.render import (render_trajectory, render_trajectory_collision,
+                             write_video)
+
+    kw = {}
+    if goalset and scene.goal_set is not None:
+        m = scene.goal_set.mask.cpu().numpy()
+        kw["goal_configs"] = scene.goal_set.grasps.cpu().numpy()[m][:16]
+    if collision:
+        frames = render_trajectory_collision(scene.model, scene, traj,
+                                             every=2, **kw)
+    else:
+        frames = render_trajectory(scene.model, scene.env.objects, traj,
+                                   every=2, **kw)
+    os.makedirs("output_videos", exist_ok=True)
+    path = f"output_videos/{name}.avi"
+    write_video(frames, path)
+    if not os.path.exists(path) and os.path.exists(path + ".npz"):
+        path += ".npz"
+    print(f"video: {path} ({len(frames)} frames)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="omg_planner_torch")
     ap.add_argument("-f", "--file", default="0",
@@ -90,6 +121,14 @@ def main(argv=None):
     ap.add_argument("-exp", "--experiment", action="store_true",
                     help="plan the pinned suite with execution validation")
     ap.add_argument("-p", "--perception", action="store_true")
+    ap.add_argument("-w", "--write_video", action="store_true")
+    ap.add_argument("-v", "--vis", action="store_true")
+    ap.add_argument("-vc", "--vis_collision", action="store_true",
+                    help="overlay collision points colored by potential "
+                         "with gradient quivers (reference fast_debug_vis "
+                         "collision mode, core.py:561-630)")
+    ap.add_argument("-vg", "--vis_goalset", action="store_true",
+                    help="overlay goal-set ghost skeletons")
     ap.add_argument("-g", "--grasp", default="grasp",
                     choices=["grasp", "scene"],
                     help="goal init: grasp DB IK, or precomputed scene goals")
@@ -122,11 +161,19 @@ def main(argv=None):
         return
     if args.perception:
         scene = perception_plan(cfg, int(args.file), args.obstacles, device)
+        name = f"perception_{args.file}"
     else:
         scene = _load_scene(cfg, args.file, args.obstacles, args.grasp,
                             device)
-    if scene is not None:
-        scene.step(fast=args.fast)
+        name = f"scene_{args.file}"
+    if scene is None:
+        return None
+    res = scene.step(fast=args.fast)
+    if res is not None and (args.write_video or args.vis
+                            or args.vis_collision or args.vis_goalset):
+        write_playback(scene, res.traj, name, args.vis_collision,
+                       args.vis_goalset)
+    return res
 
 
 if __name__ == "__main__":

@@ -13,7 +13,7 @@ Usage::
 
     python -m omg_planner_torch.apps.phys_exec --scenes 30 \\
         --out phys_exec.json [--cpu] [--pipeline] [--cascade] \\
-        [--exec-retries N]
+        [--exec-retries N] [--video replay.avi]
 
 Prints one JSON line of aggregates (plan success rate, execution reward
 on planned successes, end-to-end reward) and writes the full report with
@@ -32,6 +32,20 @@ import numpy as np
 
 SUITE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      "..", "..", "data", "suite_v2")
+
+
+def _write_replay(scene, trace, args):
+    """Render the rollout trace (robot + simulated target) to a video."""
+    from omg_planner_torch.physics.executor import _body_spec_for
+    from omg_planner_torch.viz.render import render_execution, write_video
+
+    env = scene.env
+    spec = _body_spec_for(env.target, args.density, scene.cfg, scene.device)
+    frames = render_execution(
+        scene.model, env.objects, env.target_idx, trace["configs"],
+        trace["x"], trace["q"], com=spec.com.cpu().numpy())
+    write_video(frames, args.video)
+    print(f"replay -> {args.video} ({len(frames)} frames)", flush=True)
 
 
 def main(argv=None):
@@ -58,13 +72,11 @@ def main(argv=None):
                          "worker thread executes rollouts; failures are "
                          "retried serially afterwards")
     ap.add_argument("--video", default="",
-                    help="an execution-replay video (needs viz/render.py, "
-                         "not ported yet)")
+                    help="write an execution-replay video (robot + "
+                         "simulated target pose) of the first executed "
+                         "scene to this path (serial mode without "
+                         "exec-retries only)")
     args = ap.parse_args(argv)
-    if args.video:
-        raise NotImplementedError(
-            "--video needs viz/render.py, which is not ported yet "
-            "(ROADMAP.md queue 1, item 9: apps and host tooling)")
 
     from omg_planner_torch import resolve_device
     from omg_planner_torch.apps.serve import _device_label
@@ -82,6 +94,10 @@ def main(argv=None):
         pad = max(pad, len(scene.env.objects) - 1)
 
     t_all = time.time()
+    if args.video and (args.pipeline or args.exec_retries > 0):
+        print("note: --video records only in the serial "
+              "non-exec-retries mode; flag ignored for this run",
+              flush=True)
     if args.pipeline:
         rows = _run_pipelined(args, cfg, scenes, pad, device)
     else:
@@ -258,13 +274,18 @@ def _run_serial(args, scenes, pad, device):
             continue
         row["plan_flag"] = True
         t0 = time.time()
+        want_video = bool(args.video) and not any(
+            r.get("executed") for r in rows)
         try:
-            rep = execute_plan(scene, np.asarray(res.traj),
+            out = execute_plan(scene, np.asarray(res.traj),
                                density=args.density, pad_statics=pad,
-                               params=params)
+                               params=params, return_trace=want_video)
+            rep, trace = out if want_video else (out, None)
             row.update(executed=True,
                        exec_wall_s=round(time.time() - t0, 3),
                        **rep.to_dict())
+            if trace is not None:
+                _write_replay(scene, trace, args)
         except NoMassModelError as e:     # no mass model for this target
             row.update(executed=False, reward=0, skip_reason=str(e))
         rows.append(row)

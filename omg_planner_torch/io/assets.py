@@ -91,6 +91,15 @@ class SceneObject:
         self.attached = False
         self.rel_hand_pose = None
         self.points = points  # [K, 3] surface points (camera splats)
+        # optional true triangle mesh (verts [V, 3], faces [F, 3]) for
+        # mesh-backed objects; viz/raster renders it instead of the
+        # primitive proxy when present
+        self.mesh: tuple | None = None
+        # optional appearance for the textured raster path (reference
+        # ycb_renderer textured draw, ycb_renderer.py:1242-1491):
+        # per-corner UVs [F, 3, 2] + texture image [th, tw, 3] in [0, 1]
+        self.mesh_uv = None
+        self.texture = None
 
     def update_pose(self, pose_mat: np.ndarray):
         self.pose_mat = np.asarray(pose_mat, np.float64)

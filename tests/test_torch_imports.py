@@ -2,7 +2,8 @@
 
 * ``omg_planner_torch`` (every module: ``models/chain.py``,
   ``planner/tasks.py``, ``apps/serve.py``, ``physics/*``,
-  ``planner/exec_verify.py`` and ``apps/phys_exec.py`` among them),
+  ``planner/exec_verify.py``, ``apps/phys_exec.py``, ``viz/render.py``
+  and the apps among them; none imports matplotlib or cv2 at load),
   ``chip_smoke.py``
   and ``bench_torch.py`` import neither ``jax`` nor ``omg_planner_tpu``:
   checked in a fresh interpreter, since this test process has JAX loaded
@@ -38,7 +39,8 @@ for name in names:
 import chip_smoke
 import bench_torch
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "omg_planner_tpu")))
+             if m in ("jax", "matplotlib", "cv2")
+             or m.startswith(("jax.", "omg_planner_tpu")))
 print(len(names), bad)
 """
 
@@ -143,10 +145,40 @@ def test_physics_needs_a_device_without_gpu(no_gpu):
         NativePanda()
     with pytest.raises(RuntimeError):
         phys_exec.main(["--scenes", "1"])
-    with pytest.raises(NotImplementedError, match="viz/render.py"):
-        phys_exec.main(["--scenes", "1", "--cpu", "--video", "x.mp4"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        phys_exec.main(["--scenes", "1", "--video", "x.avi"])
     assert rigid.default_params(device="cpu").dt.device.type == "cpu"
     assert NativePanda(device="cpu").device.type == "cpu"
+
+
+def test_apps_and_render_flags_need_a_device_without_gpu(no_gpu,
+                                                        tmp_path):
+    """The viz and app entry points (the CLI's render flags, ``gen_demos``,
+    ``vis_demos``, ``kitchen``, ``inspector``) raise without a GPU unless
+    the CPU is asked for."""
+    from omg_planner_torch.__main__ import main
+    from omg_planner_torch.apps import (gen_demos, inspector, kitchen,
+                                        vis_demos)
+
+    cfg = OMGConfig(silent=True)
+    for flags in (["-vc"], ["-vg"], ["-w"], ["-v"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["-f", "0", *flags])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gen_demos.main(["-n", "1", "-o", str(tmp_path)])
+    with pytest.raises(RuntimeError):
+        gen_demos.generate(1, str(tmp_path), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vis_demos.main(["-d", str(tmp_path)])
+    with pytest.raises(RuntimeError):
+        vis_demos.replay(os.path.join(str(tmp_path), "demo_0.npz"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kitchen.main([])
+    with pytest.raises(RuntimeError):
+        kitchen.kitchen_scene(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        inspector.main(["--port", "0"])
+    assert kitchen.kitchen_scene(cfg, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_gpu_or_package(tmp_path):
