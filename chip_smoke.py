@@ -92,7 +92,22 @@ Phases (any failure exits non-zero; no phase is skipped):
     ``apps.phys_exec --scenes 1 --video`` (one launch, the replay's frames
     counted; without matplotlib the execution alone); the inspector on an
     ephemeral port (``/state``, ``/plan`` pick then place,
-    ``/render.png``), with each request's wall.
+    ``/render.png``), with each request's wall;
+17. scene batches at the full ``OMGConfig()`` width on ``data/suite_v2``
+    scenes 0-7 (scene 2 ends at step 2 while scene 4 runs all 70): each
+    scene's own goal-set build, then waves of 4 in one batched build each
+    (``prebuild_goal_sets``), with walls and host syncs per scene and per
+    wave and the goal sets equal (masks, grasps within 1e-5);
+    ``plan_pipelined(build_batch=4)`` against ``build_batch=0``: the same
+    goal-set masks, grasps within 1e-5, goal, verdict and steps per scene;
+    ``plan_batch_vmap`` over the 8 staged problems against 8 ``plan_fast``
+    calls, at 50+20 and at 10+1 steps: the same goal, verdict and steps,
+    the trajectory within 1e-5 (or, on a scene whose own ``plan_fast``
+    moves by ``own`` when its start moves by +-1e-7 rad, the goal, verdict
+    and steps of ``plan_fast`` or a nudged plan and within min(1e-2, 10 x
+    ``own``) of it), a reversed batch giving the same rows, walls and host
+    syncs a step, and device operations a step from ``torch.profiler``
+    against ``plan_fast`` on scene 1.  No hand kernel.
 
 Each phase from 10 on runs with the launch counts set to 0 and checks
 them after: ``rigid_rollout`` must launch on the physics, service and viz
@@ -133,7 +148,8 @@ from omg_planner_torch.physics import executor, rigid
 from omg_planner_torch.physics.panda_ctrl import HOME_POSE, NativePanda
 from omg_planner_torch.planner import plan as plan_mod
 from omg_planner_torch.planner import tasks
-from omg_planner_torch.planner.runner import SuiteRunner
+from omg_planner_torch.planner.runner import (SuiteRunner, plan_pipelined,
+                                              prebuild_goal_sets)
 from omg_planner_torch.planner.scene import PlanningScene
 from omg_planner_torch.utils.sync import SYNCS
 from omg_planner_torch.utils.timing import RETRIES
@@ -426,37 +442,49 @@ def phase_standard(dev):
             raise AssertionError("a kernel launched on the standard path")
 
 
+def _profiled(fn, dev, what, cpu: bool = True):
+    """``fn()`` under ``torch.profiler``: (result, wall ms under the
+    profiler, device operations, device ms by operation name).  Fails when
+    the profiler records no device operation.  ``cpu=False`` traces the
+    device alone (reading a trace that holds the host's operations too is
+    slow in Python)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
+        t0 = time.time()
+        out = fn()
+        _sync(dev)
+        wall_ms = (time.time() - t0) * 1e3
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        raise AssertionError(f"profile {what}: wall {wall_ms:.1f} ms, but "
+                             "the profiler recorded no device operations")
+    by_name = {}
+    for e in ops:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return out, wall_ms, len(ops), by_name
+
+
 def phase_profile(dev):
     """Where one standard plan's time goes: ``torch.profiler`` over
     ``step(fast=True)`` of suite scene 1 (goal set already staged), for
     the device's busy share and the device operations per plan."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     cfg = OMGConfig(silent=True)
     path = os.path.join(SUITE, "scene_1.npz")
     scene = PlanningScene.from_npz(cfg, path, device=dev)
     scene.step(fast=True)  # stages the goal set and warms up
     _sync(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        res = scene.step(fast=True)
-        _sync(dev)
-        wall_ms = (time.time() - t0) * 1e3
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not ops:
-        raise AssertionError(
-            f"profile standard plan suite scene 1: wall {wall_ms:.1f} ms, "
-            "but the profiler recorded no device operations")
-    by_name = {}
-    for e in ops:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    res, wall_ms, n_ops, by_name = _profiled(
+        lambda: scene.step(fast=True), dev, "standard plan suite scene 1")
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     log(f"profile standard plan suite scene 1 ({int(res.steps_used)} steps):"
         f" wall {wall_ms:.1f} ms under the profiler, device busy "
-        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(ops)} "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_ops} "
         f"device operations")
     for name, us in top:
         log(f"  {us / 1e3:8.3f} ms  {name[:100]}")
@@ -1237,6 +1265,205 @@ def phase_scaleout(dev):
         f"{time.time() - t0:.1f} s")
 
 
+def _scene_batch_builds(cfg, dev, load, max_obj):
+    """The goal-set builds alone: each scene's own build, then waves of 4
+    in one batched build each; the goal sets must agree."""
+    own = load()
+    walls = []
+    for i, sc in own:
+        _, ms, syncs = _timed(lambda: sc.build_problem(assume_goals=True),
+                              dev)
+        walls.append((ms, syncs))
+        log(f"scene batches: own build suite scene {i}: {ms:.1f} ms, "
+            f"{syncs} host syncs")
+    waves = load()
+    model = waves[0][1].model
+    for lo in range(0, len(waves), 4):
+        wave = waves[lo:lo + 4]
+        _, ms, syncs = _timed(lambda: prebuild_goal_sets(
+            wave, cfg, model, 4, max_obj), dev)
+        own_ms = sum(w[0] for w in walls[lo:lo + 4])
+        own_syncs = sum(w[1] for w in walls[lo:lo + 4])
+        log(f"scene batches: batched build of suite scenes "
+            f"{[i for i, _ in wave]}: {ms:.1f} ms, {syncs} host syncs "
+            f"(their own builds: {own_ms:.1f} ms, {own_syncs} host syncs)")
+    for (i, a), (_, b) in zip(own, waves):
+        _same_goal_set(a._staged[1], b._staged[1], f"batched build scene {i}")
+
+
+def _same_goal_set(a, b, what):
+    if not torch.equal(a.mask, b.mask):
+        raise AssertionError(f"{what}: goal-set masks differ")
+    gap = float((a.grasps - b.grasps).abs().max())
+    if gap > 1e-5:
+        raise AssertionError(f"{what}: grasps differ by {gap:.3g}")
+
+
+def _same_result(a, b, what):
+    """The same goal, verdict and steps."""
+    for name in ("goal_idx", "flag", "steps_used"):
+        x, y = (np.asarray(getattr(r, name).cpu()
+                           if torch.is_tensor(getattr(r, name))
+                           else getattr(r, name)) for r in (a, b))
+        if not np.array_equal(x, y):
+            raise AssertionError(f"{what}: {name} {x} vs {y}")
+
+
+def _outcome(r):
+    """(goal, verdict, steps) of one plan."""
+    return int(r.goal_idx), bool(r.flag), int(r.steps_used)
+
+
+def _traj_gap(a, b):
+    return float((a.traj - b.traj).abs().max())
+
+
+def _batch_row_check(model, cfg, pr, mine, one, what):
+    """Hold one scene's row ``mine`` of a batched plan to the scene's own
+    ``plan_fast`` result ``one``.  Equal: the same goal, verdict and steps
+    and trajectories within 1e-5.  Otherwise the scene must be one whose
+    own plan_fast is that sensitive: with its start moved by +-1e-7 rad
+    (the probes) plan_fast moves by ``own``; the row must share goal,
+    verdict and steps with plan_fast or a probe, and lie within min(1e-2,
+    10 * own) of the nearest of those.  Returns the note to log."""
+    gap = _traj_gap(mine, one)
+    if _outcome(mine) == _outcome(one) and gap <= 1e-5:
+        return (f"in the batch the same goal, verdict and steps, trajectory "
+                f"gap {gap:.3g}")
+    probes = [plan_mod.plan_fast(model, cfg, pr._replace(start=pr.start + e))
+              for e in (1e-7, -1e-7)]
+    own = max(_traj_gap(p, one) for p in probes)
+    twins = [p for p in [one] + probes if _outcome(p) == _outcome(mine)]
+    seen = [_outcome(p) for p in probes]
+    if not twins:
+        raise AssertionError(
+            f"{what}: (goal, verdict, steps) {_outcome(mine)} in the batch, "
+            f"{_outcome(one)} alone, {seen} with the start moved by +-1e-7 "
+            f"rad")
+    near = min(_traj_gap(mine, p) for p in twins)
+    bar = min(1e-2, 10 * own)
+    note = (f"in the batch (goal, verdict, steps) {_outcome(mine)}, "
+            f"trajectory gap {gap:.3g}; sensitive: with its start moved by "
+            f"+-1e-7 rad its plan_fast gives {seen} and moves by {own:.3g}; "
+            f"the batch lies {near:.3g} from the nearest of them with its "
+            f"goal, verdict and steps (bar min(1e-2, 10 x {own:.3g}))")
+    if near > bar:
+        raise AssertionError(f"{what}: {note}")
+    return note
+
+
+def _batch_vs_own(model, cfg, stacked, problems, sids, dev):
+    """``plan_batch_vmap`` of the stacked problems against each scene's own
+    ``plan_fast`` (:func:`_batch_row_check`), with walls and host syncs.
+    Returns the batch's result and loop steps."""
+    tag = f"optim_steps={cfg.optim_steps} extra_smooth_steps=" \
+          f"{cfg.extra_smooth_steps}"
+    batched, ms, syncs = _timed(
+        lambda: batch_mod.plan_batch_vmap(model, cfg, stacked), dev)
+    loop_steps = int(batched.steps_used.max())
+    own_ms = own_syncs = own_steps = 0
+    for k, (i, pr) in enumerate(zip(sids, problems)):
+        one, ms_i, syncs_i = _timed(
+            lambda: plan_mod.plan_fast(model, cfg, pr), dev)
+        own_ms, own_syncs = own_ms + ms_i, own_syncs + syncs_i
+        own_steps += int(one.steps_used)
+        what = f"plan_batch_vmap ({tag}) scene {i}"
+        note = _batch_row_check(model, cfg, pr, batch_mod._index(batched, k),
+                                one, what)
+        fired = bool((one.goal_mask != pr.goal_set.mask).any())
+        log(f"scene batches ({tag}): plan_fast suite scene {i}: "
+            f"{'SUCCESS' if bool(one.flag) else 'FAIL'} steps "
+            f"{int(one.steps_used)} goal {int(one.goal_idx)} blacklist "
+            f"{'fired' if fired else 'not fired'}: {ms_i:.1f} ms, "
+            f"{syncs_i} host syncs; {note}")
+    steps = batched.steps_used.tolist()
+    if len(set(steps)) < 2:
+        raise AssertionError("scene batches: every scene ended at one step")
+    log(f"scene batches ({tag}): plan_batch_vmap over suite scenes "
+        f"{sids[0]}-{sids[-1]} (steps {steps}, {loop_steps} loop steps): "
+        f"{ms:.1f} ms, {syncs} host syncs ({syncs / loop_steps:.2f} a loop "
+        f"step) | {len(problems)} plan_fast: {own_ms:.1f} ms, {own_syncs} "
+        f"host syncs ({own_syncs / own_steps:.2f} a step)")
+    return batched, loop_steps
+
+
+def phase_scene_batches(dev):
+    """Scene batches at full width (phase 17), suite scenes 0-7: the
+    batched goal-set build (``plan_pipelined(build_batch=4)``) against the
+    per-scene build, and ``plan_batch_vmap`` against ``plan_fast`` per
+    scene, at the full budget and at ``optim_steps=10,
+    extra_smooth_steps=1``.  The path has no hand kernel."""
+    cfg = OMGConfig(silent=True)
+    sids = list(range(8))
+
+    def load():
+        return [(i, PlanningScene.from_npz(
+            cfg, os.path.join(SUITE, f"scene_{i}.npz"), device=dev))
+            for i in sids]
+
+    max_obj = max(len(sc.env.objects) for _, sc in load())
+    _scene_batch_builds(cfg, dev, load, max_obj)
+
+    runs = {}
+    for bb in (0, 4):
+        scenes = load()
+        out, ms, syncs = _timed(lambda: list(plan_pipelined(
+            scenes, cfg, build_batch=bb)), dev)
+        runs[bb] = scenes, out
+        log(f"scene batches: plan_pipelined(build_batch={bb}) over suite "
+            f"scenes 0-7: {ms:.1f} ms, {syncs} host syncs; per scene "
+            + ", ".join(f"{1e3 * wall:.0f} ms ({sc.dispatch_syncs})"
+                        for _, sc, _, wall in out))
+    for (i, a), (_, b), ra, rb in zip(runs[0][0], runs[4][0], runs[0][1],
+                                      runs[4][1]):
+        if ra[2] is None or rb[2] is None:
+            raise AssertionError(f"scene batches: scene {i}: no goals")
+        _same_goal_set(a._staged[1], b._staged[1],
+                       f"build_batch=4 scene {i}")
+        _same_result(ra[2], rb[2], f"build_batch=4 scene {i}")
+        check_traj(rb[2].traj, b.model, f"build_batch=4 scene {i}")
+
+    scenes = runs[4][0]
+    model = scenes[0][1].model
+    problems = [batch_mod.pad_objects(sc.build_problem(assume_goals=True),
+                                      max_obj) for _, sc in scenes]
+    stacked = batch_mod.stack_problems(problems)
+    _, loop_steps = _batch_vs_own(model, cfg, stacked, problems, sids, dev)
+    # a short budget, on which suite scene 1's goal choice is a near tie
+    short = cfg.replace(optim_steps=10, extra_smooth_steps=1)
+    fwd, _ = _batch_vs_own(model, short, stacked, problems, sids, dev)
+    # a scene's row does not depend on where it sits in the batch
+    rev = batch_mod.plan_batch_vmap(
+        model, short, batch_mod.stack_problems(problems[::-1]))
+    n = len(problems)
+    pairs = [(batch_mod._index(fwd, k), batch_mod._index(rev, n - 1 - k))
+             for k in range(n)]
+    if any(_outcome(a) != _outcome(b) for a, b in pairs):
+        raise AssertionError("scene batches: the reversed batch changes a "
+                             "goal, verdict or steps")
+    rev_gap = max(_traj_gap(a, b) for a, b in pairs)
+    log(f"scene batches (optim_steps=10 extra_smooth_steps=1): the batch "
+        f"in reverse order: the same goal, verdict and steps on every "
+        f"scene, trajectories within {rev_gap:.3g} (bar 1e-5)")
+    if rev_gap > 1e-5:
+        raise AssertionError("scene batches: the reversed batch moves a "
+                             "trajectory")
+    _, wall, n_ops, by_name = _profiled(
+        lambda: batch_mod.plan_batch_vmap(model, cfg, stacked), dev,
+        "plan_batch_vmap", cpu=False)
+    one, wall1, n_ops1, by_name1 = _profiled(
+        lambda: plan_mod.plan_fast(model, cfg, problems[1]), dev,
+        "plan_fast suite scene 1", cpu=False)
+    busy, busy1 = (sum(b.values()) / 1e3 for b in (by_name, by_name1))
+    log(f"scene batches: device operations a loop step, plan_batch_vmap "
+        f"of 8 scenes {n_ops / loop_steps:.0f} ({n_ops} in "
+        f"{wall:.1f} ms under the profiler, device busy {busy:.2f} ms, "
+        f"{100 * busy / wall:.1f}%) | plan_fast suite scene 1 "
+        f"{n_ops1 / int(one.steps_used):.0f} ({n_ops1} in {wall1:.1f} ms, "
+        f"device busy {busy1:.2f} ms, {100 * busy1 / wall1:.1f}%)")
+    log("scene batches: no hand kernel on this path")
+
+
 def _importable(name: str) -> bool:
     import importlib.util
 
@@ -1485,12 +1712,14 @@ def main() -> int:
     # phases from here on: the kernels each path must launch
     expect = {"fused": (), "chain": (), "tasks": (),
               "physics": ("rigid_rollout",), "serve": ("rigid_rollout",),
-              "scale-out": (), "viz and apps": ("rigid_rollout",)}
+              "scale-out": (), "viz and apps": ("rigid_rollout",),
+              "scene batches": ()}
     entries = [entry]
     for name, fn in (("fused", phase_fused), ("chain", phase_chain),
                      ("tasks", phase_tasks), ("physics", phase_physics),
                      ("serve", phase_serve), ("scale-out", phase_scaleout),
-                     ("viz and apps", phase_viz_apps)):
+                     ("viz and apps", phase_viz_apps),
+                     ("scene batches", phase_scene_batches)):
         reset_counts()
         out = timed(name, fn, "cuda")
         if name == "physics":

@@ -276,8 +276,9 @@ def schedule_weights(cfg: OMGConfig, step):
     stepf = torch.as_tensor(step, dtype=torch.float32)
 
     def pw(base):
-        return torch.pow(torch.tensor(base, dtype=torch.float32,
-                                      device=stepf.device), stepf)
+        # torch.full, not torch.tensor: no host-to-device copy on a card
+        return torch.pow(torch.full((), base, dtype=torch.float32,
+                                    device=stepf.device), stepf)
 
     obstacle_w = cfg.base_obstacle_weight * pw(cfg.cost_schedule_decay)
     smooth_w = cfg.smoothness_base_weight * pw(cfg.cost_schedule_boost)

@@ -229,10 +229,12 @@ def forward_kinematics_batch(model: PandaModel, q: torch.Tensor,
         links.append(cur)
 
     hand = _mm4_const_lanes(links[6], model.pose_0[7])
-    lf = model.pose_0[8][:, :, None].expand(4, 4, n).clone()
-    lf[1, 3] += q[:, 7]
-    rf = model.pose_0[9][:, :, None].expand(4, 4, n).clone()
-    rf[1, 3] += -q[:, 8]
+    # the finger offsets out of place (exact: the other entries add 0), so
+    # torch.func.vmap can batch the FK over scenes
+    e13 = torch.zeros(4, 4, 1, dtype=q.dtype, device=q.device)
+    e13[1, 3] = 1.0
+    lf = model.pose_0[8][:, :, None] + e13 * q[None, None, :, 7]
+    rf = model.pose_0[9][:, :, None] + e13 * -q[None, None, :, 8]
     links += [hand, _mm4_lanes(hand, lf), _mm4_lanes(hand, rf)]
 
     if return_joint_info:

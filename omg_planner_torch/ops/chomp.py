@@ -79,11 +79,12 @@ def smooth_loss(hp: DeviceHorizon, cfg: OMGConfig, xi, start, end):
     Returns (loss [T+1], grad [T, dof])."""
     d1 = hp.diff_matrices[0]
     mid = DIFF_RULE_LENGTH // 2
-    ed = torch.zeros((xi.shape[0] + 1, xi.shape[1]), dtype=xi.dtype,
-                     device=xi.device)
-    ed[0] = float(DIFF_RULES[0][mid - 1]) * start / hp.time_interval
-    if not cfg.goal_set_proj:
-        ed[-1] = float(DIFF_RULES[0][mid]) * end / hp.time_interval
+    # built out of place, so torch.func.vmap can batch it over scenes
+    first = float(DIFF_RULES[0][mid - 1]) * start / hp.time_interval
+    last = (torch.zeros_like(end) if cfg.goal_set_proj
+            else float(DIFF_RULES[0][mid]) * end / hp.time_interval)
+    ed = torch.cat([first[None], xi.new_zeros((xi.shape[0] - 1,
+                                               xi.shape[1])), last[None]])
     velocity = d1 @ xi
     vel_norm = torch.linalg.norm(velocity + ed, dim=1)
     loss = 0.5 * vel_norm**2
@@ -275,26 +276,56 @@ def apply_update(model, cfg: OMGConfig, xi, update):
     return model_api.gripper_clamp(model, xi)
 
 
+def _limit_violation(xi, lower, upper):
+    return (lower - xi) * (xi < lower) + (upper - xi) * (xi > upper)
+
+
+def _limit_step(hp: DeviceHorizon, xi, tv):
+    """One smoothing pass: ``xi + scale * Ainv @ tv``."""
+    tvs = hp.Ainv @ tv
+    flat_idx = torch.argmax(torch.abs(tv))
+    scale = (torch.abs(tv).max()
+             / (torch.abs(tvs.reshape(-1)[flat_idx]) + 1e-8))
+    return xi + scale * tvs
+
+
 def handle_joint_limit(hp: DeviceHorizon, cfg: OMGConfig, xi, lower, upper):
     """Smoothed joint-limit projection (``omg/optimizer.py:148-164``):
     repeatedly add ``scale * Ainv @ violation`` while the violation norm
     exceeds 1e-2, at most ``joint_limit_max_steps`` times.  Each check is a
     host read."""
-
-    def violation(c):
-        return (lower - c) * (c < lower) + (upper - c) * (c > upper)
-
-    tv = violation(xi)
+    tv = _limit_violation(xi, lower, upper)
     cnt = 0
     while (cnt < cfg.joint_limit_max_steps
            and host_bool(torch.linalg.norm(tv) > 1e-2)):
-        tvs = hp.Ainv @ tv
-        flat_idx = torch.argmax(torch.abs(tv))
-        scale = (torch.abs(tv).max()
-                 / (torch.abs(tvs.reshape(-1)[flat_idx]) + 1e-8))
-        xi = xi + scale * tvs
+        xi = _limit_step(hp, xi, tv)
         cnt += 1
-        tv = violation(xi)
+        tv = _limit_violation(xi, lower, upper)
+    return xi
+
+
+def handle_joint_limit_batch(hp: DeviceHorizon, cfg: OMGConfig, xi, lower,
+                             upper, live):
+    """:func:`handle_joint_limit` for S scenes in lockstep: ``xi [S, T,
+    D]``, ``lower``/``upper [S, D]``.  Each scene's loop runs while its own
+    violation norm (over its whole trajectory) exceeds 1e-2, and only while
+    ``live [S]``; a scene whose loop has ended keeps its trajectory.  One
+    host read ("any scene still running") per pass."""
+    vmap = torch.func.vmap
+    lo, hi = lower[:, None, :], upper[:, None, :]
+    tv = _limit_violation(xi, lo, hi)
+
+    def over(tv):
+        return vmap(torch.linalg.norm)(tv) > 1e-2
+
+    run = live & over(tv)
+    cnt = 0
+    while cnt < cfg.joint_limit_max_steps and host_bool(run.any()):
+        step = vmap(lambda x, t: _limit_step(hp, x, t))(xi, tv)
+        xi = torch.where(run[:, None, None], step, xi)
+        cnt += 1
+        tv = _limit_violation(xi, lo, hi)
+        run = run & over(tv)
     return xi
 
 

@@ -105,7 +105,7 @@ def _newton_step(jac, e, q, lam, lower7, upper7):
 
 
 def ik_batch(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
-             active=None, err_reduce=None) -> IKResult:
+             active=None, err_reduce=None, num_scenes=None) -> IKResult:
     """Damped Newton IK over a batch in one loop, exiting when every gating
     lane converges.  ``active`` masks the exit (hopeless lanes can't hold
     the batch); a lane whose twist error hasn't improved >=15% in
@@ -115,7 +115,12 @@ def ik_batch(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
     goal-sharded solve passes an all-reduce MAX over its group, so every
     rank runs as many iterations as the single-process solve of the whole
     batch (lanes are independent, so a synced exit makes the sharded chain
-    interchangeable with the unsharded one)."""
+    interchangeable with the unsharded one).
+
+    ``num_scenes`` S: the batch is S scenes' lanes, scene-major, with one
+    exit gate per scene (JAX's vmapped ``while_loop``).  A scene whose gate
+    has closed keeps its q while the others iterate; the loop reads "any
+    scene still open" on the host once per iteration."""
     b = seeds.shape[0]
     act = (torch.ones(b, dtype=torch.bool, device=seeds.device)
            if active is None else active)
@@ -123,11 +128,17 @@ def ik_batch(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
     q = seeds
     err_best = torch.full((b,), torch.inf, device=seeds.device)
     stall = torch.zeros(b, dtype=torch.int32, device=seeds.device)
-    gate_err = torch.tensor(torch.inf, device=seeds.device)
+    gate_open = torch.tensor(True, device=seeds.device)
+    running = None  # per scene: [S] bool, the gates still open
+    if num_scenes is not None:
+        running = torch.ones(num_scenes, dtype=torch.bool,
+                             device=seeds.device)
     it = 0
-    while it < cfg.ik_max_iters and host_bool(gate_err > cfg.ik_pos_tol):
+    while it < cfg.ik_max_iters and host_bool(gate_open):
         e, jac = _batch_error_and_jac(model, q, targets)
-        q = _newton_step(jac, e, q, cfg.ik_damping, lower7, upper7)
+        q_new = _newton_step(jac, e, q, cfg.ik_damping, lower7, upper7)
+        q = (q_new if running is None else torch.where(
+            running.repeat_interleave(b // num_scenes)[:, None], q_new, q))
         err = torch.linalg.norm(e, dim=1)
         improved = err < 0.85 * err_best
         dropped = stall >= window  # sticky: never re-arm a dropped lane
@@ -135,9 +146,16 @@ def ik_batch(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
                             stall + 1)
         err_best = torch.minimum(err_best, err)
         gate = act if window == 0 else act & (stall < window)
-        gate_err = torch.where(gate, err, torch.zeros_like(err)).max()
-        if err_reduce is not None:
-            gate_err = err_reduce(gate_err)
+        gate_err = torch.where(gate, err, torch.zeros_like(err))
+        if running is None:
+            gate_err = gate_err.max()
+            if err_reduce is not None:
+                gate_err = err_reduce(gate_err)
+            gate_open = gate_err > cfg.ik_pos_tol
+        else:
+            running = running & (gate_err.reshape(num_scenes, -1).amax(1)
+                                 > cfg.ik_pos_tol)
+            gate_open = running.any()
         it += 1
     e, _ = _batch_error_and_jac(model, q, targets)
     q9 = torch.cat([q, _fingers((b,), q)], dim=1)
@@ -188,14 +206,19 @@ def solve_standoff_chain(model, grasp_pose, standoff_poses, seed,
 
 
 def _solve_chain_fused(model, cfg: OMGConfig, chain_tgts, seeds, lower7,
-                       upper7, active):
+                       upper7, active, scene_budgets=None):
     """The whole standoff chain as one loop with per-lane stage
     advancement: when a lane's current stage converges (or exhausts
     ``ik_max_iters``, or stalls) it records the solution, is graded by the
     10x-loose acceptance on the ``so3_log`` norm (as the JAX package does),
     and re-targets the next stage from the same q.  A failed stage ends the
     lane.  ``ik_chain_total_budget`` caps the global iteration count.
-    Returns (qs [B, K-1, 7] tail solutions, ok [B])."""
+
+    ``scene_budgets`` (one per scene, 0 = none) replaces the budget for a
+    batch of scenes' lanes, scene-major and alike in count: a scene's
+    lanes stop at its own budget.  The global iteration count is the same
+    for every scene still running, so the lanes of S scenes advance as in
+    S separate solves.  Returns (qs [B, K-1, 7] tail solutions, ok [B])."""
     b, k = chain_tgts.shape[0], chain_tgts.shape[1]
     dev = seeds.device
     tol = cfg.ik_pos_tol
@@ -203,6 +226,12 @@ def _solve_chain_fused(model, cfg: OMGConfig, chain_tgts, seeds, lower7,
     window = cfg.ik_stall_window
     budget = cfg.ik_chain_total_budget
     lanes = torch.arange(b, device=dev)
+    lane_budget = None
+    if scene_budgets is not None:
+        budget = 0 if 0 in scene_budgets else max(scene_budgets)
+        lane_budget = torch.tensor(
+            [v or 2**62 for v in scene_budgets],
+            device=dev).repeat_interleave(b // len(scene_budgets))
 
     q = seeds
     s = torch.where(active, 0, k)                # inactive lanes: done
@@ -212,8 +241,8 @@ def _solve_chain_fused(model, cfg: OMGConfig, chain_tgts, seeds, lower7,
     ok = active
     qs = torch.zeros((b, k, 7), dtype=seeds.dtype, device=dev)
     glob = 0
-    while (not budget or glob < budget) and host_bool(torch.any(s < k)):
-        live = s < k
+    live = s < k
+    while (not budget or glob < budget) and host_bool(torch.any(live)):
         stage = torch.clamp(s, max=k - 1)
         tgt_now = chain_tgts[lanes, stage]
         e, jac = _batch_error_and_jac(model, q, tgt_now)
@@ -240,6 +269,9 @@ def _solve_chain_fused(model, cfg: OMGConfig, chain_tgts, seeds, lower7,
                                torch.minimum(err_best, err))
         stall = torch.where(fin | improved, 0, stall + upd.to(stall.dtype))
         glob += 1
+        live = s < k
+        if lane_budget is not None:
+            live = live & (glob < lane_budget)
     # budget-capped lanes never completed every stage: not valid
     ok = ok & (s >= k)
     return qs[:, 1:], ok
@@ -252,6 +284,63 @@ def solve_lanes(cfg: OMGConfig, n_grasps: int, n_seeds: int) -> int:
     if cfg.ik_two_stage and cfg.ik_survivor_cap:
         return min(b, cfg.ik_survivor_cap)
     return b
+
+
+def _standoff_targets(cfg: OMGConfig, grasp_poses_world):
+    """The standoff chain's poses of every grasp: [..., N, 4, 4] ->
+    [..., N, tail, 4, 4] (farthest standoff last)."""
+    tail = cfg.reach_tail_length
+    dev = grasp_poses_world.device
+    offs = torch.eye(4, device=dev).repeat(tail, 1, 1)
+    if cfg.use_standoff:
+        offs[:, 2, 3] = (-cfg.standoff_dist
+                         * torch.arange(tail, dtype=torch.float32,
+                                        device=dev)) / tail
+    return torch.einsum("...nab,kbc->...nkac", grasp_poses_world, offs)
+
+
+def _solve_chains(model, cfg: OMGConfig, chain_cfg: OMGConfig, tgt, seeds_b,
+                  lower7, upper7, active, attached, err_reduce=None,
+                  num_scenes=None, scene_budgets=None):
+    """The standoff chains of lanes ``tgt [B, tail, 4, 4]`` from
+    ``seeds_b [B, 7]``: far standoff first, then the tail.  Returns
+    (reach [B, tail, 9], standoff [B, 9], valid [B])."""
+    b, tail = tgt.shape[0], tgt.shape[1]
+    chain_tgts = torch.cat([tgt[:, -1:], tgt], dim=1)  # far first, then tail
+    if cfg.ik_chain_fused:
+        qs, ok = _solve_chain_fused(model, chain_cfg, chain_tgts, seeds_b,
+                                    lower7, upper7, active, scene_budgets)
+    else:
+        prev, ok = seeds_b, active
+        sols = []
+        for kk in range(chain_tgts.shape[1]):
+            res = ik_batch(model, chain_tgts[:, kk], prev, chain_cfg,
+                           lower7, upper7, active=active,
+                           err_reduce=err_reduce, num_scenes=num_scenes)
+            ok = ok & res.success
+            active = active & res.success
+            prev = res.q
+            sols.append(res.q)
+        qs = torch.stack(sols[1:], dim=1)                  # [B, tail, 7]
+    if not attached:
+        qs = qs.flip(1)  # farthest ... grasp (planner.py:65)
+    diff = torch.linalg.norm(torch.diff(qs, dim=1), dim=(1, 2))
+    valid = ok & (diff < 2.0)
+    reach = torch.cat([qs, _fingers((b, tail), qs)], dim=-1)
+    standoff_q = qs[:, -1] if attached else qs[:, 0]
+    standoff = torch.cat([standoff_q, _fingers((b,), qs)], dim=-1)
+    return reach, standoff, valid
+
+
+def _chain_cfg(cfg: OMGConfig) -> OMGConfig:
+    return (cfg.replace(ik_max_iters=cfg.ik_chain_max_iters)
+            if cfg.ik_chain_max_iters else cfg)
+
+
+def _chain_budgeted(cfg: OMGConfig, k_cap: int) -> bool:
+    """Does the whole-chain budget apply?  Only in the regime it was
+    calibrated in: warm chains on a full survivor-cap compaction."""
+    return bool(cfg.ik_two_stage and k_cap >= cfg.ik_survivor_cap > 0)
 
 
 def solve_goal_set(model, cfg: OMGConfig, grasp_poses_world, seeds, lower7,
@@ -275,14 +364,8 @@ def solve_goal_set(model, cfg: OMGConfig, grasp_poses_world, seeds, lower7,
     (its lanes advance independently and its budget counts global
     iterations, alike on every rank).  One all-gather per output, in rank
     order, trimmed to K, restores the single-process lane order."""
-    tail = cfg.reach_tail_length
     dev = grasp_poses_world.device
-    offs = torch.eye(4, device=dev).repeat(tail, 1, 1)
-    if cfg.use_standoff:
-        offs[:, 2, 3] = (-cfg.standoff_dist
-                         * torch.arange(tail, dtype=torch.float32,
-                                        device=dev)) / tail
-    standoffs = torch.einsum("nab,kbc->nkac", grasp_poses_world, offs)
+    standoffs = _standoff_targets(cfg, grasp_poses_world)
 
     n, s = grasp_poses_world.shape[0], seeds.shape[0]
     b = n * s
@@ -323,46 +406,84 @@ def solve_goal_set(model, cfg: OMGConfig, grasp_poses_world, seeds, lower7,
         seeds_b = take_rows(warm, my_lane)
         active = act_full[my_lane] & my_live
         err_reduce = functools.partial(all_reduce_max, group=group)
-        b = per
     elif cfg.ik_two_stage:
         tgt = take_rows(tgt, lane_idx)
         seeds_b = take_rows(warm, lane_idx)
         active = act_full[lane_idx]
-        b = k_cap
     else:
         active = act_full
 
-    chain_cfg = (cfg.replace(ik_max_iters=cfg.ik_chain_max_iters)
-                 if cfg.ik_chain_max_iters else cfg)
-    chain_tgts = torch.cat([tgt[:, -1:], tgt], dim=1)  # far first, then tail
-
-    if cfg.ik_chain_fused:
-        # the whole-chain budget applies only in the regime it was
-        # calibrated in: warm chains on a full survivor-cap compaction
-        if not (cfg.ik_two_stage and k_cap >= cfg.ik_survivor_cap > 0):
-            chain_cfg = chain_cfg.replace(ik_chain_total_budget=0)
-        qs, ok = _solve_chain_fused(model, chain_cfg, chain_tgts, seeds_b,
-                                    lower7, upper7, active)
-    else:
-        prev, ok = seeds_b, active
-        sols = []
-        for kk in range(chain_tgts.shape[1]):
-            res = ik_batch(model, chain_tgts[:, kk], prev, chain_cfg,
-                           lower7, upper7, active=active,
-                           err_reduce=err_reduce)
-            ok = ok & res.success
-            active = active & res.success
-            prev = res.q
-            sols.append(res.q)
-        qs = torch.stack(sols[1:], dim=1)                  # [B, tail, 7]
-    if not attached:
-        qs = qs.flip(1)  # farthest ... grasp (planner.py:65)
-    diff = torch.linalg.norm(torch.diff(qs, dim=1), dim=(1, 2))
-    valid = ok & (diff < 2.0)
-    reach = torch.cat([qs, _fingers((b, tail), qs)], dim=-1)
-    standoff_q = qs[:, -1] if attached else qs[:, 0]
-    standoff = torch.cat([standoff_q, _fingers((b,), qs)], dim=-1)
+    chain_cfg = _chain_cfg(cfg)
+    if cfg.ik_chain_fused and not _chain_budgeted(cfg, k_cap):
+        chain_cfg = chain_cfg.replace(ik_chain_total_budget=0)
+    reach, standoff, valid = _solve_chains(
+        model, cfg, chain_cfg, tgt, seeds_b, lower7, upper7, active,
+        attached, err_reduce=err_reduce)
     if group is not None:
         reach, standoff, valid = (all_gather_cat(x, group)[:k_cap]
                                   for x in (reach, standoff, valid))
     return reach, standoff, valid, lane_idx
+
+
+def solve_goal_set_batch(model, cfg: OMGConfig, grasp_poses_world, seeds,
+                         lower7, upper7, n_grasps, attached: bool = False,
+                         grasp_valid=None):
+    """:func:`solve_goal_set` for a batch of S scenes in one solve: the
+    scene-batched form of JAX's vmapped goal-set build.
+
+    ``grasp_poses_world [S, N, 4, 4]`` holds each scene's grasps padded to
+    the wave's largest database, ``n_grasps`` the host count of each
+    scene's own (unpadded) grasps, ``seeds [S, n_seeds, 7]`` and
+    ``grasp_valid [S, N]`` (padded grasps False).  The prefilter runs over
+    every lane of every scene; the survivors are ranked within each scene;
+    the chains run over the flattened survivors, with one exit gate
+    (unfused) or budget (fused) per scene, each scene's as in its own
+    solve.  Scene i's K_i = ``solve_lanes(cfg, n_grasps[i], n_seeds)``
+    output lanes are the first K_i of its row, in its own solve's order;
+    the rest are invalid padding.  Returns (reach [S, K, tail, 9],
+    standoff [S, K, 9], valid [S, K], lane_idx [S, K], [K_i])."""
+    dev = grasp_poses_world.device
+    n_scenes, n, _, _ = grasp_poses_world.shape
+    s = seeds.shape[1]
+    b = n * s
+    standoffs = _standoff_targets(cfg, grasp_poses_world)
+    tail = standoffs.shape[2]
+    tgt = torch.repeat_interleave(standoffs, s, dim=1)  # [S, B, tail, 4, 4]
+    seeds_b = seeds.repeat(1, n, 1)                       # [S, B, 7]
+    lane_valid = (torch.repeat_interleave(grasp_valid, s, dim=1)
+                  if grasp_valid is not None
+                  else torch.ones((n_scenes, b), dtype=torch.bool,
+                                  device=dev))
+    lanes = [solve_lanes(cfg, ni, s) for ni in n_grasps]
+
+    if cfg.ik_two_stage:
+        q_pre, err_pre = ik_batch_fixed(
+            model, tgt[:, :, -1].reshape(-1, 4, 4), seeds_b.reshape(-1, 7),
+            cfg, lower7, upper7, cfg.ik_prefilter_iters)
+        q_pre = q_pre.reshape(n_scenes, b, 7)
+        err_pre = err_pre.reshape(n_scenes, b)
+        score = torch.where(lane_valid, err_pre,
+                            torch.full_like(err_pre, torch.inf))
+        lane_idx = top_k(-score, solve_lanes(cfg, n, s))[1]  # [S, K]
+        act_full = lane_valid & (err_pre < cfg.ik_prefilter_tol)
+        tgt = torch.gather(tgt, 1, lane_idx[:, :, None, None, None].expand(
+            -1, -1, tail, 4, 4))
+        seeds_b = torch.gather(q_pre, 1, lane_idx[:, :, None].expand(
+            -1, -1, 7))
+        active = torch.gather(act_full, 1, lane_idx)
+    else:
+        lane_idx = torch.arange(b, device=dev).expand(n_scenes, b)
+        active = lane_valid
+    k = lane_idx.shape[1]
+
+    chain_cfg = _chain_cfg(cfg)
+    budgets = [chain_cfg.ik_chain_total_budget
+               if _chain_budgeted(cfg, ki) else 0 for ki in lanes]
+    reach, standoff, valid = _solve_chains(
+        model, cfg, chain_cfg, tgt.reshape(n_scenes * k, tail, 4, 4),
+        seeds_b.reshape(n_scenes * k, 7), lower7, upper7,
+        active.reshape(-1), attached, num_scenes=n_scenes,
+        scene_budgets=budgets)
+    return (reach.reshape((n_scenes, k) + reach.shape[1:]),
+            standoff.reshape(n_scenes, k, -1), valid.reshape(n_scenes, k),
+            lane_idx, lanes)

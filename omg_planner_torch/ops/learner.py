@@ -23,6 +23,7 @@ from ..utils.diff import get_derivative
 from ..utils.linalg import take_rows, top_k
 from ..utils.spline import multi_linear_interpolate
 from ..utils.sync import host_bool
+from ..utils.vmap import vmap_scenes
 from .chomp import CostParams, GoalSet
 from .sdf import (AnalyticScene, WorldPotential, sdf_potentials,
                   world_potential_lookup, world_potential_lookup_nearest)
@@ -81,21 +82,27 @@ def find_zero(f, x0, x1, iters: int = 30):
 
 
 def bregman_projection(x, v, delta, w, mask, max_iters: int = 20,
-                       tol: float = 1e-6, uniform_w: bool = True):
+                       tol: float = 1e-6, uniform_w: bool = True,
+                       live=None):
     """Weighted/shifted-entropy Bregman projection onto the simplex
     (reference ``bp``, ``online_learner.py:32-58``), masked to valid goals,
-    batched over rows: ``x, v [E, G]``; ``delta, w, mask [G]``.
+    batched over rows: ``x, v [..., E, G]``; ``delta, w, mask [..., G]``
+    (leading dims: scenes).
 
     Each row's fixed-point loop stops on its own alpha convergence (the
     JAX package's vmapped ``while_loop``: converged rows are frozen while
     others iterate); the "any row still running" condition is read on the
-    host.  ``uniform_w`` solves the inner root in closed form
-    (``el = log target - logsumexp(log shiftx + z)``, clipped to the
+    host.  ``live [...]`` (optional) leaves the rows of the scenes it marks
+    False out of the loop.  ``uniform_w`` solves the inner root in closed
+    form (``el = log target - logsumexp(log shiftx + z)``, clipped to the
     bisection's bracket)."""
-    m = mask.to(x.dtype)
-    target = 1.0 + torch.sum(delta * m)
-    shiftx = (x + delta) * m                                  # [E, G]
-    upper = torch.where(mask, w + v, torch.full_like(v, -torch.inf)).amax(-1)
+    m = mask.to(x.dtype)[..., None, :]                        # [..., 1, G]
+    delta = delta[..., None, :]
+    w = w[..., None, :]
+    target = 1.0 + torch.sum(delta * m, dim=-1)               # [..., 1]
+    shiftx = (x + delta) * m                                  # [..., E, G]
+    upper = torch.where(m > 0, w + v, torch.full_like(v, -torch.inf)
+                        ).amax(-1)
     zero = torch.zeros_like(upper)
 
     def solve_el(alpha):
@@ -110,27 +117,30 @@ def bregman_projection(x, v, delta, w, mask, max_iters: int = 20,
 
         def f(el):
             return torch.sum(shiftx * torch.exp(torch.clamp(
-                el[:, None] / w + z, -60.0, 60.0)), dim=-1) - target
+                el[..., None] / w + z, -60.0, 60.0)), dim=-1) - target
 
         return find_zero(f, zero, upper)
 
-    e = x.shape[0]
-    it = torch.zeros(e, dtype=torch.int64, device=x.device)
+    rows = x.shape[:-1]
+    it = torch.zeros(rows, dtype=torch.int64, device=x.device)
     alpha = torch.zeros_like(x)
-    diff = torch.full((e,), torch.inf, device=x.device)
+    diff = torch.full(rows, torch.inf, device=x.device)
+    if live is not None:
+        diff = torch.where(live[..., None], diff, torch.zeros_like(diff))
     log_ratio = w * torch.log(delta / torch.clamp(shiftx, min=1e-20))
     while True:
         active = (diff > tol) & (it < max_iters)
         if not host_bool(active.any()):
             break
         el = solve_el(alpha)
-        alpha_prime = torch.clamp(v - el[:, None] + log_ratio, min=0.0) * m
+        alpha_prime = torch.clamp(v - el[..., None] + log_ratio,
+                                  min=0.0) * m
         new_diff = torch.linalg.norm(alpha_prime - alpha, dim=-1)
-        alpha = torch.where(active[:, None], alpha_prime, alpha)
+        alpha = torch.where(active[..., None], alpha_prime, alpha)
         diff = torch.where(active, new_diff, diff)
         it = it + active.to(it.dtype)
     el = solve_el(alpha)
-    y = shiftx * torch.exp(torch.clamp((el[:, None] + alpha - v) / w,
+    y = shiftx * torch.exp(torch.clamp((el[..., None] + alpha - v) / w,
                                        -60.0, 60.0)) - delta
     y = torch.clamp(y * m, min=0.0)
     return y / torch.clamp(torch.sum(y, dim=-1, keepdim=True), min=1e-12)
@@ -154,11 +164,22 @@ def cost_vector(model, scene, params: CostParams, cfg: OMGConfig,
     return finalize_cost_vector(cfg, raw, goal_set.mask)
 
 
+def _start_index_tensor(cfg: OMGConfig, t):
+    """:func:`_start_index` of a float32 tensor of step counts."""
+    f = t / np.float32(cfg.optim_steps) * np.float32(cfg.timesteps)
+    return torch.clamp(torch.clamp(f.to(torch.int32), max=cfg.timesteps - 1),
+                       min=0).long()
+
+
 def cost_vector_raw(model, scene, params: CostParams, cfg: OMGConfig,
                     hp: DeviceHorizon, traj, goal_set: GoalSet, t: float,
-                    world_potential: WorldPotential | None = None):
-    """Unnormalized masked candidate potentials [G] (invalid goals -> 0)."""
-    start_idx = _start_index(cfg, t)
+                    world_potential: WorldPotential | None = None,
+                    start_idx=None):
+    """Unnormalized masked candidate potentials [G] (invalid goals -> 0).
+    ``start_idx`` (a 0-d tensor) gives the sweep's start row instead of
+    the host step count ``t`` (a scene batch's rows differ)."""
+    if start_idx is None:
+        start_idx = _start_index(cfg, t)
     traj_start = traj[start_idx]
     goals = goal_set.grasps  # [G, D]
     g = goals.shape[0]
@@ -231,31 +252,34 @@ def cost_vector_raw(model, scene, params: CostParams, cfg: OMGConfig,
 
 
 def finalize_cost_vector(cfg: OMGConfig, potentials, mask):
-    """Normalization + invalid-goal masking of the raw potentials."""
+    """Normalization + invalid-goal masking of the raw potentials [..., G]
+    (leading dims: scenes)."""
     if cfg.normalize_cost:
         potentials = potentials / torch.clamp(
-            torch.linalg.norm(potentials), min=1e-12)
+            torch.linalg.norm(potentials, dim=-1, keepdim=True), min=1e-12)
     return torch.where(mask, potentials, torch.full_like(potentials, 1e6))
 
 
 def _one_hot_arg(fn, x, g):
-    return torch.nn.functional.one_hot(fn(x), g).to(torch.float32)
+    return torch.nn.functional.one_hot(fn(x, dim=-1), g).to(torch.float32)
 
 
 def update_goal_dist(cfg: OMGConfig, state: LearnerState, cv,
-                     goal_set: GoalSet, traj_end) -> LearnerState:
+                     goal_set: GoalSet, traj_end, live=None) -> LearnerState:
     """One online-learning update of the goal distribution (reference
-    ``update_goal_dist`` + per-algorithm methods, ``:162-235``)."""
+    ``update_goal_dist`` + per-algorithm methods, ``:162-235``).  Tensors
+    may carry leading scene dims (``cv [..., G]``, ``traj_end [..., D]``);
+    ``live`` then keeps the Bregman loop to the scenes it marks."""
     mask = goal_set.mask
     mf = mask.to(cv.dtype)
-    g = goal_set.capacity
-    n_valid = torch.clamp(mf.sum(), min=1.0)
+    g = mask.shape[-1]
+    n_valid = torch.clamp(mf.sum(-1), min=1.0)
     inf = torch.full_like(cv, torch.inf)
 
     alg = cfg.ol_alg
     if alg == "Proj":
         dists = torch.where(
-            mask, torch.linalg.norm(traj_end[None] - goal_set.grasps,
+            mask, torch.linalg.norm(traj_end[..., None, :] - goal_set.grasps,
                                     dim=-1), inf)
         return state._replace(p=_one_hot_arg(torch.argmin, dists, g))
 
@@ -270,23 +294,25 @@ def update_goal_dist(cfg: OMGConfig, state: LearnerState, cv,
 
     if alg == "Exp":
         sum_costs = state.sum_costs + cv * mf
-        norm_sum = sum_costs / (torch.sum(sum_costs) + 1e-8)
+        norm_sum = sum_costs / (torch.sum(sum_costs, -1, keepdim=True) + 1e-8)
         eta = torch.sqrt(torch.log(n_valid + 1.0) / cfg.optim_steps)
-        p_new = torch.exp(-eta * cv) * state.p
+        p_new = torch.exp(-eta[..., None] * cv) * state.p
         p = (p_new * 0.999 + norm_sum * 0.001) * mf
-        p = p / (torch.sum(p) + 1e-8)
+        p = p / (torch.sum(p, -1, keepdim=True) + 1e-8)
         return state._replace(p=p, sum_costs=sum_costs)
 
     if alg == "MD":
         eta = torch.sqrt(torch.log(n_valid + 1.0) / cfg.optim_steps)
-        etas = torch.stack([eta * (2.0**x) for x in _ETA_POWERS])
-        delta = mf / (4.0 * n_valid + 1.0)  # reference :85
-        w = torch.ones(g, dtype=cv.dtype, device=cv.device)
+        etas = torch.stack([eta * (2.0**x) for x in _ETA_POWERS], dim=-1)
+        delta = mf / (4.0 * n_valid[..., None] + 1.0)  # reference :85
+        w = torch.ones_like(cv)
         # the experts' projections are independent: one batched projection
-        p_new = bregman_projection(state.experts_p, etas[:, None] * cv[None],
-                                   delta, w, mask)
-        c_new = ((cv * mf)[None] * p_new).sum(-1) + (
-            (w * mf)[None] * torch.abs(p_new - state.experts_p)).sum(-1)
+        p_new = bregman_projection(state.experts_p,
+                                   etas[..., :, None] * cv[..., None, :],
+                                   delta, w, mask, live=live)
+        c_new = ((cv * mf)[..., None, :] * p_new).sum(-1) + (
+            (w * mf)[..., None, :]
+            * torch.abs(p_new - state.experts_p)).sum(-1)
         # only the q recurrence is order-dependent: at inner step i the
         # reference sees fresh costs for experts 0..i and last step's for
         # the rest
@@ -295,9 +321,9 @@ def update_goal_dist(cfg: OMGConfig, state: LearnerState, cv,
         for i in range(NUM_EXPERTS):
             costs_i = torch.where(ar <= i, c_new, state.experts_costs)
             q = q * torch.exp(-costs_i)
-            q = q / torch.clamp(torch.sum(q), min=1e-12)
-        p = torch.einsum("e,eg->g", q, p_new)
-        p = p / torch.clamp(torch.sum(p), min=1e-12)
+            q = q / torch.clamp(torch.sum(q, -1, keepdim=True), min=1e-12)
+        p = torch.einsum("...e,...eg->...g", q, p_new)
+        p = p / torch.clamp(torch.sum(p, -1, keepdim=True), min=1e-12)
         return state._replace(p=p * mf, experts_p=p_new,
                               experts_costs=c_new, q=q)
 
@@ -357,3 +383,67 @@ def update_goal(model, scene, params: CostParams, cfg: OMGConfig,
     ti = state.ti.index_add(0, goal_idx[None],
                             torch.ones(1, device=state.ti.device))
     return state._replace(ti=ti), goal_idx
+
+
+def update_goal_batch(model, scene, params: CostParams, cfg: OMGConfig,
+                      hp: DeviceHorizon, traj, goal_set: GoalSet,
+                      state: LearnerState, t_host, live,
+                      world_potential: WorldPotential | None = None):
+    """:func:`update_goal` for S scenes in lockstep: ``scene``, ``params``,
+    ``goal_set``, ``world_potential``, ``traj [S, T, D]`` and ``state``
+    carry a leading scene axis; ``state.t`` is a float32 tensor [S] and
+    ``t_host`` the same counts on the host (a blacklist restart resets one
+    scene's, so each scene's sweep starts from its own row and refreshes
+    on its own cadence).  ``live [S]`` keeps frozen scenes out of the
+    Bregman loop; the caller discards their results.  The sweeps run under
+    ``torch.func.vmap``: one set of operations for all S scenes.  Returns
+    (state, goal_idx [S], t_host)."""
+    t_host = [t + 1.0 for t in t_host]
+    t = state.t + 1.0
+    state = state._replace(t=t)
+    start_idx = _start_index_tensor(cfg, t)
+    mask = goal_set.mask
+    cap = mask.shape[-1]
+
+    def sweep(gs):
+        return vmap_scenes(lambda sc, pa, tr, g, wp, si: cost_vector_raw(
+            model, sc, pa, cfg, hp, tr, g, 0.0, wp, start_idx=si),
+            scene, params, traj, gs, world_potential, start_idx)
+
+    if cfg.ol_alg == "Proj":
+        state = update_goal_dist(cfg, state, torch.zeros_like(
+            mask, dtype=torch.float32), goal_set, traj[:, -1])
+    elif sweep_restricted(cfg, cap) and state.active_idx.shape[-1] > 0:
+        k = min(cfg.learner_active_goals, cap)
+        every = cfg.learner_refresh_every
+        refresh = [bool(every) and x % every == 0 for x in t_host]
+        if any(refresh):
+            raw_r = sweep(goal_set)
+            active_r = top_k(-finalize_cost_vector(cfg, raw_r, mask), k)[1]
+        if not all(refresh):
+            active_s = state.active_idx
+            small = GoalSet(*(torch.gather(a, 1, active_s.reshape(
+                active_s.shape + (1,) * (a.ndim - 2)).expand(
+                    active_s.shape + a.shape[2:])) for a in goal_set))
+            raw_s = state.last_raw.scatter(-1, active_s, sweep(small))
+        if all(refresh):
+            raw_full, active = raw_r, active_r
+        elif not any(refresh):
+            raw_full, active = raw_s, active_s
+        else:
+            due = (t % every == 0)[:, None]
+            raw_full = torch.where(due, raw_r, raw_s)
+            active = torch.where(due, active_r, active_s)
+        cv = finalize_cost_vector(cfg, raw_full, mask)
+        state = state._replace(last_raw=raw_full, active_idx=active)
+        state = update_goal_dist(cfg, state, cv, goal_set, traj[:, -1],
+                                 live=live)
+    else:
+        cv = finalize_cost_vector(cfg, sweep(goal_set), mask)
+        state = update_goal_dist(cfg, state, cv, goal_set, traj[:, -1],
+                                 live=live)
+    goal_idx = torch.argmax(torch.where(
+        mask, state.p, torch.full_like(state.p, -torch.inf)), dim=-1)
+    ti = state.ti.scatter_add(-1, goal_idx[:, None],
+                              torch.ones_like(state.ti[:, :1]))
+    return state._replace(ti=ti), goal_idx, t_host

@@ -744,24 +744,40 @@ def bake_world_potential(scene, inv_poses, epsilons, padding_scales,
         delta=torch.tensor(resolution, dtype=torch.float32, device=device))
 
 
-def bake_world_potential_analytic(scene: AnalyticScene, inv_poses, epsilons,
-                                  padding_scales, disables,
-                                  resolution: float = 0.015,
-                                  bounds=WORLD_BOUNDS,
+def bake_world_potential_analytic(kinds, halfs, penals, limits, inv_poses,
+                                  epsilons, padding_scales, disables,
+                                  dims_actual, resolution: float = 0.015,
+                                  bounds=WORLD_BOUNDS, snap: bool = True,
                                   chunk: int = 262144) -> WorldPotential:
     """Learner scoring field of a primitive scene staged on the grid
-    backend: the summed hinge potential of the TRUE (sharp: ``rounds`` is
-    not used) primitive SDF at every world cell centre, no object grid
-    involved (the JAX package's production ``snap=False`` form; its
-    ``snap=True`` parity form is not ported)."""
+    backend, with no voxel stack: the summed hinge potential of the sharp
+    primitive SDF (``rounds`` is not used) at every world cell.
+
+    ``snap=True`` (parity mode) reproduces :func:`bake_world_potential`'s
+    nearest-cell read: the value at the point's ``floor`` object cell is
+    the primitive SDF at that cell's centre, and +1.0 outside the object's
+    actual dims ``dims_actual [O, 3]``.  ``snap=False`` (production)
+    evaluates the true SDF at the world cell centre."""
     device = inv_poses.device
     dims, cells = _world_cells(bounds, resolution, device)
     keep = (disables <= 0)[:, None]
+    mn = limits[:, None, 0:3]
+    mx = limits[:, None, 3:6]
+    dpad = limits[:, None, 6:9]
+    delta = limits[:, 9]
+    da = dims_actual[:, None, :]
 
     def body(c):
         _, pts_obj = _to_object_frame(inv_poses, c)
-        value = _analytic_sdf_points(scene.kinds, scene.halfs,
-                                     scene.penals, pts_obj)
+        if snap:
+            idx = torch.floor((pts_obj - mn) / (mx - mn) * dpad)
+            inb = torch.all((idx >= 0) & (idx < da.to(idx.dtype)), dim=-1)
+            center = mn + (idx + 0.5) * delta[:, None, None]
+            value = torch.where(
+                inb, _analytic_sdf_points(kinds, halfs, penals, center),
+                torch.ones_like(idx[..., 0]))
+        else:
+            value = _analytic_sdf_points(kinds, halfs, penals, pts_obj)
         pot, _ = _hinge(value, epsilons, padding_scales)
         return torch.where(keep, pot, torch.zeros_like(pot)).sum(0)
 

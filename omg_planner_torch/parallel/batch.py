@@ -26,8 +26,9 @@ Also the object padding of staged problems: every scene of a suite pads
 to one object count with disabled dummy objects, so the runner and the
 cascade plan every scene at one set of shapes.
 
-``plan_batch_vmap`` is not ported: the plan is an eager loop with host
-reads, which cannot be vmapped.
+  * :func:`plan_batch_vmap`: the lockstep batched ``plan_fast``, one set
+    of tensor operations per step for the whole batch, each scene frozen
+    when its own loop ends (JAX's ``vmap`` of the plan).
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ import torch
 from ..ops import learner as ol
 from ..ops.chomp import GoalSet
 from ..ops.sdf import AnalyticScene, BakedSceneSDF
-from ..planner.plan import PlanProblem, PlanResult, plan, plan_fast
+from ..planner.plan import (PlanProblem, PlanResult, plan, plan_fast,
+                            plan_fast_batch)
 from ..utils.collectives import all_gather_cat, bits_checksum, check_agreement
 
 
@@ -151,6 +153,14 @@ def plan_batch(model, cfg, problems: PlanProblem) -> PlanResult:
     (the JAX package's sequential ``lax.map``); the results are stacked."""
     return _stack([plan_fast(model, cfg, _index(problems, i))
                    for i in range(_batch_size(problems))])
+
+
+def plan_batch_vmap(model, cfg, problems: PlanProblem) -> PlanResult:
+    """``plan_fast`` of a stacked problem batch in one lockstep loop
+    (``planner.plan.plan_fast_batch``): the JAX package's ``vmap`` of the
+    plan, under its name.  Each scene's result equals its own
+    ``plan_fast``'s; the results come stacked."""
+    return plan_fast_batch(model, cfg, problems)
 
 
 # ---------------------------------------------------------------------------

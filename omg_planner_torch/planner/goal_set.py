@@ -12,6 +12,10 @@ final sample are Gumbel top-k draws.  The port draws the Gumbel noise from
 a ``torch.Generator``; a caller (the parity tests) may pass
 ``gumbel_fn(tag, n)`` to supply the noise instead, ``tag`` being
 ``"increment"``, ``"prune"`` or ``"sample"``.
+
+:func:`build_goal_set_batch` builds the goal sets of a batch of scenes
+(JAX's vmapped ``build_goal_set``) with the same per-scene results as
+:func:`build_goal_set`, host reads about those of one scene's build.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from ..config import OMGConfig
 from ..models import api as model_api
@@ -31,6 +36,7 @@ from ..utils.linalg import take_rows, top_k
 from ..utils.pose import rot_y, rot_z
 from ..utils.spline import multi_linear_interpolate
 from ..utils.sync import host_bool
+from ..utils.vmap import vmap_scenes
 
 # 13 anchor seed configurations for IK (reference ``omg/util.py:19-35``;
 # the first row is replaced by the trajectory start).
@@ -156,35 +162,39 @@ def diversity_dedupe(configs, valid, min_dist: float = 0.5,
                      mode: str = "scan"):
     """Greedy config-space dedupe (``omg/planner.py:547-562``): keep a
     candidate only if farther than ``min_dist`` from every kept one.
+    ``configs [..., C, D]``, ``valid [..., C]``: leading dims are
+    independent scenes.
 
     ``"scan"`` replays the sequential greedy pass; ``"rounds"`` resolves
     the same lexicographically-first maximal independent set as a fixed
-    point, one host-read condition per round.  Unlike the JAX package,
-    which falls back to "scan" for any other string, an unknown mode
-    raises."""
-    c = configs.shape[0]
-    d2 = torch.sum((configs[:, None, :] - configs[None, :, :]) ** 2, dim=-1)
+    point, one host-read condition per round (for a scene batch: while
+    any scene has an unresolved lane; a resolved scene no longer changes).
+    Unlike the JAX package, which falls back to "scan" for any other
+    string, an unknown mode raises."""
+    c = configs.shape[-2]
+    d2 = torch.sum((configs[..., :, None, :] - configs[..., None, :, :]) ** 2,
+                   dim=-1)
     close = d2 < min_dist**2
     ar = torch.arange(c, device=configs.device)
 
     if mode == "rounds":
         lower_close = close & (ar[None, :] < ar[:, None])
-        kept = torch.zeros(c, dtype=torch.bool, device=configs.device)
+        kept = torch.zeros_like(valid)
         rejected = ~valid
         while host_bool(torch.any(~kept & ~rejected)):
             unknown = ~kept & ~rejected
-            blocked = torch.any(lower_close & kept[None, :], dim=1)
-            ready = ~torch.any(lower_close & ~rejected[None, :], dim=1)
+            blocked = torch.any(lower_close & kept[..., None, :], dim=-1)
+            ready = ~torch.any(lower_close & ~rejected[..., None, :], dim=-1)
             kept = kept | (unknown & ready & ~blocked)
             rejected = rejected | (unknown & blocked)
         return kept
     if mode != "scan":
         raise ValueError(f"unknown dedupe_mode {mode!r}")
 
-    kept = torch.zeros(c, dtype=torch.bool, device=configs.device)
+    kept = torch.zeros_like(valid)
     for i in range(c):
-        conflict = torch.any(kept & close[i] & (ar < i))
-        kept[i] = valid[i] & ~conflict
+        conflict = torch.any(kept & close[..., i, :] & (ar < i), dim=-1)
+        kept[..., i] = valid[..., i] & ~conflict
     return kept
 
 
@@ -214,98 +224,222 @@ def build_goal_set(model, cfg: OMGConfig, scene, params: CostParams,
                    gen: torch.Generator | None = None,
                    attached: bool = False, obj_pos=None,
                    gumbel_fn=None, solve_fn=None) -> GoalSet:
-    """Full goal-set construction for one target object.  Capacity =
-    ``cfg.goal_set_max_num``.  The Gumbel noise comes from ``gen`` unless
-    ``gumbel_fn(tag, n)`` supplies it.  ``solve_fn`` (signature of
-    :func:`ik_ops.solve_goal_set`) overrides the IK sweep, as in the JAX
-    package."""
-    dev = start.device
+    """Full goal-set construction for one target object: the batch of one
+    of :func:`build_goal_set_batch`, whose per-scene stages run on the
+    scene as it is (no ``vmap``).  Capacity = ``cfg.goal_set_max_num``.
+    The Gumbel noise comes from ``gen`` unless ``gumbel_fn(tag, n)``
+    supplies it.  ``solve_fn`` (signature of :func:`ik_ops.solve_goal_set`)
+    overrides the IK sweep, as in the JAX package."""
     if gumbel_fn is None:
         if gen is None:
             raise ValueError("build_goal_set needs a generator or gumbel_fn")
 
         def gumbel_fn(tag, n):
-            return gumbel_noise(gen, n, dev)
+            return gumbel_noise(gen, n, "cpu")
+
+    if grasp_valid is None:
+        grasp_valid = torch.ones(grasp_poses_world.shape[0],
+                                 dtype=torch.bool, device=start.device)
+    solve = solve_fn if solve_fn is not None else ik_ops.solve_goal_set
+
+    def solve_one(model, cfg, poses, seeds, lower7, upper7, n_grasps,
+                  attached, grasp_valid):
+        out = solve(model, cfg, poses[0], seeds[0], lower7, upper7,
+                    attached, grasp_valid=grasp_valid[0])
+        return tuple(x[None] for x in out) + ([out[0].shape[0]],)
+
+    def per_scene(fn, *rows):
+        return tree_map(lambda x: x[None],
+                        fn(scene, params, *(r[0] for r in rows)))
+
+    out = _build_goal_sets(
+        model, cfg, per_scene, grasp_poses_world[None], grasp_valid[None],
+        [grasp_poses_world.shape[0]], start[None],
+        lambda i, tag, n: gumbel_fn(tag, n), solve_one, attached,
+        None if obj_pos is None else obj_pos[None])
+    return GoalSet(*(x[0] for x in out))
+
+
+def _ragged_cat(a, na, b, nb):
+    """Per-scene concatenation of row prefixes: row i of the result holds
+    ``a[i, :na[i]]``, then ``b[i, :nb[i]]``, then the padding lanes of
+    both.  ``a [S, A, ...]``, ``b [S, B, ...]``; ``na``, ``nb`` host
+    lists."""
+    cat = torch.cat([a, b], dim=1)
+    wa, wb = a.shape[1], b.shape[1]
+    if all(x == wa for x in na) and all(x == wb for x in nb):
+        return cat
+    idx = torch.as_tensor(np.stack([np.concatenate([
+        np.arange(x), wa + np.arange(y), np.arange(x, wa),
+        wa + np.arange(y, wb)]) for x, y in zip(na, nb)]),
+        device=a.device)
+    return torch.gather(cat, 1, idx.reshape(
+        idx.shape + (1,) * (a.ndim - 2)).expand(cat.shape))
+
+
+def _take_lanes(a, idx):
+    """``a[i, idx[i]]`` for every scene i: ``a [S, C, ...]``, ``idx [S, K]``
+    -> ``[S, K, ...]``."""
+    return torch.gather(a, 1, idx.reshape(
+        idx.shape + (1,) * (a.ndim - 2)).expand(idx.shape + a.shape[2:]))
+
+
+def build_goal_set_batch(model, cfg: OMGConfig, scene, params: CostParams,
+                         grasp_poses_world, grasp_valid, n_grasps, start,
+                         gens=None, attached: bool = False, obj_pos=None,
+                         gumbel_fn=None, solve_fn=None) -> GoalSet:
+    """:func:`build_goal_set` for a batch of S scenes (JAX's vmapped build).
+
+    ``scene`` and ``params`` carry a leading scene axis, objects padded to
+    one count (``parallel.batch.pad_scene``); ``grasp_poses_world [S, N,
+    4, 4]`` holds each scene's grasps padded to the wave's largest
+    database, ``grasp_valid [S, N]`` False on the padding, ``n_grasps``
+    the host count of each scene's own grasps, ``start [S, D]``, ``obj_pos
+    [S, 3]``.  Returns the stacked goal sets [S, G, ...].
+
+    Every stage is per scene.  The lanes of scene i occupy the first of
+    its row in its own build's order, padding after them, so each Gumbel
+    draw is made on scene i's generator ``gens[i]``, in its own build's
+    order and at its own (unpadded) size, and lands on the same lanes; the
+    padding draws -inf.  The ``increment_iks`` second pass runs for the
+    scenes whose first pass falls short of the goal cap (one host read),
+    the others get zero invalid lanes as in their own build; the prune-cap
+    compaction and the sample are top-k within each scene.  So each
+    scene's goal set equals its :func:`build_goal_set`.  ``gumbel_fn(i,
+    tag, n)`` supplies scene i's noise instead of ``gens``; ``solve_fn``
+    (signature of :func:`ik_ops.solve_goal_set_batch`) overrides the IK."""
+    if gumbel_fn is None:
+        if gens is None:
+            raise ValueError("build_goal_set_batch needs generators or "
+                             "gumbel_fn")
+
+        def gumbel_fn(i, tag, n):
+            return gumbel_noise(gens[i], n, "cpu")
+
+    def per_scene(fn, *rows):
+        return vmap_scenes(fn, scene, params, *rows)
+
+    return _build_goal_sets(
+        model, cfg, per_scene, grasp_poses_world, grasp_valid, n_grasps,
+        start, gumbel_fn,
+        solve_fn if solve_fn is not None else ik_ops.solve_goal_set_batch,
+        attached, obj_pos)
+
+
+def _build_goal_sets(model, cfg: OMGConfig, per_scene, grasp_poses_world,
+                     grasp_valid, n_grasps, start, gumbel_fn, solve,
+                     attached, obj_pos) -> GoalSet:
+    """The goal-set stages over S scenes (the body of
+    :func:`build_goal_set_batch`, whose arguments it takes).
+    ``per_scene(fn, *rows)`` maps ``fn(scene, params, *row)`` over the
+    scenes; ``gumbel_fn(i, tag, n)`` draws scene i's noise."""
+    n_scenes, dev = start.shape[0], start.device
+
+    def draw(tag, sizes, width, scenes=None):
+        """[S, width] noise: scene i's draw on its first sizes[i] lanes."""
+        g = torch.full((n_scenes, width), -torch.inf)
+        for i, n in enumerate(sizes):
+            if scenes is None or scenes[i]:
+                g[i, :n] = gumbel_fn(i, tag, n).to("cpu")
+        return g.to(dev)
+
+    def neg_inf(x):
+        return torch.full_like(x, -torch.inf)
 
     lo, hi = model.soft_limits(cfg.soft_joint_limit_padding)
-    seeds = torch.cat([
-        start[None, :7],
-        torch.as_tensor(ANCHOR_SEEDS[: cfg.ik_seed_num, :7],
-                        dtype=start.dtype, device=dev)])
-    solve = solve_fn if solve_fn is not None else ik_ops.solve_goal_set
-    reach, standoff, valid, _ = solve(
-        model, cfg, grasp_poses_world, seeds, lo[:7], hi[:7], attached,
-        grasp_valid=grasp_valid)
+    anchors = torch.as_tensor(ANCHOR_SEEDS[: cfg.ik_seed_num, :7],
+                              dtype=start.dtype, device=dev)
+    seeds = torch.cat([start[:, None, :7],
+                       anchors[None].expand(n_scenes, -1, -1)], dim=1)
+    reach, standoff, valid, _, sizes = solve(
+        model, cfg, grasp_poses_world, seeds, lo[:7], hi[:7], n_grasps,
+        attached, grasp_valid=grasp_valid)
 
     if cfg.increment_iks:
-        # second pass reseeded from up to 10 Gumbel-sampled successful
-        # standoff configurations (reference ``increment_iks``,
-        # ``omg/planner.py:436-441``); skipped, with zero invalid lanes of
-        # the same shape, when the first pass already fills the goal cap
-        g = gumbel_fn("increment", valid.shape[0])
-        vals, top = top_k(torch.where(valid, g,
-                                      torch.full_like(g, -torch.inf)), 10)
-        extra = torch.where(torch.isfinite(vals)[:, None],
-                            take_rows(standoff, top)[:, :7], seeds[0][None])
-        if host_bool(valid.sum() < cfg.goal_set_max_num):
-            reach2, standoff2, valid2, _ = solve(
+        g = draw("increment", sizes, valid.shape[1])
+        vals, top = top_k(torch.where(valid, g, neg_inf(g)), 10)
+        extra = torch.where(torch.isfinite(vals)[..., None],
+                            _take_lanes(standoff, top)[..., :7],
+                            seeds[:, :1])
+        need = valid.sum(1) < cfg.goal_set_max_num
+        sizes2 = [ik_ops.solve_lanes(cfg, n, 10) for n in n_grasps]
+        if host_bool(need.any()):
+            reach2, standoff2, valid2, _, _ = solve(
                 model, cfg, grasp_poses_world, extra, lo[:7], hi[:7],
-                attached, grasp_valid=grasp_valid)
+                n_grasps, attached, grasp_valid=grasp_valid & need[:, None])
+            zero = torch.zeros((), device=dev)
+            reach2 = torch.where(need[:, None, None, None], reach2, zero)
+            standoff2 = torch.where(need[:, None, None], standoff2, zero)
+            valid2 = valid2 & need[:, None]
         else:
-            k = ik_ops.solve_lanes(cfg, grasp_poses_world.shape[0], 10)
-            reach2 = reach.new_zeros((k,) + reach.shape[1:])
-            standoff2 = standoff.new_zeros((k,) + standoff.shape[1:])
-            valid2 = valid.new_zeros(k)
-        reach = torch.cat([reach, reach2])
-        standoff = torch.cat([standoff, standoff2])
-        valid = torch.cat([valid, valid2])
+            k = ik_ops.solve_lanes(cfg, grasp_poses_world.shape[1], 10)
+            reach2 = reach.new_zeros((n_scenes, k) + reach.shape[2:])
+            standoff2 = standoff.new_zeros((n_scenes, k) + standoff.shape[2:])
+            valid2 = valid.new_zeros((n_scenes, k))
+        reach = _ragged_cat(reach, sizes, reach2, sizes2)
+        standoff = _ragged_cat(standoff, sizes, standoff2, sizes2)
+        valid = _ragged_cat(valid, sizes, valid2, sizes2)
+        sizes = [a + b for a, b in zip(sizes, sizes2)]
 
     if cfg.augment_flip_grasp and not attached:
         flip_standoff, ok1 = flip_wrist(standoff, cfg)
         flip_reach, _ = flip_wrist(reach, cfg)
-        reach = torch.cat([reach, flip_reach])
-        standoff = torch.cat([standoff, flip_standoff])
-        valid = torch.cat([valid, valid & ok1])
+        reach = _ragged_cat(reach, sizes, flip_reach, sizes)
+        standoff = _ragged_cat(standoff, sizes, flip_standoff, sizes)
+        valid = _ragged_cat(valid, sizes, valid & ok1, sizes)
+        sizes = [2 * n for n in sizes]
 
     if cfg.remove_flip_grasp and not attached:
-        valid = task_space_filter(model, cfg, start, reach, valid)
+        valid = per_scene(
+            lambda sc, pa, st, r, v: task_space_filter(model, cfg, st, r, v),
+            start, reach, valid)
 
-    if cfg.goal_prune_cap and cfg.goal_prune_cap < reach.shape[0]:
-        # compact to valid lanes before the collision prune and the O(C^2)
-        # dedupe; sorting the survivors keeps the greedy dedupe's lane
-        # order, so below the cap the result does not depend on the draw
-        g = gumbel_fn("prune", valid.shape[0])
-        scores = torch.where(valid, g, torch.full_like(g, -torch.inf))
-        sel = torch.sort(top_k(scores, cfg.goal_prune_cap)[1]).values
-        reach = take_rows(reach, sel)
-        standoff = take_rows(standoff, sel)
-        valid = valid[sel]
+    cap = cfg.goal_prune_cap
+    if cap and cap < reach.shape[1]:
+        # scene i compacts only when its own lanes exceed the cap; the
+        # others keep their lanes (and padding) in order
+        compact = [cap < n for n in sizes]
+        g = draw("prune", sizes, valid.shape[1], compact)
+        sel = torch.sort(top_k(torch.where(valid, g, neg_inf(g)),
+                               cap)[1]).values
+        if not all(compact):
+            keep = torch.arange(cap, device=dev).expand(n_scenes, cap)
+            sel = torch.where(torch.as_tensor(compact, device=dev)[:, None],
+                              sel, keep)
+        reach = _take_lanes(reach, sel)
+        standoff = _take_lanes(standoff, sel)
+        valid = torch.gather(valid, 1, sel)
+        sizes = [cap if c else n for c, n in zip(compact, sizes)]
 
-    valid, potentials = collision_prune(model, scene, params, cfg, standoff,
-                                        valid)
+    valid, potentials = per_scene(
+        lambda sc, pa, st, v: collision_prune(model, sc, pa, cfg, st, v),
+        standoff, valid)
     kept = diversity_dedupe(standoff, valid, mode=cfg.dedupe_mode)
-    idx, mask = sample_goals(gumbel_fn("sample", kept.shape[0]), kept,
+    idx, mask = sample_goals(draw("sample", sizes, kept.shape[1]), kept,
                              cfg.goal_set_max_num)
 
-    reach_sel = take_rows(reach, idx)
-    standoff_sel = take_rows(standoff, idx)
-    pot_sel = potentials[idx]
-    grasps_sel = reach_sel[:, -1] if cfg.use_standoff else standoff_sel
+    reach_sel = _take_lanes(reach, idx)
+    standoff_sel = _take_lanes(standoff, idx)
+    pot_sel = torch.gather(potentials, 1, idx)
+    grasps_sel = reach_sel[:, :, -1] if cfg.use_standoff else standoff_sel
+    flat = grasps_sel.reshape(-1, grasps_sel.shape[-1])
 
     if cfg.grasp_optimize:
-        hands = panda.hand_pose_batch(model, grasps_sel)
-        downness = -hands[:, 2, 2]  # world z of the approach axis
+        hands = panda.hand_pose_batch(model, flat).reshape(
+            grasps_sel.shape[:2] + (4, 4))
+        downness = -hands[..., 2, 2]  # world z of the approach axis
         pot_sel = pot_sel + cfg.base_grasp_weight * (0.5 * (1.0 - downness))
 
     if cfg.grip_quality_weight and obj_pos is not None:
         com_dist = torch.linalg.norm(
-            pinch_centers(model, grasps_sel) - obj_pos[None], dim=-1)
+            pinch_centers(model, flat).reshape(grasps_sel.shape[:2] + (3,))
+            - obj_pos[:, None], dim=-1)
         pot_sel = pot_sel + cfg.grip_quality_weight * com_dist
 
     zero = torch.zeros((), device=dev)
     return GoalSet(
-        grasps=torch.where(mask[:, None], grasps_sel, zero),
-        reach_grasps=torch.where(mask[:, None, None], reach_sel, zero),
+        grasps=torch.where(mask[..., None], grasps_sel, zero),
+        reach_grasps=torch.where(mask[..., None, None], reach_sel, zero),
         mask=mask,
         potentials=torch.where(mask, pot_sel, zero),
     )

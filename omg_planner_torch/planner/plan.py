@@ -26,7 +26,8 @@ from ..ops.chomp import CostInfo, CostParams, GoalSet
 from ..ops.sdf import WorldField, WorldPotential
 from ..utils.linalg import top_k
 from ..utils.spline import cubic_interpolate, linear_interpolate
-from ..utils.sync import host_bool
+from ..utils.sync import host_bool, host_bools
+from ..utils.vmap import vmap_scenes
 
 
 class PlanProblem(NamedTuple):
@@ -87,8 +88,17 @@ def _chosen_goal(cfg: OMGConfig, goal_set: GoalSet, goal_idx):
 
 
 def _evaluate(model, cfg, hp, problem: PlanProblem, traj, goal_idx, step):
-    """Cost/gradient/termination evaluation at ``traj``."""
-    obstacle_w, smooth_w, _, step_size = schedule_weights(cfg, step + 1)
+    """Cost/gradient/termination evaluation at ``traj`` on step ``step``
+    of the cost schedule."""
+    return _evaluate_w(model, cfg, hp, problem, traj, goal_idx,
+                       schedule_weights(cfg, step + 1))
+
+
+def _evaluate_w(model, cfg, hp, problem: PlanProblem, traj, goal_idx,
+                weights):
+    """:func:`_evaluate` with the schedule's weights given (a pure tensor
+    function, which ``torch.func.vmap`` batches over scenes)."""
+    obstacle_w, smooth_w, _, step_size = weights
     if cfg.goal_set_proj:
         goal, tail = _chosen_goal(cfg, problem.goal_set, goal_idx)
     else:
@@ -105,17 +115,25 @@ def _evaluate(model, cfg, hp, problem: PlanProblem, traj, goal_idx, step):
     return info, grad, tail, step_size
 
 
-def _optimize_once(model, cfg, hp, problem: PlanProblem, traj, goal_idx,
-                   step):
-    """One CHOMP step (``omg/optimizer.py:115-135``)."""
-    info, grad, tail, step_size = _evaluate(
-        model, cfg, hp, problem, traj, goal_idx, step)
+def _chomp_update(model, cfg, hp, problem: PlanProblem, traj, goal_idx,
+                  weights):
+    """One CHOMP step before the joint-limit smoothing: (trajectory, info)
+    (a pure tensor function, which ``torch.func.vmap`` batches)."""
+    info, grad, tail, step_size = _evaluate_w(
+        model, cfg, hp, problem, traj, goal_idx, weights)
     if cfg.goal_set_proj:
         update = chomp.goal_set_projection_update(
             hp, cfg, traj, grad, tail, step_size)
     else:
         update = chomp.unconstrained_update(hp, grad, step_size)
-    new_traj = chomp.apply_update(model, cfg, traj, update)
+    return chomp.apply_update(model, cfg, traj, update), info
+
+
+def _optimize_once(model, cfg, hp, problem: PlanProblem, traj, goal_idx,
+                   step):
+    """One CHOMP step (``omg/optimizer.py:115-135``)."""
+    new_traj, info = _chomp_update(model, cfg, hp, problem, traj, goal_idx,
+                                   schedule_weights(cfg, step + 1))
     new_traj = chomp.handle_joint_limit(
         hp, cfg, new_traj, problem.joint_lower, problem.joint_upper)
     return new_traj, info
@@ -344,6 +362,139 @@ def plan_fast(model, cfg: OMGConfig, problem: PlanProblem,
         selected_goals=carry.goal_idx[None],
         steps_used=torch.tensor(carry.step, device=problem.start.device),
         flag=info.terminate, goal_mask=carry.goal_mask)
+
+
+def _where_rows(cond, a, b):
+    """Per-scene select over two matching trees of tensors with a leading
+    scene axis: ``cond [S]`` picks ``a``'s rows."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(cond.reshape(cond.shape + (1,) * (a.ndim - 1)),
+                           a, b)
+    return type(a)(*(_where_rows(cond, x, y) for x, y in zip(a, b)))
+
+
+def plan_fast_batch(model, cfg: OMGConfig,
+                    problems: PlanProblem) -> PlanResult:
+    """:func:`plan_fast` over a stacked batch of S problems (leading scene
+    axis, objects padded to one count) in lockstep: each loop step is one
+    set of tensor operations over all S scenes (the pure per-scene pieces
+    under ``torch.func.vmap``), so the number of operations per step does
+    not grow with S.  This is the JAX package's ``vmap`` of ``plan_fast``:
+    each scene's state (trajectory, goal, learner, goal mask, schedule
+    offset, snapshot, last info, step count) freezes when its own loop
+    ends, and its result equals its own :func:`plan_fast`'s.
+
+    Host reads per step: the termination flags of all scenes in one read
+    (after step 0), on the blacklist's due steps the scenes that fire in
+    one read, and the loops of the learner's Bregman projection and of
+    the joint-limit smoothing, each over all live scenes at once.  The
+    learner's gate depends on the step count only, alike for every live
+    scene; each scene's learner step count (which a blacklist restart
+    resets) is kept on the host and on the device."""
+    dev = problems.start.device
+    hp = cfg.horizon().on(dev)
+    n = problems.start.shape[0]
+    use_bl = _blacklist_enabled(cfg)
+
+    def init_one(pr):
+        traj0, goal0, learner0 = _learner_init(model, cfg, hp, pr)
+        return traj0, goal0, learner0._replace(t=pr.start.new_zeros(()))
+
+    traj, goal_idx, lstate = vmap_scenes(init_one, problems)
+    t_host = [0.0] * n
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+    live_host = [True] * n
+    steps = torch.zeros(n, dtype=torch.int64, device=dev)
+    sched0 = torch.zeros(n, dtype=torch.int64, device=dev)
+    goal_mask = problems.goal_set.mask
+    last_info = CostInfo(*(x.expand((n,) + x.shape)
+                           for x in _dummy_info(cfg, dev)))
+    ex_traj, ex_ok, ex_info = traj, torch.zeros_like(live), last_info
+
+    def weights(step, sched0):
+        """The cost schedule at each scene's own step (``step [S]``) since
+        its last restart (``sched0 [S]``)."""
+        return schedule_weights(cfg, (step - sched0 + 1).to(torch.float32))
+
+    step = 0
+    while any(live_host) and step < cfg.total_steps:
+        if _learner_enabled(cfg):
+            do_learn = step < cfg.optim_steps
+            if cfg.learner_sweep_every > 1:
+                do_learn = do_learn and step % cfg.learner_sweep_every == 0
+            if do_learn:
+                gset = (problems.goal_set._replace(mask=goal_mask) if use_bl
+                        else problems.goal_set)
+                l_new, g_new, t_new = ol.update_goal_batch(
+                    model, problems.scene, problems.cost_params, cfg, hp,
+                    traj, gset, lstate, t_host, live,
+                    problems.world_potential)
+                lstate = _where_rows(live, l_new, lstate)
+                goal_idx = torch.where(live, g_new, goal_idx)
+                t_host = [a if lv else b
+                          for a, b, lv in zip(t_new, t_host, live_host)]
+        w = weights(torch.full_like(steps, step), sched0)
+        new_traj, info = vmap_scenes(
+            lambda pr, tr, gi, wt: _chomp_update(model, cfg, hp, pr, tr, gi,
+                                                 wt),
+            problems, traj, goal_idx, w)
+        new_traj = chomp.handle_joint_limit_batch(
+            hp, cfg, new_traj, problems.joint_lower, problems.joint_upper,
+            live)
+        if cfg.exec_snapshot:
+            snap = info.execute & live
+            ex_traj = _where_rows(snap, traj, ex_traj)
+            ex_info = _where_rows(snap, info, ex_info)
+            ex_ok = ex_ok | snap
+        fired = info.terminate & live if step > 0 else torch.zeros_like(live)
+        fired_host = host_bools(fired) if step > 0 else [False] * n
+        if use_bl and _blacklist_due(cfg, step):
+            new_mask, fire = vmap_scenes(
+                lambda pr, m, gi, inf: _inplan_blacklist(cfg, pr, m, gi, inf),
+                problems, goal_mask, goal_idx, info)
+            fire = fire & live & ~fired
+            fire_host = host_bools(fire)
+            if any(fire_host):
+                rt_traj, rt_goal, rt_l = vmap_scenes(
+                    lambda pr, m, ls: _restart_tensors(cfg, pr, m, ls),
+                    problems, new_mask, lstate)
+                goal_mask = _where_rows(fire, new_mask, goal_mask)
+                new_traj = _where_rows(fire, rt_traj, new_traj)
+                goal_idx = torch.where(fire, rt_goal, goal_idx)
+                lstate = _where_rows(fire, rt_l, lstate)
+                sched0 = torch.where(fire, step + 1, sched0)
+                t_host = [0.0 if f else t for f, t in zip(fire_host, t_host)]
+        traj = _where_rows(live & ~fired, new_traj, traj)
+        last_info = _where_rows(live, info, last_info)
+        steps = torch.where(live, step + 1, steps)
+        live = live & ~fired
+        live_host = [a and not b for a, b in zip(live_host, fired_host)]
+        step += 1
+
+    # scenes that ran out of steps are re-evaluated at their final
+    # trajectory (planner.py:633-636), as in _finish
+    info = last_info
+    if any(live_host):
+        final = vmap_scenes(lambda pr, tr, gi, wt: _evaluate_w(
+            model, cfg, hp, pr, tr, gi, wt)[0],
+            problems, traj, goal_idx, weights(steps, sched0))
+        info = _where_rows(live, final, info)
+    traj_out = traj
+    if cfg.exec_snapshot:
+        use = ex_ok & ~info.execute
+        traj_out = _where_rows(use, ex_traj, traj)
+        info = _where_rows(use, ex_info, info)
+    return PlanResult(
+        traj=traj_out, goal_idx=goal_idx, info=info, info_history=info,
+        history=traj_out[:, None], selected_goals=goal_idx[:, None],
+        steps_used=steps, flag=info.terminate, goal_mask=goal_mask)
+
+
+def _restart_tensors(cfg, problem, mask, lstate):
+    """:func:`_blacklist_restart` with the learner's step count as a
+    tensor (for ``torch.func.vmap``)."""
+    traj, goal, rt = _blacklist_restart(cfg, problem, mask, lstate)
+    return traj, goal, rt._replace(t=torch.zeros_like(lstate.t))
 
 
 def init_trajectory(cfg: OMGConfig, start, end):

@@ -123,6 +123,69 @@ def suite_shapes(scenes):
     return pad_to, max(len(s.env.objects) for _, s in scenes)
 
 
+def prebuild_goal_sets(scenes, cfg: OMGConfig, model, batch: int,
+                       max_obj: int):
+    """Build the goal sets of (sid, PlanningScene) pairs in waves of
+    ``batch`` scenes, each wave one batched build
+    (``scene.goal_set_batch``), and stage them: each scene's ``_staged``
+    cache holds its goal set and its consume-once ``_staged_fresh``
+    marker is set, so the pipelined runner's dispatch plans off it instead
+    of rebuilding.  Each scene's goal set equals its own build's, its
+    generator drawn as that build draws it.
+
+    Eligible are the scenes with ``cfg``'s ``jit_key``, goal-set
+    projection, a fixed horizon, the grasp database (no precomputed goals,
+    no external grasps), a target not attached and an analytic collision
+    scene, and only when there are at least two; the others stage per
+    scene as before.  The collision scenes pad to ``max_obj`` objects, the
+    grasp databases to the wave's largest.  (The JAX package pads its
+    tail wave by repeating the last scene to share one compiled program;
+    with no program to share, the tail wave here is just shorter.)"""
+    from ..ops.sdf import AnalyticScene
+    from ..parallel.batch import _pad_cost_params, _stack, pad_scene
+    from .scene import _f32, goal_set_batch
+
+    canon = cfg.jit_key()
+    elig = []
+    for _, sc in scenes:
+        sc._sync_env_cfg()
+        if (sc.cfg.jit_key() != canon or not sc.cfg.goal_set_proj
+                or sc.cfg.dynamic_timestep
+                or sc._precomputed_goals is not None
+                or sc.external_grasps is not None
+                or sc.env.target.attached
+                or not isinstance(sc.env.scene_sdf(), AnalyticScene)):
+            continue
+        elig.append(sc)
+    if len(elig) < 2:
+        return
+    dev = elig[0].device
+    for lo in range(0, len(elig), batch):
+        wave = elig[lo:lo + batch]
+        poses = [sc.env.grasp_poses_world() for sc in wave]
+        max_g = max(len(p) for p in poses)
+        pp = np.tile(np.eye(4, dtype=np.float32), (len(wave), max_g, 1, 1))
+        va = np.zeros((len(wave), max_g), bool)
+        for i, p in enumerate(poses):
+            pp[i, :len(p)] = p
+            va[i, :len(p)] = True
+        goal_sets = goal_set_batch(
+            model, cfg,
+            _stack([pad_scene(sc.env.scene_sdf(), max_obj) for sc in wave]),
+            _stack([_pad_cost_params(sc.env.cost_params(),
+                                     max_obj - len(sc.env.objects))
+                    for sc in wave]),
+            _f32(pp, dev), torch.as_tensor(va, device=dev),
+            [len(p) for p in poses], _f32([sc.start for sc in wave], dev),
+            [sc.gen for sc in wave],
+            _f32([sc.env.target.pose_mat[:3, 3] for sc in wave], dev),
+            y_up=bool(cfg.y_upsample))
+        for i, sc in enumerate(wave):
+            gset = type(goal_sets)(*(a[i] for a in goal_sets))
+            sc._staged = (sc._staged_key(), gset, None)
+            sc._staged_fresh = True
+
+
 def plan_pipelined(scenes, cfg: OMGConfig, model=None, depth: int = 4,
                    pad_to=None, max_obj: int | None = None,
                    build_batch: int = 0):
@@ -150,14 +213,10 @@ def plan_pipelined(scenes, cfg: OMGConfig, model=None, depth: int = 4,
     ``serial_e2e_plans_per_s``.  No extra threads or streams force more
     overlap than the JAX package has; that is the work of CUDA graphs.
 
-    ``build_batch`` > 1 (the JAX package's vmapped goal-set prebuild,
-    ``prebuild_goal_sets``) is not ported: the port's goal-set build has
-    data-dependent host loops that one batched build cannot share yet.
+    ``build_batch`` > 1 first builds the goal sets of the eligible scenes
+    in waves of that many (:func:`prebuild_goal_sets`); the plans still
+    run one scene after another.
     """
-    if build_batch > 1:
-        raise NotImplementedError(
-            "build_batch > 1 needs the batched goal-set build "
-            "(prebuild_goal_sets), which is not ported yet")
     scenes = list(scenes)
     if scenes:
         default_pad, default_obj = suite_shapes(scenes)
@@ -165,6 +224,8 @@ def plan_pipelined(scenes, cfg: OMGConfig, model=None, depth: int = 4,
         max_obj = default_obj if max_obj is None else max_obj
         if model is None:
             model = scenes[0][1].model
+        if build_batch > 1:
+            prebuild_goal_sets(scenes, cfg, model, build_batch, max_obj)
 
     def dispatch(sc):
         t0, s0 = time.time(), SYNCS.count

@@ -198,6 +198,35 @@ class PointEnv(Env):
         self.version += 1
 
 
+def goal_set_batch(model, cfg: OMGConfig, scene, params: CostParams, poses,
+                   valid, n_grasps, start, gens, obj_pos,
+                   attached: bool = False, z_up: bool = False,
+                   y_up: bool = False):
+    """The goal sets of a wave of scenes in one batched build (the JAX
+    package's vmapped ``_goal_set_batch_fn``): the z/y upsampling with the
+    grasp mask repeated by the bins, then
+    :func:`goal_set.build_goal_set_batch`.  ``scene``, ``params``, ``poses
+    [S, N, 4, 4]``, ``valid [S, N]``, ``start [S, D]`` and ``obj_pos [S,
+    3]`` are stacked, ``n_grasps`` and ``gens`` one per scene.  Returns
+    the goal sets [S, ...]."""
+    n_scenes = poses.shape[0]
+    if z_up:
+        bins = 50
+        poses = torch.func.vmap(
+            lambda p, o: gs.z_upsample_poses(p, o, bins=bins))(poses, obj_pos)
+        valid = valid.repeat_interleave(bins, dim=1)
+        n_grasps = [n * bins for n in n_grasps]
+    if y_up:
+        bins = 10
+        poses = gs.y_upsample_poses(poses.reshape(-1, 4, 4), bins=bins)
+        poses = poses.reshape(n_scenes, -1, 4, 4)
+        valid = valid.repeat_interleave(bins, dim=1)
+        n_grasps = [n * bins for n in n_grasps]
+    return gs.build_goal_set_batch(
+        model, cfg, scene, params, poses, valid, n_grasps, start, gens=gens,
+        attached=attached, obj_pos=obj_pos)
+
+
 class PlanningScene:
     """Owner of an Env and its plans (reference ``PlanningScene``,
     ``omg/core.py:459-779``, minus the renderer)."""
@@ -458,12 +487,18 @@ class PlanningScene:
         if self._wp_cache is not None and self._wp_cache[0] == key:
             return self._wp_cache[1]
         params = self.env.cost_params()
-        prims = make_analytic_scene([o.sdf for o in self.env.objects], d)
+        prims = analytic_prim_arrays([o.sdf for o in self.env.objects])
         if prims is not None:
+            kinds, halfs, pens, _, _, dims_act, limits, _ = prims
+
+            def t(a):
+                return torch.as_tensor(a, device=d)
+
             wp = bake_world_potential_analytic(
-                prims, params.inv_poses, params.epsilons,
-                params.padding_scales, params.disables,
-                resolution=cfg.world_potential_resolution)
+                t(kinds), t(halfs), t(pens), t(limits), params.inv_poses,
+                params.epsilons, params.padding_scales, params.disables,
+                t(dims_act), resolution=cfg.world_potential_resolution,
+                snap=False)
         else:
             wp = bake_world_potential(
                 scene, params.inv_poses, params.epsilons,

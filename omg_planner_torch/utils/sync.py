@@ -29,3 +29,10 @@ def host_bool(t: torch.Tensor) -> bool:
 def host_int(t: torch.Tensor) -> int:
     SYNCS.count += 1
     return int(t)
+
+
+def host_bools(t: torch.Tensor) -> list:
+    """A 1-d bool tensor as a list, in one read (a scene batch's per-scene
+    flags)."""
+    SYNCS.count += 1
+    return [bool(v) for v in t.tolist()]

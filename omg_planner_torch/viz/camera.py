@@ -15,6 +15,9 @@ from __future__ import annotations
 
 import numpy as np
 
+# reference camera intrinsics convention (omg/core.py:729-738)
+DEFAULT_INTRINSICS = dict(width=160, height=120, fx=131.25, fy=131.25)
+
 # the reference CLI's fixed view matrix (omg/core.py:806-813)
 DEFAULT_VIEW = np.array([
     [-0.9351, 0.3518, 0.0428, 0.3037],

@@ -206,8 +206,9 @@ def test_analytic_world_potential_matches_jax():
         return torch.as_tensor(np.array(a))
 
     twp = tsdf.bake_world_potential_analytic(
-        tsdf.make_analytic_scene(fields, "cpu"), T(p.inv_poses),
-        T(p.epsilons), T(p.padding_scales), T(p.disables))
+        T(kinds), T(halfs), T(pens), T(limits), T(p.inv_poses),
+        T(p.epsilons), T(p.padding_scales), T(p.disables), T(dims),
+        snap=False)
     assert (jwp.data > 0).sum() > 1000
     np.testing.assert_allclose(twp.data.numpy(), jwp.data, atol=1e-5, rtol=0)
     np.testing.assert_array_equal(twp.origin.numpy(), jwp.origin)

@@ -11,8 +11,7 @@
   gives the same results;
 * ``SuiteRunner`` resumes (``tests/test_apps.py::
   test_suite_runner_resumes``) and writes the shard keys the JAX runner
-  writes;
-* ``build_batch > 1`` raises ``NotImplementedError``."""
+  writes."""
 
 import dataclasses
 import os
@@ -138,7 +137,3 @@ def test_suite_runner_resumes_with_jax_shard_keys(tmp_path):
         jkeys = set(np.load(tmp_path / "jax" / f"scene_{sid}.npz").files)
         assert tkeys == jkeys
 
-
-def test_build_batch_raises():
-    with pytest.raises(NotImplementedError, match="build_batch"):
-        next(trunner.plan_pipelined([], tcfg(SMALL), build_batch=2))
