@@ -12,13 +12,31 @@ Phases (any failure exits non-zero; no phase is skipped):
    float64 oracle; the launch layout; timings (a kernel: the median over
    5 runs of 50 back-to-back launches between one pair of CUDA events,
    with the SM clock sampled under that load);
+3b. plan kernels: ``panda_fk`` against its plain version at N = 2, 30,
+   544 and 1,700 (the CHOMP step's start and end, its trajectory, the
+   restricted and the refresh learner sweeps; bar 1e-5) and ``sdf_query``
+   at P = 4,500, 72,000 and 225,000 points of suite scene 1 (O = 10),
+   analytic and baked, B = 1 and, through the vmap rule, B = 8 (suite
+   scenes 0-7 padded to one object count; the baked stack shared by 8
+   rows) against its plain version and the plain version in float64 (bar:
+   no farther from float64 than max(1e-4, 2 x the plain version's own
+   error), collision counts differing at no more than 1e-4 of the
+   points); rows of a batch bit for bit their single launches; each
+   kernel's device time (50 launches in one CUDA graph, median of 5
+   replays), its time through the wrapper (5 runs of 50 back-to-back
+   calls), the plain version's, the wrapper's host time a call and the
+   bound;
 4. reference: a small plan staged on the CPU, planned on the CPU and on
    the card — same goal, same verdict, trajectories within 2e-3;
 5. the standard plan at the full ``OMGConfig()`` width on three
-   ``data/suite_v2`` scenes (no kernel on this path), with wall time and
-   host syncs per plan;
+   ``data/suite_v2`` scenes (each must launch ``panda_fk`` and
+   ``sdf_query`` and no other kernel; their counts go into the kernels
+   line), with wall time and host syncs per plan;
 6. a ``torch.profiler`` trace of one standard plan: the device's busy
-   share and its operations per plan (fails if it records none);
+   share, its operations per plan and per plan step (fails if it records
+   none), and the operations by the port's function that launched them
+   (``record_function`` ranges this script puts around the FK, the
+   collision query, the CHOMP terms and the learner);
 7. the perception-mode plan (``python -m omg_planner_torch -p -f 0``) at
    full width, which must launch ``min_dist_grid``;
 8. the suite runner: ``SuiteRunner`` plans ``data/suite_v2`` scenes 0-7
@@ -40,13 +58,15 @@ Phases (any failure exits non-zero; no phase is skipped):
     nearest-cell bake from the baked stack against the snapped analytic
     bake;
 11. the UR-like 6-DOF URDF chain, planned at the full ``OMGConfig()`` step
-    budget with ``goal_set_proj=False`` on the card and on the CPU: same
-    verdict and steps, trajectories within 2e-3;
+    budget with ``goal_set_proj=False`` on the card and on the CPU, its
+    pillar's grid read by the exact query and by the baked one
+    (``sdf_query``): same verdict and steps, trajectories within 2e-3;
 12. the task layer on synthetic scene 0 at full width: a grasp plan
     (``plan_to_target``), then ``place_target`` (flag, steps, achieved
     pose);
 13. physics execution on suite scene 0 at full width: its plan executed
-    by ``execute_plan`` (one ``rigid_rollout`` launch, no other kernel);
+    by ``execute_plan`` (one ``rigid_rollout`` launch; ``panda_fk`` for
+    its tracks; no query);
     the kernel against ``rollout_plain`` on the same inputs (same reward,
     final position within 5 mm, the settle phase within 1e-5 m); a B = 2
     launch bit for bit equal to two B = 1 launches; the pick rollout timed
@@ -107,19 +127,22 @@ Phases (any failure exits non-zero; no phase is skipped):
     and steps of ``plan_fast`` or a nudged plan and within min(1e-2, 10 x
     ``own``) of it), a reversed batch giving the same rows, walls and host
     syncs a step, and device operations a step from ``torch.profiler``
-    against ``plan_fast`` on scene 1.  No hand kernel.
+    against ``plan_fast`` on scene 1.
 
-Each phase from 10 on runs with the launch counts set to 0 and checks
-them after: ``rigid_rollout`` must launch on the physics, service and viz
-and apps phases and no kernel elsewhere; ``min_dist_grid`` launches only
-in phase 7.
+Phases 5, 7, 8 and each phase from 10 on run with the launch counts set
+to 0 and check them after: ``panda_fk`` and ``sdf_query`` must launch on
+every phase that plans a Panda (the chain phase: ``sdf_query`` alone),
+``rigid_rollout`` on the physics, service and viz and apps phases,
+``min_dist_grid`` in phase 7, and no kernel elsewhere.
 The line before the last is a JSON object listing every kernel with its
-launches on its path, error, times and bound; the last line is
-``{"ok": true, "device": {...}}``.
+launches on its path (phase 7 for ``min_dist_grid``, 13 for
+``rigid_rollout``, 5 for the plan kernels), error, times and bound; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -137,8 +160,12 @@ from omg_planner_torch.apps import (gen_demos, inspector, kitchen, phys_exec,
                                     serve)
 from omg_planner_torch.config import OMGConfig
 from omg_planner_torch.io.assets import pose_at
+from omg_planner_torch.models import api as model_api
 from omg_planner_torch.models import chain
+from omg_planner_torch.models import panda as panda_mod
+from omg_planner_torch.ops import chomp as chomp_mod
 from omg_planner_torch.ops import kernels
+from omg_planner_torch.ops import learner as learner_mod
 from omg_planner_torch.ops import sdf as sdf_mod
 from omg_planner_torch.ops.chomp import CostParams, GoalSet
 from omg_planner_torch.ops.pointsdf import grid_cells, grid_layout
@@ -146,6 +173,7 @@ from omg_planner_torch.parallel import batch as batch_mod
 from omg_planner_torch.parallel import multihost
 from omg_planner_torch.physics import executor, rigid
 from omg_planner_torch.physics.panda_ctrl import HOME_POSE, NativePanda
+from omg_planner_torch.planner import goal_set as goal_set_mod
 from omg_planner_torch.planner import plan as plan_mod
 from omg_planner_torch.planner import tasks
 from omg_planner_torch.planner.runner import (SuiteRunner, plan_pipelined,
@@ -232,6 +260,35 @@ def time_launches(fn, launches: int = 50, runs: int = 5,
         a.record()
         for _ in range(launches):
             fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return float(np.median(times))
+
+
+def time_graph(fn, launches: int = 50, runs: int = 5,
+               warmup: int = 3) -> float:
+    """A short kernel's device time: ``launches`` back-to-back calls of
+    ``fn`` captured in one CUDA graph, the median over ``runs`` replays of
+    elapsed / ``launches`` between one pair of CUDA events.  The replay
+    leaves out the host, whose wrapper time a call exceeds the kernel's
+    own at the plan's shapes (:func:`time_launches` then measures the
+    host)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / launches)
@@ -387,6 +444,349 @@ def phase_kernels(dev):
     return entry
 
 
+def _fk_flops(n: int, p: int) -> int:
+    """Operations of ``panda_fk`` on ``n`` configurations with the mesh
+    offsets and ``p`` points a link: per configuration 7 joint transforms
+    b = (P cos + Q sin) + R (64 each, cos and sin one each), 6 joint
+    frames and 6 chain products, the hand, the two fingers (one shift
+    each) and 10 offsets as 4 x 4 products (112 each: 64 products, 48
+    sums), and 10 p points (18 each)."""
+    per = 7 * (64 + 2) + (6 + 6 + 1 + 2 + 10) * 112 + 2 + 10 * p * 18
+    return n * per
+
+
+def _fk_bytes(n: int, p: int) -> int:
+    """Bytes ``panda_fk`` must move: the configurations and the model's
+    tables (pqr, pose_0, center_offset, points) read once, poses, origins,
+    axes and points written once."""
+    return 4 * (9 * n + 7 * 48 + 2 * 160 + 30 * p
+                + n * 10 * (16 + 3 + 3 + 3 * p))
+
+
+# operations of sdf_query per (point, enabled object) pair, by part,
+# counted from csrc/sdf_query.cu and csrc/sdf_point.cuh: the frame change
+# (9 products, 9 sums); the analytic SDF and gradient of each kind (with
+# the rounding, the penalty and the sign terms); the baked grid's
+# coordinates (every pair) and its 7 four-channel lerps (in the volume
+# only); the hinge, the rotation back and the masked sums
+SDF_PAIR_FLOPS = dict(frame=18, box=42, sphere=33, cylinder=45, grid=21,
+                      grid_lerps=112, hinge_reduce=37)
+
+
+def _sdf_work(scene, inv_poses, points, disables):
+    """(operations, bytes) that one query of scene rows ``[B, ...]``
+    needs on these inputs: only enabled objects' pairs, the baked grid's
+    in-volume pairs at their stencils' cost and only the grid cells those
+    stencils touch (16 bytes each) read, each other input read once and
+    the three outputs written once."""
+    b, p = points.shape[:2]
+    keep = disables <= 0                                        # [B, O]
+    baked = isinstance(scene, sdf_mod.BakedSceneSDF)
+    ops = SDF_PAIR_FLOPS["frame"] + SDF_PAIR_FLOPS["hinge_reduce"]
+    nbytes = 4 * b * p * (3 + 1 + 3 + 1) + 4 * keep.numel() * (16 + 4)
+    if not baked:
+        per_obj = torch.tensor([SDF_PAIR_FLOPS[k] for k in
+                                ("box", "sphere", "cylinder")],
+                               device=points.device)[scene.kinds.long()]
+        flops = float(((ops + per_obj) * keep).sum()) * p
+        return flops, nbytes + 4 * keep.numel() * 6
+    flops = float(keep.sum()) * p * (ops + SDF_PAIR_FLOPS["grid"])
+    cells = []
+    for r in range(b):
+        for o in torch.nonzero(keep[r]).flatten().tolist():
+            inv = inv_poses[r, o]
+            pts_obj = points[r] @ inv[:3, :3].T + inv[:3, 3]
+            lim = scene.limits[r, o]
+            d = lim[6:9].to(torch.int64)
+            pg = (pts_obj - lim[0:3]) / (lim[3:6] - lim[0:3]) * lim[6:9]
+            c0 = torch.trunc(pg - 0.5).to(torch.int64)
+            inb = ((c0 >= 0) & (c0 + 1 < d)).all(-1)
+            c0 = c0[inb]
+            flops += float(inb.sum()) * SDF_PAIR_FLOPS["grid_lerps"]
+            corners = [((c0[:, 0] + dx) * d[1] + c0[:, 1] + dy) * d[2]
+                       + c0[:, 2] + dz for dx in (0, 1) for dy in (0, 1)
+                       for dz in (0, 1)]
+            flat = torch.unique(torch.cat(corners)) + o * (1 << 40)
+            if scene.data4.stride(0):
+                flat = flat + r * (1 << 48)
+            cells.append(flat)
+    n_cells = torch.unique(torch.cat(cells)).numel() if cells else 0
+    return flops, nbytes + 40 * keep.numel() + 16 * n_cells
+
+
+def _bound(flops, nbytes):
+    op_ms, byte_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
+
+
+def _host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to enqueue its work (the
+    wrapper's own cost: checks, dispatch, the ctypes call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def _err(a, b) -> float:
+    return max((float((x - y).abs().max()) if x.numel() else 0.0)
+               for x, y in zip(a, b))
+
+
+def _f64(t):
+    return t.double() if t.is_floating_point() else t
+
+
+def _query_vs_plain(sc, inv, x, rest, what):
+    """``sdf_query`` against its plain version on the same inputs, and
+    both against the plain version in float64.  Bars: potentials and
+    gradients no farther from the float64 version than max(1e-4, 2 x the
+    plain version's own float32 error), that is as accurate as the plain
+    version; collision counts differing at no more than 1e-4 of the
+    points.  (The two sum the frame change in different orders, and the
+    baked query's gradients reach ~10 (penalised channels times the
+    hinge's slope) and jump where a point's trilinear stencil leaves its
+    object's volume, (1, 0) outside, so a ulp's move of the object-frame
+    point moves them by more than 1e-4 at some points; a count flips where
+    a point sits within rounding of a clearance surface.)  Returns (the
+    kernel's outputs, |kernel - plain|, the collide disagreement)."""
+    k = kernels.sdf_query(sc, inv, x, *rest)
+    ref = kernels.sdf_query_plain(sc, inv, x, *rest)
+    ref64 = kernels.sdf_query_plain(type(sc)(*map(_f64, sc)), _f64(inv),
+                                    _f64(x), *map(_f64, rest))
+    _sync(x.device)
+    err = _err(k[:2], ref[:2])
+    own, mine = _err(ref[:2], ref64[:2]), _err(k[:2], ref64[:2])
+    far = float(torch.maximum((k[0] - ref[0]).abs(), (k[1] - ref[1]).abs()
+                              .amax(-1)).gt(1e-4).float().mean())
+    col = float((k[2] != ref[2]).float().mean())
+    log(f"sdf_query {what}: max|kernel-plain| pot/grad {err:.3e} (beyond "
+        f"1e-4 at {far:.2e} of the points), max|kernel-float64| {mine:.3e}"
+        f", max|plain-float64| {own:.3e}; collide differs at {col:.2e} of "
+        f"the points; {int((k[0] > 0).sum())} points with a potential")
+    if not (mine <= max(1e-4, 2 * own) and col <= 1e-4):
+        raise AssertionError(f"sdf_query {what}: error {mine} against "
+                             f"float64 (plain's {own}), collide {col}")
+    return k, err, col
+
+
+def _in_limits(model, n: int, gen) -> torch.Tensor:
+    lo, hi = model.joint_lower.cpu(), model.joint_upper.cpu()
+    return (lo + (hi - lo) * torch.rand(n, 9, generator=gen)).to(
+        model.device)
+
+
+def phase_plan_kernels(dev):
+    """``panda_fk`` and ``sdf_query`` against their plain versions on the
+    card at the plan's shapes, B-row launches against single launches,
+    timings and bounds; returns their two kernel entries."""
+    cfg = OMGConfig(silent=True)
+    gen = torch.Generator().manual_seed(11)
+    scene = PlanningScene.from_npz(cfg, os.path.join(SUITE, "scene_1.npz"),
+                                   device=dev)
+    model = scene.model
+    fk_args = (panda_mod.pqr_table(model.pose_0, model.chain_post),
+               model.pose_0, model.center_offset, model.collision_points)
+    pts15 = model.collision_points.shape[1]
+
+    # panda_fk: the CHOMP step's start and end (N = 2), its trajectory
+    # (30), the restricted learner sweep (544) and the refresh (1,700)
+    fk_err, fk = 0.0, {}
+    for n in (2, 30, 544, 1700):
+        q = _in_limits(model, n, gen)
+        for offset, points in ((True, True), (False, False)):
+            k = kernels.panda_fk(q, model.pose_0, model.chain_post,
+                                 model.center_offset, model.collision_points,
+                                 offset, points)
+            ref = kernels.panda_fk_plain(q, *fk_args, offset, points)
+            _sync(dev)
+            err = _err(k, ref)
+            fk_err = max(fk_err, err)
+            log(f"panda_fk N={n} offsets={offset} points={points}: "
+                f"max|kernel-plain| {err:.3e}")
+            if not err <= 1e-5:
+                raise AssertionError(f"panda_fk N={n}: error {err}")
+        fk[n] = q
+    q = fk[1700]
+    rows = kernels.panda_fk(q[:544], *(model.pose_0, model.chain_post,
+                                       model.center_offset,
+                                       model.collision_points))
+    full = kernels.panda_fk(q, model.pose_0, model.chain_post,
+                            model.center_offset, model.collision_points)
+    qs = q[:3 * 544].reshape(3, 544, 9)
+    mapped = torch.func.vmap(lambda x: kernels.panda_fk(
+        x, model.pose_0, model.chain_post, model.center_offset,
+        model.collision_points))(qs)
+    same = (all(torch.equal(a, b[:544]) for a, b in zip(rows, full))
+            and all(torch.equal(a.reshape(b[:3 * 544].shape), b[:3 * 544])
+                    for a, b in zip(mapped, full)))
+    log(f"panda_fk: the first 544 rows alone and a vmap of 3 x 544 "
+        f"against N=1700: {'bit-equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("panda_fk rows depend on the batch")
+
+    # sdf_query: analytic and baked suite scene 1 (O = 10); the step's
+    # points (30 x 150), the restricted sweep's (480 x 150) and the
+    # refresh's (1,500 x 150); a batch of the 8 suite scenes 0-7
+    params = scene.env.cost_params()
+    rest = (params.epsilons, params.padding_scales, params.clearances,
+            params.disables)
+    scenes = {"analytic": scene.env.scene_sdf(),
+              "baked": sdf_mod.stage_scene_sdfs(
+                  [o.sdf for o in scene.env.objects], dev, baked=True)}
+    pts = {}
+    for p in (4500, 72000, 225000):
+        x = kernels.panda_fk(_in_limits(model, p // 150, gen),
+                             model.pose_0, model.chain_post,
+                             model.center_offset, model.collision_points)[3]
+        pts[p] = x.reshape(-1, 3)
+    q_err = 0.0
+    worst_col = 0.0
+    for kind, sc in scenes.items():
+        for p, x in pts.items():
+            _, err, col = _query_vs_plain(sc, params.inv_poses, x, rest,
+                                          f"{kind} P={p}")
+            q_err, worst_col = max(q_err, err), max(worst_col, col)
+
+    # B = 8: the suite scenes 0-7 padded to one object count (analytic),
+    # suite scene 1's baked stack shared by 8 rows whose objects move
+    # (baked); through the vmap rule; each row against its single launch
+    batch = []
+    for sid in range(8):
+        env = PlanningScene.from_npz(
+            cfg, os.path.join(SUITE, f"scene_{sid}.npz"), device=dev).env
+        batch.append((env.scene_sdf(), env.cost_params()))
+    n_obj = max(s.kinds.shape[0] for s, _ in batch)
+    stacked = batch_mod._stack(
+        [batch_mod.pad_scene(s, n_obj) for s, _ in batch])
+    cps = batch_mod._stack([batch_mod._pad_cost_params(
+        c, n_obj - c.inv_poses.shape[0]) if c.inv_poses.shape[0] < n_obj
+        else c for _, c in batch])
+    shift = torch.linspace(-0.03, 0.04, 8, device=dev)
+    inv8 = params.inv_poses[None].repeat(8, 1, 1, 1)
+    inv8[..., :3, 3] += shift[:, None, None]
+    cases = {"analytic": (stacked, cps.inv_poses,
+                          (cps.epsilons, cps.padding_scales, cps.clearances,
+                           cps.disables)),
+             "baked": (scenes["baked"], inv8,
+                       tuple(t[None].expand(8, *t.shape) for t in rest))}
+    x8s = {p: kernels.panda_fk(_in_limits(model, 8 * p // 150, gen),
+                               model.pose_0, model.chain_post,
+                               model.center_offset, model.collision_points
+                               )[3].reshape(8, p, 3) for p in (4500, 72000)}
+    b8 = {}
+    for kind, (sc, inv, rr) in cases.items():
+        for p, x8 in x8s.items():
+            mapped_sc = kind == "analytic"
+            if mapped_sc:
+                k = torch.func.vmap(lambda s, i, x, *r: kernels.sdf_query(
+                    s, i, x, *r))(sc, inv, x8, *rr)
+            else:
+                k = torch.func.vmap(lambda i, x, *r: kernels.sdf_query(
+                    sc, i, x, *r))(inv, x8, *rr)
+            same = True
+            for r in range(8):
+                sc_r = batch_mod._index(sc, r) if mapped_sc else sc
+                one, err, col = _query_vs_plain(
+                    sc_r, inv[r], x8[r], tuple(t[r] for t in rr),
+                    f"{kind} B=8 P={p} row {r}")
+                same &= all(torch.equal(a[r], c) for a, c in zip(k, one))
+                q_err, worst_col = max(q_err, err), max(worst_col, col)
+            log(f"sdf_query {kind} B=8 P={p} (vmap rule): rows against "
+                "their single launches "
+                f"{'bit-equal' if same else 'DIFFERENT'}")
+            if not same:
+                raise AssertionError(f"sdf_query {kind} B=8 P={p}: rows "
+                                     "depend on the batch")
+            b8[(kind, p)] = (sc, inv, x8, rr, mapped_sc)
+
+    # timings: the kernel (median of 5 runs of 50 launches), the plain
+    # version, the wrapper's host time a call, the bound
+    smi = clocks_under_load(lambda: kernels.panda_fk(
+        fk[1700], model.pose_0, model.chain_post, model.center_offset,
+        model.collision_points))
+    log(f"plan kernels under load: clocks.sm, power.draw, power.limit = "
+        f"{smi}")
+    timing = {}
+    for n in (2, 30, 544, 1700):
+        def run(q=fk[n]):
+            return kernels.panda_fk(q, model.pose_0, model.chain_post,
+                                    model.center_offset,
+                                    model.collision_points)
+        ms, wrapped = time_graph(run), time_launches(run)
+        plain_ms = time_ms(lambda q=fk[n]: kernels.panda_fk_plain(
+            q, *fk_args, True, True), 5, 1)
+        bound, by = _bound(_fk_flops(n, pts15), _fk_bytes(n, pts15))
+        host = _host_us(run)
+        timing[("panda_fk", n)] = (ms, plain_ms, bound, by)
+        log(f"panda_fk N={n}: kernel {ms:.4f} ms (graph of 50), through "
+            f"the wrapper {wrapped:.4f} ms a call, plain {plain_ms:.4f} ms,"
+            f" bound {bound:.6f} ms ({by}; {_fk_flops(n, pts15):.3e} flop, "
+            f"{_fk_bytes(n, pts15)} B), share of bound {bound / ms:.4f}, "
+            f"wrapper host {host:.1f} us a call")
+    for kind, sc in scenes.items():
+        for p in (4500, 72000, 225000):
+            x = pts[p]
+
+            def run(sc=sc, x=x):
+                return kernels.sdf_query(sc, params.inv_poses, x, *rest)
+            ms, wrapped = time_graph(run), time_launches(run)
+            plain_ms = time_ms(lambda sc=sc, x=x: kernels.sdf_query_plain(
+                sc, params.inv_poses, x, *rest), 5, 1)
+            flops, nbytes = _sdf_work(
+                batch_mod._stack([sc]), params.inv_poses[None], x[None],
+                params.disables[None])
+            bound, by = _bound(flops, nbytes)
+            host = _host_us(run)
+            timing[("sdf_query", kind, p)] = (ms, plain_ms, bound, by)
+            log(f"sdf_query {kind} B=1 P={p}: kernel {ms:.4f} ms (graph of "
+                f"50), through the wrapper {wrapped:.4f} ms a call, plain "
+                f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by}; "
+                f"{flops:.3e} flop, {nbytes} B), share of bound "
+                f"{bound / ms:.4f}, wrapper host {host:.1f} us a call")
+    for (kind, p), (sc, inv, x8, rr, mapped_sc) in b8.items():
+        if mapped_sc:
+            def run(sc=sc, inv=inv, x8=x8, rr=rr):
+                return torch.func.vmap(lambda s, i, x, *r: kernels.sdf_query(
+                    s, i, x, *r))(sc, inv, x8, *rr)
+            work_sc = sc
+        else:
+            def run(sc=sc, inv=inv, x8=x8, rr=rr):
+                return torch.func.vmap(lambda i, x, *r: kernels.sdf_query(
+                    sc, i, x, *r))(inv, x8, *rr)
+            work_sc = type(sc)(*(t[None].expand(8, *t.shape) for t in sc))
+        ms, wrapped = time_graph(run), time_launches(run)
+        flops, nbytes = _sdf_work(work_sc, inv, x8, rr[3])
+        bound, by = _bound(flops, nbytes)
+        log(f"sdf_query {kind} B=8 P={p} (vmap): kernel {ms:.4f} ms (graph "
+            f"of 50), through the vmap {wrapped:.4f} ms a call, bound "
+            f"{bound:.6f} ms ({by}; {flops:.3e} flop, {nbytes} B), share "
+            f"of bound {bound / ms:.4f}, wrapper host {_host_us(run):.1f} us"
+            " a call")
+    sm = float(smi.split()[0])
+    entries = []
+    for name, src, rep, err, key in (
+            ("panda_fk", "omg_planner_torch/csrc/panda_fk.cu",
+             "omg_planner_tpu/models/panda.py:250", fk_err,
+             ("panda_fk", 30)),
+            ("sdf_query", "omg_planner_torch/csrc/sdf_query.cu",
+             "omg_planner_tpu/ops/sdf.py:465", q_err,
+             ("sdf_query", "analytic", 4500))):
+        ms, plain_ms, bound, by = timing[key]
+        entries.append(dict(name=name, route="cuda", source=src,
+                            replaces=rep, launches=0, max_abs_err=err,
+                            ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=by, library_ms=None,
+                            share_of_bound=bound / ms, sm_clock_mhz=sm))
+    log(f"sdf_query: collide differs at {worst_col:.2e} of the points at "
+        "most")
+    return entries
+
+
 def phase_reference(dev):
     """The plan loop on one CPU-staged problem, on the CPU and on ``dev``."""
     scene = PlanningScene.synthetic(SMALL_CFG, scene_id=5, n_obstacles=2,
@@ -431,23 +831,46 @@ def _timed_plan(scene, dev, what):
     return res
 
 
-def phase_standard(dev):
+#: the kernels every plan launches, and none other outside their phases
+PLAN_KERNELS = ("panda_fk", "sdf_query")
+
+
+def _check_launches(what, expect) -> dict:
+    """The launch counts since the last reset; fails unless exactly the
+    kernels of ``expect`` launched."""
+    counts = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+    log(f"[{what} launches: {counts}]")
+    for k, n in counts.items():
+        if (k in expect) != (n > 0):
+            raise AssertionError(f"{k} launched {n} times on the {what} "
+                                 "path")
+    return counts
+
+
+def phase_standard(dev) -> dict:
+    """The main path: three suite plans; returns the launches of the plan
+    kernels in them."""
     cfg = OMGConfig(silent=True)
+    total = dict.fromkeys(PLAN_KERNELS, 0)
     for i in (0, 1, 2):
         path = os.path.join(SUITE, f"scene_{i}.npz")
         scene = PlanningScene.from_npz(cfg, path, device=dev)
         reset_counts()
         _timed_plan(scene, dev, f"standard plan suite scene {i}")
-        if any(fn.launches for fn in kernels.KERNELS.values()):
-            raise AssertionError("a kernel launched on the standard path")
+        counts = _check_launches(f"standard suite scene {i}", PLAN_KERNELS)
+        for k in total:
+            total[k] += counts[k]
+    return total
 
 
 def _profiled(fn, dev, what, cpu: bool = True):
     """``fn()`` under ``torch.profiler``: (result, wall ms under the
-    profiler, device operations, device ms by operation name).  Fails when
-    the profiler records no device operation.  ``cpu=False`` traces the
-    device alone (reading a trace that holds the host's operations too is
-    slow in Python)."""
+    profiler, device operations, device ms by operation name, device
+    operations by the innermost ``attr::<label>`` range that launched
+    them, "other" outside every range; empty with ``cpu=False``).  Fails
+    when the profiler records no device operation.  ``cpu=False`` traces
+    the device alone (reading a trace that holds the host's operations too
+    is slow in Python)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -459,14 +882,74 @@ def _profiled(fn, dev, what, cpu: bool = True):
         out = fn()
         _sync(dev)
         wall_ms = (time.time() - t0) * 1e3
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not e.name.startswith("attr::")]
     if not ops:
         raise AssertionError(f"profile {what}: wall {wall_ms:.1f} ms, but "
                              "the profiler recorded no device operations")
     by_name = {}
     for e in ops:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    return out, wall_ms, len(ops), by_name
+    by_range = {}
+    for e in prof.events() if cpu else ():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        up, label = e, "other"
+        while up is not None:
+            if up.name.startswith("attr::"):
+                label = up.name[len("attr::"):]
+                break
+            up = up.cpu_parent
+        by_range[label] = by_range.get(label, 0) + sum(
+            not k.name.startswith("attr::") for k in e.kernels)
+    return out, wall_ms, len(ops), by_name, by_range
+
+
+# phase 6's attribution: the port's functions whose device operations it
+# counts, each under its label (the first two are the functions of the two
+# plan kernels); a function called inside another counts under its own
+# label.  The ranges are put around each name in the module that calls it,
+# by this script only.
+ATTRIBUTION = {
+    "FK + body points": [(model_api, n) for n in (
+        "fk_points", "end_points", "fk_batch", "fk_one",
+        "fk_with_joint_info_batch", "point_positions")],
+    "collision query": [(m, "sdf_potentials") for m in (
+        chomp_mod, learner_mod, goal_set_mod)],
+    "derivatives, Jacobians, gradient terms, top-k": [
+        (model_api, "point_jacobians"), (chomp_mod, "get_derivative"),
+        (chomp_mod, "_functional_grad_terms"), (chomp_mod, "top_k"),
+        (learner_mod, "get_derivative")],
+    "smoothness": [(chomp_mod, "smooth_loss")],
+    "CHOMP cost, the rest": [(chomp_mod, "compute_total_loss")],
+    "CHOMP update and joint limits": [(chomp_mod, n) for n in (
+        "goal_set_projection_update", "unconstrained_update",
+        "apply_update", "handle_joint_limit", "check_joint_limit")],
+    "learner sweep, the rest": [(learner_mod, "cost_vector_raw")],
+    "learner, the rest": [(learner_mod, "update_goal")],
+}
+
+
+@contextlib.contextmanager
+def _ranges(spec):
+    """Each (module, name) of ``spec`` ({label: [(module, name), ...]})
+    called inside a ``record_function`` range ``attr::<label>`` while the
+    context is open."""
+    saved = []
+    try:
+        for label, targets in spec.items():
+            for mod, name in targets:
+                orig = getattr(mod, name)
+
+                def wrapped(*a, _orig=orig, _label=label, **k):
+                    with torch.profiler.record_function(f"attr::{_label}"):
+                        return _orig(*a, **k)
+                saved.append((mod, name, orig))
+                setattr(mod, name, wrapped)
+        yield
+    finally:
+        for mod, name, orig in reversed(saved):
+            setattr(mod, name, orig)
 
 
 def phase_profile(dev):
@@ -478,16 +961,25 @@ def phase_profile(dev):
     scene = PlanningScene.from_npz(cfg, path, device=dev)
     scene.step(fast=True)  # stages the goal set and warms up
     _sync(dev)
-    res, wall_ms, n_ops, by_name = _profiled(
-        lambda: scene.step(fast=True), dev, "standard plan suite scene 1")
+    with _ranges(ATTRIBUTION):
+        res, wall_ms, n_ops, by_name, by_range = _profiled(
+            lambda: scene.step(fast=True), dev,
+            "standard plan suite scene 1")
+    steps = int(res.steps_used)
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    log(f"profile standard plan suite scene 1 ({int(res.steps_used)} steps):"
+    log(f"profile standard plan suite scene 1 ({steps} steps):"
         f" wall {wall_ms:.1f} ms under the profiler, device busy "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_ops} "
-        f"device operations")
+        f"device operations, {n_ops / steps:.1f} a plan step")
     for name, us in top:
         log(f"  {us / 1e3:8.3f} ms  {name[:100]}")
+    linked = sum(by_range.values())
+    log(f"device operations of the plan by the function that launched them "
+        f"({linked} of {n_ops} linked to their launch):")
+    for label, n in sorted(by_range.items(), key=lambda kv: -kv[1]):
+        log(f"  {n:7d}  {n / steps:8.1f} a step  {100 * n / linked:5.1f}%  "
+            f"{label}")
 
 
 def phase_perception(dev) -> int:
@@ -502,11 +994,8 @@ def phase_perception(dev) -> int:
         f"{(time.time() - t0) * 1e3:.1f} ms, {SYNCS.count} host syncs")
     SYNCS.count = 0
     _timed_plan(scene, dev, "perception plan -p -f 0")
-    launches = kernels.min_dist_grid.launches
-    log(f"min_dist_grid launches in the perception run: {launches}")
-    if torch.device(dev).type == "cuda" and launches == 0:
-        raise AssertionError("perception plan never launched min_dist_grid")
-    return launches
+    return _check_launches("perception", ("min_dist_grid",)
+                           + PLAN_KERNELS)["min_dist_grid"]
 
 
 def phase_suite_runner(dev):
@@ -545,8 +1034,7 @@ def phase_suite_runner(dev):
             f"success, {summary['exec_valid']} execution-valid, "
             f"{wall:.2f} s for {len(sids)} scenes with validation, "
             f"{SYNCS.count} host syncs in all")
-        if any(fn.launches for fn in kernels.KERNELS.values()):
-            raise AssertionError("a kernel launched on the suite path")
+        _check_launches("suite runner", PLAN_KERNELS)
         made.clear()
         again = Runner(out, OMGConfig(silent=True), scene_source="npz",
                        suite_dir=SUITE, device=dev)
@@ -708,8 +1196,10 @@ def _ur_chain(dev):
     return chain.with_collision_points(m, pts)
 
 
-def _chain_problem(model, cfg, start, end):
-    """A pillar beside the arm; a fixed goal configuration."""
+def _chain_problem(model, cfg, start, end, baked: bool = False):
+    """A pillar beside the arm; a fixed goal configuration.  Its grid is
+    read by the exact query, or with ``baked`` by the baked one (the
+    planner's grid default, ``sdf_baked=True``)."""
     d = model.device
     box = sdf_mod.SignedDensityField.from_analytic("box", [0.2, 0.2, 0.4],
                                                    delta=0.02)
@@ -730,7 +1220,8 @@ def _chain_problem(model, cfg, start, end):
             reach_grasps=end[None, None].repeat(4, cfg.reach_tail_length, 1),
             mask=torch.ones(4, dtype=torch.bool, device=d),
             potentials=torch.zeros(4, device=d)),
-        scene=sdf_mod.combine_sdfs([box.penalize_inside(5.0)], d),
+        scene=(sdf_mod.bake_scene if baked else lambda s: s)(
+            sdf_mod.combine_sdfs([box.penalize_inside(5.0)], d)),
         cost_params=CostParams(
             inv_poses=f32(np.linalg.inv(pose)[None]), epsilons=f32([0.2]),
             padding_scales=f32([1.0]), clearances=f32([0.0]),
@@ -744,31 +1235,40 @@ def _chain_problem(model, cfg, start, end):
 
 def phase_chain(dev):
     """The UR-like chain on ``dev`` and on the CPU, every step of the full
-    budget (no early termination)."""
+    budget (no early termination), with the pillar's grid read by the
+    exact query and by the baked one (``sdf_query`` on the card)."""
     cfg = OMGConfig(silent=True, goal_set_proj=False, use_standoff=False,
                     pre_terminate=False)
     start = [0.0, -1.2, 1.6, -0.5, 0.0, 0.0]
     end = [1.2, -0.9, 1.2, -0.8, 0.6, 0.3]
-    out = {}
-    for where in (dev, "cpu"):
-        model = _ur_chain(where)
-        problem = _chain_problem(model, cfg, start, end)
-        _sync(where)
-        SYNCS.count = 0
-        t0 = time.time()
-        res = plan_mod.plan_fast(model, cfg, problem)
-        _sync(where)
-        out[where] = res
-        log(f"chain plan (UR-like, 6 dof, {cfg.total_steps}-step budget) on "
-            f"{where}: {'SUCCESS' if bool(res.flag) else 'FAIL'} steps "
-            f"{int(res.steps_used)}, collide {float(res.info.collide):.0f}, "
-            f"{(time.time() - t0) * 1e3:.1f} ms, {SYNCS.count} host syncs")
-    a, b = out[dev], out["cpu"]
-    diff = float((a.traj.cpu() - b.traj).abs().max())
-    log(f"chain plan: max|traj {dev} - cpu| {diff:.2e}")
-    if (a.traj.shape != (cfg.timesteps, 6) or bool(a.flag) != bool(b.flag)
-            or int(a.steps_used) != int(b.steps_used) or not diff <= 2e-3):
-        raise AssertionError(f"chain plan on {dev} disagrees with the cpu")
+    for query in ("exact", "baked"):
+        out = {}
+        for where in (dev, "cpu"):
+            model = _ur_chain(where)
+            problem = _chain_problem(model, cfg, start, end,
+                                     baked=query == "baked")
+            _sync(where)
+            SYNCS.count = 0
+            t0 = time.time()
+            res = plan_mod.plan_fast(model, cfg, problem)
+            _sync(where)
+            out[where] = res
+            log(f"chain plan (UR-like, 6 dof, {cfg.total_steps}-step "
+                f"budget, {query} query) on {where}: "
+                f"{'SUCCESS' if bool(res.flag) else 'FAIL'} steps "
+                f"{int(res.steps_used)}, collide "
+                f"{float(res.info.collide):.0f}, "
+                f"{(time.time() - t0) * 1e3:.1f} ms, {SYNCS.count} host "
+                "syncs")
+        a, b = out[dev], out["cpu"]
+        diff = float((a.traj.cpu() - b.traj).abs().max())
+        log(f"chain plan, {query} query: max|traj {dev} - cpu| {diff:.2e}")
+        if (a.traj.shape != (cfg.timesteps, 6)
+                or bool(a.flag) != bool(b.flag)
+                or int(a.steps_used) != int(b.steps_used)
+                or not diff <= 2e-3):
+            raise AssertionError(f"chain plan ({query} query) on {dev} "
+                                 "disagrees with the cpu")
 
 
 def phase_tasks(dev):
@@ -953,7 +1453,7 @@ def phase_physics(dev):
         f"{wall_ms:.1f} ms, rigid_rollout launches {launches}")
     if launches != 1 or kernels.min_dist_grid.launches:
         raise AssertionError("physics: execute_plan must launch rigid_rollout "
-                             "once and nothing else")
+                             "once and min_dist_grid never")
     if not np.isfinite(list(rep.to_dict().values())).all():
         raise AssertionError(f"physics: non-finite report {rep}")
 
@@ -1448,10 +1948,10 @@ def phase_scene_batches(dev):
     if rev_gap > 1e-5:
         raise AssertionError("scene batches: the reversed batch moves a "
                              "trajectory")
-    _, wall, n_ops, by_name = _profiled(
+    _, wall, n_ops, by_name, _ = _profiled(
         lambda: batch_mod.plan_batch_vmap(model, cfg, stacked), dev,
         "plan_batch_vmap", cpu=False)
-    one, wall1, n_ops1, by_name1 = _profiled(
+    one, wall1, n_ops1, by_name1, _ = _profiled(
         lambda: plan_mod.plan_fast(model, cfg, problems[1]), dev,
         "plan_fast suite scene 1", cpu=False)
     busy, busy1 = (sum(b.values()) / 1e3 for b in (by_name, by_name1))
@@ -1703,17 +2203,22 @@ def main() -> int:
     timed("environment", phase_environment)
     timed("build", phase_build)
     entry = timed("kernels", phase_kernels, "cuda")
+    plan_entries = timed("plan kernels", phase_plan_kernels, "cuda")
     timed("reference", phase_reference, "cuda")
-    timed("standard", phase_standard, "cuda")
+    standard = timed("standard", phase_standard, "cuda")
+    for e in plan_entries:
+        e["launches"] = standard[e["name"]]
     timed("profile", phase_profile, "cuda")
     entry["launches"] = timed("perception", phase_perception, "cuda")
     timed("suite runner", phase_suite_runner, "cuda")
     timed("bench", phase_bench)
     # phases from here on: the kernels each path must launch
-    expect = {"fused": (), "chain": (), "tasks": (),
-              "physics": ("rigid_rollout",), "serve": ("rigid_rollout",),
-              "scale-out": (), "viz and apps": ("rigid_rollout",),
-              "scene batches": ()}
+    rollout = ("rigid_rollout",) + PLAN_KERNELS
+    expect = {"fused": PLAN_KERNELS, "chain": ("sdf_query",),
+              "tasks": PLAN_KERNELS,
+              "physics": ("rigid_rollout", "panda_fk"), "serve": rollout,
+              "scale-out": PLAN_KERNELS, "viz and apps": rollout,
+              "scene batches": PLAN_KERNELS}
     entries = [entry]
     for name, fn in (("fused", phase_fused), ("chain", phase_chain),
                      ("tasks", phase_tasks), ("physics", phase_physics),
@@ -1724,12 +2229,8 @@ def main() -> int:
         out = timed(name, fn, "cuda")
         if name == "physics":
             entries.append(out)
-        counts = {k: fn_.launches for k, fn_ in kernels.KERNELS.items()}
-        log(f"[{name} launches: {counts}]")
-        for k, n in counts.items():
-            if (k in expect[name]) != (n > 0):
-                raise AssertionError(f"{k} launched {n} times on the {name} "
-                                     "path")
+        _check_launches(name, expect[name])
+    entries += plan_entries
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
-// Test-only CPU emulation of the CUDA subset that rigid_rollout.cu uses,
-// so that g++ can compile and run the kernel's own source on the host
-// (tests/test_torch_rollout_emu.py).  Never part of a build for the card.
+// Test-only CPU emulation of the CUDA subset that the kernels of this
+// directory use, so that g++ can compile and run a kernel's own source on
+// the host (tests/test_torch_rollout_emu.py,
+// tests/test_torch_plan_kernels_emu.py).  Never part of a build for the
+// card.
 //
 //   g++ -std=c++20 -O1 -shared -fPIC -DOMG_CUDA_EMU
 //       -x c++ rigid_rollout.cu -o librigid_rollout_emu.so
@@ -154,6 +156,11 @@ inline int __any_sync(unsigned, int pred) {
   for (unsigned l = 0; l < 32; ++l) any |= buf[(t & ~31u) | l] != 0.f;
   return any;
 }
+
+// round-to-nearest products and sums that are never contracted (g++
+// contracts no multiply-add into an FMA for x86-64 without -mfma)
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
 
 inline int atomicAdd(int* p, int v) {
   const int old = *p;

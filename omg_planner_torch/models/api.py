@@ -9,6 +9,15 @@ Shapes: L links, P points per link, D dofs (9 for the Panda).  Goal-set
 construction stays Panda specific (it encodes the ``panda_hand`` grasp
 frame); a chain plans with ``goal_set_proj=False`` or an external goal
 set.
+
+A :class:`~.panda.PandaModel`'s FK runs through the ``panda_fk`` kernel
+(``ops/kernels.py``): on the card one launch a call, on the CPU its plain
+version (``panda.fk_batch_tables``).  :func:`fk_points` and
+:func:`end_points` are the fused forms that also return the body points.
+``fk_one`` and ``end_points`` keep the single-configuration FK
+(``panda.forward_kinematics``) on the CPU, as the JAX package computes
+it.  Nothing differentiates through these functions (the kernel has no
+gradient); ``physics/dynamics.py`` and the IK call ``panda`` directly.
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import kernels
 from . import chain as chain_mod
 from . import panda as panda_mod
 from .chain import FIXED, PRISMATIC, ChainModel
@@ -42,22 +52,52 @@ def _chain_tables(model: ChainModel):
     return moving, affect, prismatic
 
 
+def _panda_fk(model: PandaModel, q: torch.Tensor, with_points: bool):
+    return kernels.panda_fk(q, model.pose_0, model.chain_post,
+                            model.center_offset, model.collision_points,
+                            True, with_points)
+
+
 def fk_with_joint_info_batch(model, q: torch.Tensor):
     if isinstance(model, PandaModel):
-        return panda_mod.fk_with_joint_info_batch(model, q)
+        return _panda_fk(model, q, False)[:3]
     return chain_mod.chain_fk_with_joint_info_batch(model, q)
 
 
 def fk_one(model, q: torch.Tensor):
     if isinstance(model, PandaModel):
+        if q.device.type == "cuda":
+            return _panda_fk(model, q[None], False)[0][0]
         return panda_mod.forward_kinematics(model, q)
     return chain_mod.chain_fk(model, q)
 
 
 def fk_batch(model, q: torch.Tensor):
     if isinstance(model, PandaModel):
-        return panda_mod.forward_kinematics_batch(model, q)
+        return _panda_fk(model, q, False)[0]
     return chain_mod.chain_fk_batch(model, q)
+
+
+def fk_points(model, q: torch.Tensor, joint_info: bool = False):
+    """FK and body points of configurations ``q [n, D]``: (poses [n, L, 4,
+    4], x [n, L, P, 3]), or (poses, origins, axes, x) with
+    ``joint_info``."""
+    if isinstance(model, PandaModel):
+        poses, og, ax, x = _panda_fk(model, q, True)
+    else:
+        poses, og, ax = chain_mod.chain_fk_with_joint_info_batch(model, q)
+        x = point_positions(model, poses)
+    return (poses, og, ax, x) if joint_info else (poses, x)
+
+
+def end_points(model, start: torch.Tensor, end: torch.Tensor):
+    """Body points ``[L, P, 3]`` of the two configurations ``start`` and
+    ``end`` ``[D]``; one FK launch for both on the card."""
+    if isinstance(model, PandaModel) and start.device.type == "cuda":
+        x = _panda_fk(model, torch.stack([start, end]), True)[3]
+        return x[0], x[1]
+    return (point_positions(model, fk_one(model, start)),
+            point_positions(model, fk_one(model, end)))
 
 
 def point_positions(model, poses: torch.Tensor):

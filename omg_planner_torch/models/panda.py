@@ -184,17 +184,16 @@ def _mm4_const_lanes(a: torch.Tensor, b_const: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=16)
-def _pqr(pose_0, chain_post):
-    """Per-joint constant ``(P_i, Q_i, R_i)`` with
-    ``A Rz(q) C = cos(q) P + sin(q) Q + R`` (cached per model)."""
-    out = []
+def pqr_table(pose_0, chain_post) -> torch.Tensor:
+    """Per-joint constants ``[7, 3, 4, 4]``: ``(P_i, Q_i, R_i)`` with
+    ``A Rz(q) C = cos(q) P + sin(q) Q + R`` (cached per model; the table
+    the ``panda_fk`` kernel reads)."""
     dt, dev = pose_0.dtype, pose_0.device
     e1, e2, e3 = (torch.as_tensor(e, dtype=dt, device=dev)
                   for e in (_E1, _E2, _E3))
-    for i in range(7):
-        a, c = pose_0[i], chain_post[i]
-        out.append((a @ e1 @ c, a @ e2 @ c, a @ e3 @ c))
-    return out
+    return torch.stack([
+        torch.stack([a @ e1 @ c, a @ e2 @ c, a @ e3 @ c])
+        for a, c in zip(pose_0[:7], chain_post)])
 
 
 def forward_kinematics_batch(model: PandaModel, q: torch.Tensor,
@@ -202,14 +201,25 @@ def forward_kinematics_batch(model: PandaModel, q: torch.Tensor,
                              apply_offset: bool = True):
     """Batched FK: q [N, 9] -> poses [N, 10, 4, 4] (+ origins/axes
     [N, 10, 3] with ``return_joint_info``)."""
+    return fk_batch_tables(pqr_table(model.pose_0, model.chain_post),
+                           model.pose_0, model.center_offset, q,
+                           return_joint_info, apply_offset)
+
+
+def fk_batch_tables(pqr: torch.Tensor, pose_0: torch.Tensor,
+                    center_offset: torch.Tensor, q: torch.Tensor,
+                    return_joint_info: bool = False,
+                    apply_offset: bool = True):
+    """:func:`forward_kinematics_batch` on the model's tables (``pqr``
+    from :func:`pqr_table`): the plain version of the ``panda_fk``
+    kernel."""
     n = q.shape[0]
-    pqr = _pqr(model.pose_0, model.chain_post)
     cos_q = torch.cos(q[:, :7])
     sin_q = torch.sin(q[:, :7])
     cur = None  # [4, 4, N]
     links, origins, axes = [], [], []
     for i in range(7):
-        a = model.pose_0[i]
+        a = pose_0[i]
         p_i, q_i, r_i = pqr[i]
         b = (p_i[:, :, None] * cos_q[None, None, :, i]
              + q_i[:, :, None] * sin_q[None, None, :, i]
@@ -228,13 +238,13 @@ def forward_kinematics_batch(model: PandaModel, q: torch.Tensor,
             cur = _mm4_lanes(cur, b)
         links.append(cur)
 
-    hand = _mm4_const_lanes(links[6], model.pose_0[7])
+    hand = _mm4_const_lanes(links[6], pose_0[7])
     # the finger offsets out of place (exact: the other entries add 0), so
     # torch.func.vmap can batch the FK over scenes
     e13 = torch.zeros(4, 4, 1, dtype=q.dtype, device=q.device)
     e13[1, 3] = 1.0
-    lf = model.pose_0[8][:, :, None] + e13 * q[None, None, :, 7]
-    rf = model.pose_0[9][:, :, None] + e13 * -q[None, None, :, 8]
+    lf = pose_0[8][:, :, None] + e13 * q[None, None, :, 7]
+    rf = pose_0[9][:, :, None] + e13 * -q[None, None, :, 8]
     links += [hand, _mm4_lanes(hand, lf), _mm4_lanes(hand, rf)]
 
     if return_joint_info:
@@ -243,7 +253,7 @@ def forward_kinematics_batch(model: PandaModel, q: torch.Tensor,
         axes += [torch.zeros_like(hand_rot_y), hand_rot_y, -hand_rot_y]
 
     if apply_offset:
-        links = [_mm4_const_lanes(links[j], model.center_offset[j])
+        links = [_mm4_const_lanes(links[j], center_offset[j])
                  for j in range(NUM_LINKS)]
     out = torch.stack(links).permute(3, 0, 1, 2)     # [N, 10, 4, 4]
     if return_joint_info:
@@ -272,7 +282,13 @@ def collision_point_positions(model: PandaModel,
                               poses: torch.Tensor) -> torch.Tensor:
     """Transform body points by link poses: [.., 10, 4, 4] -> [.., 10, P, 3]
     (three broadcast multiply-adds, summed in the JAX package's order)."""
-    pts = model.collision_points  # [10, P, 3]
+    return points_at(model.collision_points, poses)
+
+
+def points_at(pts: torch.Tensor, poses: torch.Tensor) -> torch.Tensor:
+    """Body points ``pts [10, P, 3]`` moved by link poses ``[.., 10, 4,
+    4]``: the body-point half of the ``panda_fk`` kernel's plain
+    version."""
     r = poses[..., :3, :3]
     t = poses[..., None, :3, 3]
     x = 0

@@ -102,8 +102,8 @@ def forward_kinematics_obstacle(model, scene, params: CostParams,
     Returns (x, v, a_ws, jac, potentials, grads, collide_count) with
     x/v/a_ws [T, L, P, 3], jac [T, L, P, D, 3], potentials [T, L, P]."""
     t_dim = xi.shape[0]
-    poses, origins_w, axes_w = model_api.fk_with_joint_info_batch(model, xi)
-    x = model_api.point_positions(model, poses)  # [T, L, P, 3]
+    _, origins_w, axes_w, x = model_api.fk_points(model, xi,
+                                                  joint_info=True)
     p = x.shape[2]
     if world_field is not None:
         pot, grad, collide = world_field_query(world_field, x.reshape(-1, 3))
@@ -126,8 +126,7 @@ def forward_kinematics_obstacle(model, scene, params: CostParams,
         collide = collide * (1.0 - fmask)[None, :, None]
 
     jac = model_api.point_jacobians(model, origins_w, axes_w, x)
-    x_start = model_api.point_positions(model, model_api.fk_one(model, start))
-    x_end = model_api.point_positions(model, model_api.fk_one(model, end))
+    x_start, x_end = model_api.end_points(model, start, end)
     xs = torch.movedim(x, 0, 2)  # [10, P, T, 3]
     v = get_derivative(hp, xs, x_start, x_end, 1)
     a_ws = get_derivative(hp, xs, x_start, x_end, 2)

@@ -20,6 +20,24 @@ Kernels:
   Pallas counterpart (the JAX package runs that ``lax.scan`` in XLA on the
   host CPU); its plain version is ``physics/rigid.py::rollout_plain``, and
   ``physics/rigid.py::rollout`` picks one or the other by device.
+* :func:`panda_fk` (``csrc/panda_fk.cu``) — batched Panda forward
+  kinematics with the joint origins and axes and, fused, the body points;
+  the planner's FK (``models/api.py`` routes a ``PandaModel`` here).  Its
+  plain version is ``models/panda.py::fk_batch_tables`` then
+  ``points_at``.
+* :func:`sdf_query` (``csrc/sdf_query.cu``) — the collision query (hinge
+  potentials, world gradients, collision counts) of world points against
+  an analytic or a baked scene; ``ops/sdf.py::sdf_potentials_analytic``
+  and ``sdf_potentials_baked`` route here.  Its plain versions are
+  ``sdf_potentials_analytic_plain`` and ``sdf_potentials_baked_plain``.
+
+Neither of the last two has a Pallas counterpart: the JAX package leaves
+both to XLA.  Both are ``torch.library`` custom operators, so the scene
+batches' ``torch.func.vmap`` reaches them: their CPU implementation is the
+plain version, their CUDA implementation the launch, and a vmap rule folds
+the mapped axis into the kernel's own batch axis (configurations for
+``panda_fk``, scene rows for ``sdf_query``).  Neither has a gradient:
+backward through them raises.
 """
 
 from __future__ import annotations
@@ -27,10 +45,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
 import torch
+from torch import Tensor
+
+from ..models import panda
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -56,6 +78,11 @@ _LIBS = {
         "omg_rigid_rollout": _ROLLOUT_ARGS}),
     "rigid_rollout_cycles": ("rigid_rollout.cu", ("-DOMG_ROLLOUT_CYCLES",), {
         "omg_rigid_rollout_cycles": _ROLLOUT_ARGS}),
+    "panda_fk": ("panda_fk.cu", (), {"omg_panda_fk": _ROLLOUT_ARGS}),
+    "sdf_query": ("sdf_query.cu", (), {
+        name: [ctypes.POINTER(ctypes.c_void_p),
+               ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+        for name in ("omg_sdf_query_analytic", "omg_sdf_query_baked")}),
 }
 _ENTRIES: dict = {}
 
@@ -69,11 +96,29 @@ def _nvcc() -> str:
     return path
 
 
+def _sources(src: str) -> list:
+    """``src`` and every header of ``csrc/`` that it includes, directly or
+    through another header, in the order first met."""
+    out, todo = [], [src]
+    while todo:
+        name = todo.pop(0)
+        if name in out:
+            continue
+        out.append(name)
+        with open(os.path.join(CSRC, name)) as f:
+            todo += re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(),
+                               re.MULTILINE)
+    return out
+
+
 def _lib_path(lib: str) -> str:
+    """The library's file: named by the hash of its source, the headers it
+    includes and the flags, so an edit to any of them rebuilds it."""
     src, flags, _ = _LIBS[lib]
-    with open(os.path.join(CSRC, src), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(
-            NVCC_FLAGS + list(flags)).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + list(flags)).encode())
+    for name in _sources(src):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{lib}_{digest.hexdigest()[:16]}.so")
 
 
@@ -353,5 +398,334 @@ def rigid_rollout_cycles(*args, **kw):
     return final, traces, cyc
 
 
+# -- panda_fk ----------------------------------------------------------------
+
+FK_LINKS = panda.NUM_LINKS
+
+
+def panda_fk_plain(q, pqr, pose_0, center_offset, points,
+                   apply_offset: bool = True, with_points: bool = True):
+    """Plain version of the ``panda_fk`` kernel, on the arguments of its
+    operator: ``models/panda.py::fk_batch_tables``, then ``points_at``
+    when ``with_points`` (else x has P = 0)."""
+    poses, og, ax = panda.fk_batch_tables(pqr, pose_0, center_offset, q,
+                                          True, apply_offset)
+    x = (panda.points_at(points, poses) if with_points
+         else q.new_zeros(q.shape[0], FK_LINKS, 0, 3))
+    return poses, og, ax, x
+
+
+@torch.library.custom_op("omg_torch::panda_fk", mutates_args=(),
+                         device_types="cpu")
+def _panda_fk_op(q: Tensor, pqr: Tensor, pose_0: Tensor,
+                 center_offset: Tensor, points: Tensor, apply_offset: bool,
+                 with_points: bool) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """CPU: :func:`panda_fk_plain`; CUDA: the launch."""
+    return panda_fk_plain(q, pqr, pose_0, center_offset, points,
+                          apply_offset, with_points)
+
+
+@_panda_fk_op.register_fake
+def _panda_fk_fake(q, pqr, pose_0, center_offset, points, apply_offset,
+                   with_points):
+    n, p = q.shape[0], points.shape[1] if with_points else 0
+    return (q.new_empty(n, FK_LINKS, 4, 4), q.new_empty(n, FK_LINKS, 3),
+            q.new_empty(n, FK_LINKS, 3), q.new_empty(n, FK_LINKS, p, 3))
+
+
+def _checked(name: str, t: Tensor, device, dtype, shape) -> Tensor:
+    """``t``, after checking that it has ``dtype``, lies on ``device`` and
+    has ``shape`` (None: any size); raises on anything else."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.ndim != len(shape) or any(
+            w is not None and w != n for w, n in zip(shape, t.shape)):
+        raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    return t
+
+
+def _f32_on(name: str, t: Tensor, device, shape) -> Tensor:
+    """``t`` as the kernel reads it: float32, on ``device``, of ``shape``,
+    contiguous."""
+    return _checked(name, t, device, torch.float32, shape).contiguous()
+
+
+def _stream(dev) -> int:
+    with torch.cuda.device(dev):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def _panda_fk_pack(q, pqr, pose_0, center_offset, points, apply_offset,
+                   with_points):
+    """Check and lay out the C entry point's arguments: (tensors to keep
+    alive, (poses, origins, axes, x), the 9 pointers, the 4 ints)."""
+    dev = q.device
+    q = _f32_on("q", q, dev, (None, 9))
+    n, p = q.shape[0], points.shape[1]
+    keep = [q, _f32_on("pqr", pqr, dev, (7, 3, 4, 4)),
+            _f32_on("pose_0", pose_0, dev, (FK_LINKS, 4, 4)),
+            _f32_on("center_offset", center_offset, dev, (FK_LINKS, 4, 4)),
+            _f32_on("points", points, dev, (FK_LINKS, None, 3))]
+    if n * FK_LINKS * max(16, 3 * p) >= 2**31:
+        raise ValueError("panda_fk: more than 2^31 output values")
+    outs = (torch.empty(n, FK_LINKS, 4, 4, dtype=torch.float32, device=dev),
+            torch.empty(n, FK_LINKS, 3, dtype=torch.float32, device=dev),
+            torch.empty(n, FK_LINKS, 3, dtype=torch.float32, device=dev),
+            torch.empty(n, FK_LINKS, p if with_points else 0, 3,
+                        dtype=torch.float32, device=dev))
+    ptrs = (ctypes.c_void_p * 9)(*[t.data_ptr() for t in keep + list(outs)])
+    dims = (ctypes.c_int * 4)(n, p, int(apply_offset), int(with_points))
+    return keep, outs, ptrs, dims
+
+
+@_panda_fk_op.register_kernel("cuda")
+def _panda_fk_cuda(q, pqr, pose_0, center_offset, points, apply_offset,
+                   with_points):
+    keep, outs, ptrs, dims = _panda_fk_pack(q, pqr, pose_0, center_offset,
+                                            points, apply_offset, with_points)
+    if dims[0] == 0:
+        return outs
+    status = _entry("panda_fk", "omg_panda_fk")(ptrs, dims,
+                                                _stream(q.device))
+    del keep  # the stream orders any reuse of these blocks after the launch
+    if status != 0:
+        raise RuntimeError(f"panda_fk launch failed: CUDA error {status}")
+    panda_fk.launches += 1
+    return outs
+
+
+def _panda_fk_vmap(info, in_dims, q, pqr, pose_0, center_offset, points,
+                   apply_offset, with_points):
+    """vmap rule: the mapped axis of ``q`` folds into the configurations
+    (one launch); the model's tables must not be mapped."""
+    if any(d is not None for d in in_dims[1:5]):
+        raise ValueError("panda_fk under vmap: the model's tables must be "
+                         "the same for every mapped row")
+    args = (pqr, pose_0, center_offset, points, apply_offset, with_points)
+    if in_dims[0] is None:
+        return _panda_fk_op(q, *args), (None,) * 4
+    q = q.movedim(in_dims[0], 0)
+    s, n = q.shape[:2]
+    out = _panda_fk_op(q.reshape(s * n, q.shape[-1]), *args)
+    return tuple(o.reshape(s, n, *o.shape[1:]) for o in out), (0,) * 4
+
+
+_panda_fk_op.register_vmap(_panda_fk_vmap)
+
+
+def panda_fk(q: Tensor, pose_0: Tensor, chain_post: Tensor,
+             center_offset: Tensor, points: Tensor, apply_offset: bool = True,
+             with_points: bool = True):
+    """Panda FK of configurations ``q [N, 9]`` on the model's tables (a
+    ``PandaModel``'s fields): (link poses [N, 10, 4, 4] (mesh-centre frames
+    when ``apply_offset``), world joint origins [N, 10, 3], axes [N, 10,
+    3], body points of ``points [10, P, 3]`` [N, 10, P, 3] (P = 0 unless
+    ``with_points``)).  The kernel for CUDA tensors (one launch), the
+    plain version for CPU tensors; under ``torch.func.vmap`` one call for
+    every mapped row."""
+    return _panda_fk_op(q, panda.pqr_table(pose_0, chain_post), pose_0,
+                        center_offset, points, apply_offset, with_points)
+
+
+panda_fk.launches = 0
+
+
+# -- sdf_query ---------------------------------------------------------------
+
+def sdf_query_plain(scene, inv_poses, points, epsilons, padding_scales,
+                    clearances, disables):
+    """Plain version of the ``sdf_query`` kernel for one scene row, on the
+    arguments of :func:`sdf_query`: ``ops/sdf.py``'s
+    ``sdf_potentials_baked_plain`` or ``sdf_potentials_analytic_plain``."""
+    from . import sdf
+
+    plain = (sdf.sdf_potentials_baked_plain
+             if isinstance(scene, sdf.BakedSceneSDF)
+             else sdf.sdf_potentials_analytic_plain)
+    return plain(scene, inv_poses, points, epsilons, padding_scales,
+                 clearances, disables)
+
+
+def _sdf_query_rows(scene_of, row_args, scene_args):
+    """:func:`sdf_query_plain` over B scene rows, one row at a time."""
+    outs = [sdf_query_plain(scene_of(*(t[b] for t in scene_args)),
+                            *(t[b] for t in row_args))
+            for b in range(row_args[0].shape[0])]
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+@torch.library.custom_op("omg_torch::sdf_query_analytic", mutates_args=(),
+                         device_types="cpu")
+def _sdf_analytic_op(inv_poses: Tensor, points: Tensor, epsilons: Tensor,
+                     padding_scales: Tensor, clearances: Tensor,
+                     disables: Tensor, kinds: Tensor, halfs: Tensor,
+                     penals: Tensor, rounds: Tensor
+                     ) -> tuple[Tensor, Tensor, Tensor]:
+    """CPU: :func:`sdf_query_plain` of each scene row; CUDA: the
+    launch."""
+    from .sdf import AnalyticScene
+
+    return _sdf_query_rows(
+        AnalyticScene,
+        (inv_poses, points, epsilons, padding_scales, clearances, disables),
+        (kinds, halfs, penals, rounds))
+
+
+@torch.library.custom_op("omg_torch::sdf_query_baked", mutates_args=(),
+                         device_types="cpu")
+def _sdf_baked_op(inv_poses: Tensor, points: Tensor, epsilons: Tensor,
+                  padding_scales: Tensor, clearances: Tensor,
+                  disables: Tensor, data4: Tensor, limits: Tensor
+                  ) -> tuple[Tensor, Tensor, Tensor]:
+    """CPU: :func:`sdf_query_plain` of each scene row; CUDA: the
+    launch."""
+    from .sdf import BakedSceneSDF
+
+    return _sdf_query_rows(
+        BakedSceneSDF,
+        (inv_poses, points, epsilons, padding_scales, clearances, disables),
+        (data4, limits))
+
+
+def _sdf_fake(inv_poses, points, *rest):
+    b, p = points.shape[:2]
+    return (points.new_empty(b, p), points.new_empty(b, p, 3),
+            points.new_empty(b, p))
+
+
+_sdf_analytic_op.register_fake(_sdf_fake)
+_sdf_baked_op.register_fake(_sdf_fake)
+
+
+def _rows(name: str, t: Tensor, device, dtype, shape) -> tuple:
+    """(tensor, scene-axis stride in elements) of an input ``[B, ...]``
+    as the kernel reads it: each row contiguous, rows ``stride`` apart (0
+    where one row is shared, as an ``expand`` leaves it)."""
+    t = _checked(name, t, device, dtype, shape)
+    if t.shape[0] > 1 and t.stride(0) == 0 and t[0].is_contiguous():
+        return t, 0
+    t = t.contiguous()
+    return t, t.stride(0) if t.shape[0] > 1 else 0
+
+
+def _sdf_query_pack(row_args, scene_args):
+    """Check and lay out the C entry point's arguments for either form
+    (``scene_args``: kinds, halfs, penals, rounds of the analytic form, or
+    data4, limits of the baked one, each ``[B, O, ...]``): (tensors to
+    keep alive, (pot, grad, collide), the 15 pointers, the 16 sizes and
+    strides)."""
+    inv_poses, points = row_args[:2]
+    dev = points.device
+    b, p = points.shape[:2]
+    o = inv_poses.shape[1]
+    f32 = torch.float32
+    ins = {"points": _rows("points", points, dev, f32, (b, p, 3)),
+           "inv": _rows("inv_poses", inv_poses, dev, f32, (b, o, 4, 4))}
+    for key, name, t in zip(("eps", "pad", "clr", "dis"),
+                            ("epsilons", "padding_scales", "clearances",
+                             "disables"), row_args[2:]):
+        ins[key] = _rows(name, t, dev, f32, (b, o))
+    v = 0
+    if len(scene_args) == 4:
+        for key, t, dtype, shape in zip(
+                ("kinds", "halfs", "penals", "rounds"), scene_args,
+                (torch.int32, f32, f32, f32), ((b, o), (b, o, 3), (b, o),
+                                               (b, o))):
+            ins[key] = _rows(key, t, dev, dtype, shape)
+    else:
+        data4, stride = _rows("data4", scene_args[0], dev, f32,
+                              (b, o, None, None, None, 4))
+        if data4.data_ptr() % 16:     # read as float4
+            data4 = data4.clone()
+        v = data4[0, 0].numel() // 4
+        ins["grid"] = (data4, stride // 4)
+        ins["limits"] = _rows("limits", scene_args[1], dev, f32, (b, o, 10))
+    if b * p >= 2**31:
+        raise ValueError("sdf_query: more than 2^31 points")
+    outs = (torch.empty(b, p, dtype=f32, device=dev),
+            torch.empty(b, p, 3, dtype=f32, device=dev),
+            torch.empty(b, p, dtype=f32, device=dev))
+    order = ("points", "inv", "eps", "pad", "clr", "dis", "kinds", "halfs",
+             "penals", "rounds", "grid", "limits")
+    got = [ins.get(k, (None, 0)) for k in order]
+    ptrs = (ctypes.c_void_p * 15)(
+        *[0 if t is None else t.data_ptr() for t, _ in got],
+        *[t.data_ptr() for t in outs])
+    dims = (ctypes.c_longlong * 16)(b, p, o, v, *[st for _, st in got])
+    return [t for t, _ in got], outs, ptrs, dims
+
+
+def _sdf_query_cuda(entry, row_args, scene_args):
+    keep, outs, ptrs, dims = _sdf_query_pack(row_args, scene_args)
+    if dims[0] * dims[1] == 0:
+        return outs
+    status = _entry("sdf_query", entry)(ptrs, dims,
+                                        _stream(row_args[1].device))
+    del keep  # the stream orders any reuse of these blocks after the launch
+    if status != 0:
+        raise RuntimeError(f"sdf_query launch failed: CUDA error {status}")
+    sdf_query.launches += 1
+    return outs
+
+
+@_sdf_analytic_op.register_kernel("cuda")
+def _sdf_analytic_cuda(inv_poses, points, epsilons, padding_scales,
+                       clearances, disables, kinds, halfs, penals, rounds):
+    return _sdf_query_cuda(
+        "omg_sdf_query_analytic",
+        (inv_poses, points, epsilons, padding_scales, clearances, disables),
+        (kinds, halfs, penals, rounds))
+
+
+@_sdf_baked_op.register_kernel("cuda")
+def _sdf_baked_cuda(inv_poses, points, epsilons, padding_scales, clearances,
+                    disables, data4, limits):
+    return _sdf_query_cuda(
+        "omg_sdf_query_baked",
+        (inv_poses, points, epsilons, padding_scales, clearances, disables),
+        (data4, limits))
+
+
+def _sdf_vmap(op):
+    def rule(info, in_dims, *args):
+        """vmap rule: the mapped axis folds into the scene rows (one
+        launch); an unmapped input is shared by every row."""
+        s = info.batch_size
+        rows = [(a.expand(s, *a.shape) if d is None else a.movedim(d, 0))
+                .flatten(0, 1) for a, d in zip(args, in_dims)]
+        out = op(*rows)
+        return tuple(o.unflatten(0, (s, -1)) for o in out), (0, 0, 0)
+    return rule
+
+
+_sdf_analytic_op.register_vmap(_sdf_vmap(_sdf_analytic_op))
+_sdf_baked_op.register_vmap(_sdf_vmap(_sdf_baked_op))
+
+
+def sdf_query(scene, inv_poses: Tensor, points: Tensor, epsilons: Tensor,
+              padding_scales: Tensor, clearances: Tensor, disables: Tensor):
+    """(potentials [P], world gradients [P, 3], collision counts [P]) of
+    world points ``[P, 3]`` against every object of ``scene`` (an
+    ``AnalyticScene`` or a ``BakedSceneSDF``; ``inv_poses [O, 4, 4]``,
+    the rest ``[O]``): the kernel for CUDA tensors (one launch), the plain
+    version for CPU tensors; under ``torch.func.vmap`` one call for every
+    mapped row."""
+    from .sdf import BakedSceneSDF
+
+    rows = tuple(t[None] for t in (inv_poses, points, epsilons,
+                                   padding_scales, clearances, disables))
+    if isinstance(scene, BakedSceneSDF):
+        out = _sdf_baked_op(*rows, scene.data4[None], scene.limits[None])
+    else:
+        out = _sdf_analytic_op(*rows, scene.kinds[None], scene.halfs[None],
+                               scene.penals[None], scene.rounds[None])
+    return tuple(o[0] for o in out)
+
+
+sdf_query.launches = 0
+
 # every kernel wrapper of the package, for launch accounting
-KERNELS = {"min_dist_grid": min_dist_grid, "rigid_rollout": rigid_rollout}
+KERNELS = {"min_dist_grid": min_dist_grid, "rigid_rollout": rigid_rollout,
+           "panda_fk": panda_fk, "sdf_query": sdf_query}

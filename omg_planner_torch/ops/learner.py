@@ -209,8 +209,7 @@ def cost_vector_raw(model, scene, params: CostParams, cfg: OMGConfig,
         score_model = model._replace(
             collision_points=model.collision_points[:, ::stride, :]
             [:, :cfg.learner_collision_points, :])
-    poses = model_api.fk_batch(score_model, flat_q)
-    x_full = model_api.point_positions(score_model, poses)
+    _, x_full = model_api.fk_points(score_model, flat_q)
     n_links = model_api.num_links(score_model)
     p = x_full.shape[2]
     x_full = x_full.reshape(g, n + 2, n_links, p, 3)

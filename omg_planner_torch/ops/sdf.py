@@ -23,6 +23,11 @@ conventions are kept exactly: C-style ``trunc`` of ``pg - 0.5`` and
 out-of-volume value 1.0 in the trilinear query (``kernel.cu:37-64``), the
 ``floor`` nearest cell in the world-potential and world-field bakes and
 lookups, and out-of-grid potential 0.
+
+The analytic and the baked query run as the hand-written ``sdf_query``
+kernel on the card (``ops/kernels.py``, ``csrc/sdf_query.cu``) and as
+their plain versions here on the CPU; the exact query and the fused field
+stay in torch.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+
+from . import kernels
 
 ANALYTIC_KINDS = {"box": 0, "sphere": 1, "cylinder": 2}
 
@@ -508,7 +515,18 @@ def _hinge_and_reduce(value, grad_obj, r, epsilons, padding_scales,
 def sdf_potentials_analytic(scene: AnalyticScene, inv_poses, points,
                             epsilons, padding_scales, clearances, disables):
     """Grid-free exact query: same signature/semantics as
-    :func:`sdf_potentials` without voxelization error."""
+    :func:`sdf_potentials` without voxelization error.  The ``sdf_query``
+    kernel on the card, :func:`sdf_potentials_analytic_plain` on the
+    CPU."""
+    return kernels.sdf_query(scene, inv_poses, points, epsilons,
+                             padding_scales, clearances, disables)
+
+
+def sdf_potentials_analytic_plain(scene: AnalyticScene, inv_poses, points,
+                                  epsilons, padding_scales, clearances,
+                                  disables):
+    """The plain version of :func:`sdf_potentials_analytic` (of the
+    ``sdf_query`` kernel's analytic form)."""
     r, pts_obj = _to_object_frame(inv_poses, points)
     value, grad_obj = _analytic_sdf_grad(
         scene.kinds, scene.halfs, scene.penals, pts_obj,
@@ -637,7 +655,18 @@ def _query_one_object_baked(scene: BakedSceneSDF, o: int, pts_obj):
 
 def sdf_potentials_baked(scene: BakedSceneSDF, inv_poses, points, epsilons,
                          padding_scales, clearances, disables):
-    """Query over a pre-baked 4-channel stack (see :class:`BakedSceneSDF`)."""
+    """Query over a pre-baked 4-channel stack (see :class:`BakedSceneSDF`):
+    the ``sdf_query`` kernel on the card, :func:`sdf_potentials_baked_plain`
+    on the CPU."""
+    return kernels.sdf_query(scene, inv_poses, points, epsilons,
+                             padding_scales, clearances, disables)
+
+
+def sdf_potentials_baked_plain(scene: BakedSceneSDF, inv_poses, points,
+                               epsilons, padding_scales, clearances,
+                               disables):
+    """The plain version of :func:`sdf_potentials_baked` (of the
+    ``sdf_query`` kernel's baked form)."""
     r, pts_obj = _to_object_frame(inv_poses, points)
     value, grad_obj = _query_baked(scene, pts_obj)
     return _hinge_and_reduce(value, grad_obj, r, epsilons, padding_scales,

@@ -261,8 +261,8 @@ def _rollout_inputs(model, spec, world, pp, configs, state0, pad_center,
     """The keyword arguments of :func:`rigid.rollout` for one rollout:
     batched FK of the configuration track (fingers frozen at ``jv_ref``)
     gives the sphere and pad-frame tracks."""
-    poses = model_api.fk_batch(model, configs)           # [T, L, 4, 4]
-    x = model_api.point_positions(model, poses)          # [T, L, P, 3]
+    # poses [T, L, 4, 4], body points x [T, L, P, 3]
+    poses, x = model_api.fk_points(model, configs)
     fing = torch.as_tensor(np.repeat(model_api.finger_link_mask(model),
                                      x.shape[2]), device=configs.device)
     pad = poses[:, -2:]

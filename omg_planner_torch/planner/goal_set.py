@@ -139,8 +139,7 @@ def collision_prune(model, scene, params: CostParams, cfg: OMGConfig,
                     standoff_goals, valid):
     """Batch collision check of candidate goal configs
     (``omg/planner.py:508-539``).  Returns (valid', potentials [C])."""
-    poses = panda.forward_kinematics_batch(model, standoff_goals)
-    x = panda.collision_point_positions(model, poses)
+    _, x = model_api.fk_points(model, standoff_goals)
     c = standoff_goals.shape[0]
     p = x.shape[2]
     pot, _, collide = sdf_potentials(

@@ -59,8 +59,7 @@ def _resample(traj: np.ndarray, max_step: float) -> np.ndarray:
 def _exact_hits(model, scene_sdf, params, q_samples: torch.Tensor,
                 skip_fingers: bool) -> int:
     """Total exact-query collision count over configurations [N, D]."""
-    poses = model_api.fk_batch(model, q_samples)
-    x = model_api.point_positions(model, poses)  # [N, L, P, 3]
+    _, x = model_api.fk_points(model, q_samples)  # [N, L, P, 3]
     _, _, collide = sdf_potentials(
         scene_sdf, params.inv_poses, x.reshape(-1, 3), params.epsilons,
         params.padding_scales, torch.zeros_like(params.clearances),
