@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; no phase is skipped):
 3b. plan kernels: ``panda_fk`` against its plain version at N = 2, 30,
    544 and 1,700 (the CHOMP step's start and end, its trajectory, the
    restricted and the refresh learner sweeps; bar 1e-5) and ``sdf_query``
-   at P = 4,500, 72,000 and 225,000 points of suite scene 1 (O = 10),
+   at P = 4,500, 72,000 and 225,000 points of suite scene 1 (O = 10;
+   4,500 and 8 x 4,500 run its spread layout, the others its loop),
    analytic and baked, B = 1 and, through the vmap rule, B = 8 (suite
    scenes 0-7 padded to one object count; the baked stack shared by 8
    rows) against its plain version and the plain version in float64 (bar:
@@ -25,7 +26,9 @@ Phases (any failure exits non-zero; no phase is skipped):
    kernel's device time (50 launches in one CUDA graph, median of 5
    replays), its time through the wrapper (5 runs of 50 back-to-back
    calls), the plain version's, the wrapper's host time a call and the
-   bound;
+   bound; a fresh process's first ``panda_fk`` and ``sdf_query`` calls
+   (walls), failing if they import ``torch._dynamo``,
+   ``torch.distributed.tensor`` or ``sympy``;
 4. reference: a small plan staged on the CPU, planned on the CPU and on
    the card — same goal, same verdict, trajectories within 2e-3;
 5. the standard plan at the full ``OMGConfig()`` width on three
@@ -574,6 +577,55 @@ def _query_vs_plain(sc, inv, x, rest, what):
     return k, err, col
 
 
+#: modules a ``torch.library.custom_op`` imports on its first call (seconds
+#: of every fresh process); the plan kernels' operators must import none
+HEAVY_MODULES = ("torch._dynamo", "torch.distributed.tensor", "sympy")
+# a fresh process's first panda_fk and sdf_query calls on the card (the
+# libraries built beforehand, untimed), then a second call of each
+COLD_PROBE = """
+import json, sys, time
+import torch
+from omg_planner_torch.models import panda
+from omg_planner_torch.ops import kernels, sdf
+kernels.build(libs=["panda_fk", "sdf_query"])
+model = panda.load_panda(15, "cuda")
+q = ((model.joint_lower + model.joint_upper) / 2)[None].repeat(30, 1)
+scene = sdf.AnalyticScene(
+    kinds=torch.zeros(1, dtype=torch.int32, device="cuda"),
+    halfs=torch.full((1, 3), 0.1, device="cuda"),
+    penals=torch.ones(1, device="cuda"), rounds=torch.zeros(1, device="cuda"))
+inv = torch.eye(4, device="cuda")[None]
+rest = [torch.full((1,), v, device="cuda") for v in (0.2, 1.0, 0.0, 0.0)]
+torch.cuda.synchronize()
+out = {}
+for call in ("first", "second"):
+    t0 = time.perf_counter()
+    x = kernels.panda_fk(q, model.pose_0, model.chain_post,
+                         model.center_offset, model.collision_points)[3]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    kernels.sdf_query(scene, inv, x.reshape(-1, 3), *rest)
+    torch.cuda.synchronize()
+    out[call] = [t1 - t0, time.perf_counter() - t1]
+out["heavy"] = sorted(m for m in %r if m in sys.modules)
+print(json.dumps(out))
+""" % (HEAVY_MODULES,)
+
+
+def cold_start(root: str = ROOT) -> dict:
+    """:data:`COLD_PROBE` in a fresh interpreter on the checkout ``root``:
+    {"first": [panda_fk s, sdf_query s], "second": [...], "heavy": [the
+    modules of :data:`HEAVY_MODULES` it imported]}."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", COLD_PROBE], cwd=root,
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cold-start probe failed:\n{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def _in_limits(model, n: int, gen) -> torch.Tensor:
     lo, hi = model.joint_lower.cpu(), model.joint_upper.cpu()
     return (lo + (hi - lo) * torch.rand(n, 9, generator=gen)).to(
@@ -784,6 +836,14 @@ def phase_plan_kernels(dev):
                             share_of_bound=bound / ms, sm_clock_mhz=sm))
     log(f"sdf_query: collide differs at {worst_col:.2e} of the points at "
         "most")
+    cold = cold_start()
+    log(f"plan kernels cold start (a fresh process): first panda_fk "
+        f"{cold['first'][0]:.4f} s, first sdf_query {cold['first'][1]:.4f} "
+        f"s, second {cold['second'][0]:.4f} s and {cold['second'][1]:.4f} "
+        f"s; imported {cold['heavy'] or 'none'} of {list(HEAVY_MODULES)}")
+    if cold["heavy"]:
+        raise AssertionError(f"the plan kernels' first calls import "
+                             f"{cold['heavy']}")
     return entries
 
 

@@ -10,8 +10,10 @@
 // A launch runs its blocks one after another, each on the calling thread:
 // every CUDA thread of the block is a fiber (ucontext) with its own stack,
 // and a small scheduler runs the fibers that are not waiting.
-// __syncthreads waits for the whole block, __syncwarp for the warp; a warp
-// shuffle or vote writes the fiber's value to a per-warp slot, waits for
+// __syncthreads waits for the whole block, __syncwarp for the warp; a
+// block's static __shared__ arrays are one instance that every fiber sees.
+// A warp shuffle (xor or broadcast, within the warp or a segment of it) or
+// vote writes the fiber's value to a per-warp slot, waits for
 // the warp and reads its partner's slot.  Two slot buffers alternate, so
 // one wait a shuffle is enough: a fiber writes a buffer again only after
 // the whole warp passed the wait of the shuffle in between, that is after
@@ -40,6 +42,9 @@
 #define __forceinline__ inline
 #define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
+// a block's static shared memory: one instance for every fiber (blocks run
+// one after another, and a kernel never reads what it did not write)
+#define __shared__ static
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
@@ -143,6 +148,12 @@ inline void __syncwarp(unsigned = 0xffffffffu) { emu::wait_at(emu::my_warp()); }
 
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
   return emu::exchange(v, static_cast<int>(threadIdx.x & 31) ^ mask);
+}
+
+// lane src of the caller's segment of ``width`` lanes (a power of two)
+inline float __shfl_sync(unsigned, float v, int src, int width = 32) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  return emu::exchange(v, (lane & ~(width - 1)) | (src & (width - 1)));
 }
 
 inline int __any_sync(unsigned, int pred) {

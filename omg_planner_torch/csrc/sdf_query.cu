@@ -21,15 +21,30 @@
 // against 12 bytes in and 20 out a point), and the launch at the step's
 // small P.
 //
-// Layout: one thread per (scene row, point), 256 a block.  The thread
-// moves its point into each object's frame in index order, evaluates the
-// penalised SDF and its gradient there (sdf_point.cuh, shared with
-// rigid_rollout.cu), applies the hinge, rotates the gradient back with
-// R^T and adds the object's terms, masked by its ``disables``, to its own
-// sums.  No atomics (the reference adds with one atomicAdd a (point,
-// object) pair, in an order that changes from run to run): the sums run
-// in object order, so a point's result never depends on B, on P or on
-// where it sits in the batch.
+// Two layouts of one per-pair arithmetic (pair_terms), picked by the
+// number of 32-point tiles, B ceil(P / 32):
+// * spread, below kSpreadTiles: the (point, object) pairs spread over the
+//   card.  A block takes 32 points of one scene row and min(O, kMaxWarps)
+//   warps; warp w evaluates object w (then w + warps, ... when O is
+//   larger) for the 32 points, one a lane, so every lane of a warp has the
+//   same primitive kind and reads the same object data (one broadcast load
+//   a value).  It writes the object's masked terms (pv keep, keep R^T go,
+//   hit keep) to shared memory; after one barrier each point's five sums
+//   take the terms in object order, one (sum, point) a thread.  The step's
+//   P = 4,500 and O = 10 spread over 141 blocks of 320 threads (one thread
+//   a point: 18 blocks);
+// * loop, from kSpreadTiles on (the learner sweeps, 72,000 points and
+//   more): a thread a point walks the objects in order with its sums in
+//   registers.  There the points alone fill the card, and the loop, with
+//   no barrier and no shared memory, measured faster than the spread
+//   layout (scripts/sdf_query_layouts.py times both at the plan's shapes).
+// Each pair's terms are computed by the same code in both, and both sum
+// them in object order: no atomics (the reference adds with one atomicAdd
+// a (point, object) pair, in an order that changes from run to run), so a
+// point's result never depends on B, on P, on the layout or on where it
+// sits in the batch.  The pair's work: the point moved into the object's
+// frame, the penalised SDF and its gradient there (sdf_point.cuh, shared
+// with rigid_rollout.cu), the hinge, the gradient rotated back with R^T.
 //
 // Every input has a leading scene axis whose stride the caller gives (0:
 // one row shared by every scene), so the scene tensors of an unbatched
@@ -42,7 +57,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxWarps = 16;  // warps a block, one an object
+constexpr int kSums = 5;       // potential, gradient (3), collisions
 
 struct Ptrs {
   const float* points;   // [B, P, 3] world points
@@ -72,57 +88,122 @@ struct Dims {
 };
 constexpr int kDims = 16;
 
+constexpr int kLoopThreads = 256;
+#ifndef OMG_SDF_SPREAD_TILES  // a measurement build may move the switch
+#define OMG_SDF_SPREAD_TILES 2048
+#endif
+// tiles of 32 points from which the loop layout takes over (65,536 points)
+constexpr long long kSpreadTiles = OMG_SDF_SPREAD_TILES;
+
+// Object o's terms at world point x of scene row b, ``stride`` apart in
+// t: the masked potential, world gradient and collision count.
 template <bool kBaked>
-__global__ void __launch_bounds__(kThreads) sdf_query_kernel(Ptrs A, Dims D) {
+__device__ __forceinline__ void pair_terms(const Ptrs& A, const Dims& D,
+                                           long long b, int o, V3 x,
+                                           float* t, int stride) {
+  const float* m = A.inv + b * D.s_inv + o * 16;
+  const V3 po = v3(m[0] * x.x + m[1] * x.y + m[2] * x.z + m[3],
+                   m[4] * x.x + m[5] * x.y + m[6] * x.z + m[7],
+                   m[8] * x.x + m[9] * x.y + m[10] * x.z + m[11]);
+  SdfG s;
+  if (kBaked) {
+    s = grid_sdf_grad(A.grid + b * D.s_grid + o * D.V,
+                      A.limits + b * D.s_limits + o * 10, po);
+  } else {
+    s = analytic_sdf_grad(A.kinds[b * D.s_kinds + o],
+                          load3(A.halfs + b * D.s_halfs + o * 3),
+                          A.penals[b * D.s_penals + o],
+                          A.rounds[b * D.s_rounds + o], po);
+  }
+  // the hinge (ops/sdf.py::_hinge)
+  const float e = A.eps[b * D.s_eps + o], pd = A.pad[b * D.s_pad + o];
+  float pv = 0.f, gs = 0.f;
+  if (s.d <= 0.f) {
+    pv = -s.d + 0.5f * e;
+    gs = -1.f;
+  } else if (s.d <= e) {
+    const float u = s.d - e;
+    pv = u * u / (2.f * e) * pd;
+    gs = u / e * pd;
+  }
+  const V3 go = gs * s.g;
+  const V3 gw = v3(m[0] * go.x + m[4] * go.y + m[8] * go.z,  // R^T go
+                   m[1] * go.x + m[5] * go.y + m[9] * go.z,
+                   m[2] * go.x + m[6] * go.y + m[10] * go.z);
+  const float keep = A.dis[b * D.s_dis + o] <= 0.f ? 1.f : 0.f;
+  const float hit = s.d < A.clr[b * D.s_clr + o] ? 1.f : 0.f;
+  t[0] = pv * keep;
+  t[stride] = keep * gw.x;
+  t[2 * stride] = keep * gw.y;
+  t[3 * stride] = keep * gw.z;
+  t[4 * stride] = hit * keep;
+}
+
+// Point g's five sums into the outputs.
+__device__ __forceinline__ void store_sum(const Ptrs& A, long long g, int sum,
+                                          float v) {
+  if (sum == 0)
+    A.pot[g] = v;
+  else if (sum < 4)
+    A.grad[g * 3 + sum - 1] = v;
+  else
+    A.collide[g] = v;
+}
+
+// The spread layout.  Grid: B x tiles blocks (scene row major), 32 x
+// min(O, kMaxWarps) threads.
+template <bool kBaked>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    sdf_spread_kernel(Ptrs A, Dims D, unsigned tiles) {
+  __shared__ float terms[kMaxWarps * kSums * 32];  // [warp, sum, point]
+  __shared__ float acc[kSums * 32];                // [sum, point]
+  const int warps = blockDim.x / 32, w = threadIdx.x / 32,
+            lane = threadIdx.x % 32, nt = blockDim.x;
+  const unsigned row = blockIdx.x / tiles;
+  const long long b = row;
+  const long long p0 = static_cast<long long>(blockIdx.x - row * tiles) * 32;
+  const int n_here = D.P - p0 < 32 ? static_cast<int>(D.P - p0) : 32;
+  // a ragged tile's spare lanes repeat its first point and store nothing
+  const V3 x = load3(A.points + b * D.s_points +
+                     (p0 + (lane < n_here ? lane : 0)) * 3);
+  // each (sum, point) has one owner thread, the same on every pass
+  for (int i = threadIdx.x; i < kSums * 32; i += nt) acc[i] = 0.f;
+  for (int o0 = 0; o0 < D.O; o0 += warps) {
+    if (o0 + w < D.O)
+      pair_terms<kBaked>(A, D, b, o0 + w, x, terms + w * kSums * 32 + lane,
+                         32);
+    __syncthreads();
+    const int n_obj = D.O - o0 < warps ? static_cast<int>(D.O - o0) : warps;
+    for (int i = threadIdx.x; i < kSums * 32; i += nt) {
+      float a = acc[i];
+      for (int r = 0; r < n_obj; ++r) a += terms[r * kSums * 32 + i];
+      acc[i] = a;
+    }
+    __syncthreads();  // the terms are read before the next objects' land
+  }
+  for (int i = threadIdx.x; i < kSums * 32; i += nt)
+    if (i % 32 < n_here) store_sum(A, b * D.P + p0 + i % 32, i / 32, acc[i]);
+}
+
+// The loop layout: a thread a (scene row, point).
+template <bool kBaked>
+__global__ void __launch_bounds__(kLoopThreads)
+    sdf_loop_kernel(Ptrs A, Dims D) {
   const long long i =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+      static_cast<long long>(blockIdx.x) * kLoopThreads + threadIdx.x;
   if (i >= D.B * D.P) return;
   const long long b = i / D.P, p = i % D.P;
   const V3 x = load3(A.points + b * D.s_points + p * 3);
-  float pot = 0.f, col = 0.f;
-  V3 g = v3(0.f, 0.f, 0.f);
+  float acc[kSums], t[kSums];
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
   for (int o = 0; o < D.O; ++o) {
-    const float* m = A.inv + b * D.s_inv + o * 16;
-    const V3 po = v3(m[0] * x.x + m[1] * x.y + m[2] * x.z + m[3],
-                     m[4] * x.x + m[5] * x.y + m[6] * x.z + m[7],
-                     m[8] * x.x + m[9] * x.y + m[10] * x.z + m[11]);
-    SdfG s;
-    if (kBaked) {
-      s = grid_sdf_grad(A.grid + b * D.s_grid + o * D.V,
-                        A.limits + b * D.s_limits + o * 10, po);
-    } else {
-      s = analytic_sdf_grad(A.kinds[b * D.s_kinds + o],
-                            load3(A.halfs + b * D.s_halfs + o * 3),
-                            A.penals[b * D.s_penals + o],
-                            A.rounds[b * D.s_rounds + o], po);
-    }
-    // the hinge (ops/sdf.py::_hinge)
-    const float e = A.eps[b * D.s_eps + o], pd = A.pad[b * D.s_pad + o];
-    float pv = 0.f, gs = 0.f;
-    if (s.d <= 0.f) {
-      pv = -s.d + 0.5f * e;
-      gs = -1.f;
-    } else if (s.d <= e) {
-      const float u = s.d - e;
-      pv = u * u / (2.f * e) * pd;
-      gs = u / e * pd;
-    }
-    const V3 go = gs * s.g;
-    const V3 gw = v3(m[0] * go.x + m[4] * go.y + m[8] * go.z,  // R^T go
-                     m[1] * go.x + m[5] * go.y + m[9] * go.z,
-                     m[2] * go.x + m[6] * go.y + m[10] * go.z);
-    const float keep = A.dis[b * D.s_dis + o] <= 0.f ? 1.f : 0.f;
-    const float hit = s.d < A.clr[b * D.s_clr + o] ? 1.f : 0.f;
-    pot += pv * keep;
-    g = g + keep * gw;
-    col += hit * keep;
+    pair_terms<kBaked>(A, D, b, o, x, t, 1);
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) acc[k] += t[k];
   }
-  A.pot[i] = pot;
-  float* gd = A.grad + i * 3;
-  gd[0] = g.x;
-  gd[1] = g.y;
-  gd[2] = g.z;
-  A.collide[i] = col;
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) store_sum(A, i, k, acc[k]);
 }
 
 template <bool kBaked>
@@ -135,16 +216,30 @@ int launch(void* const* ptrs, const long long* dims, void* stream) {
   for (int k = 0; k < kDims; ++k) d[k] = dims[k];
   const long long n = D.B * D.P;
   if (n <= 0) return 0;
-  const long long blocks = (n + kThreads - 1) / kThreads;
+  const long long tiles = (D.P + 31) / 32;
+  const bool spread = D.B * tiles < kSpreadTiles;
+  const long long blocks =
+      spread ? D.B * tiles : (n + kLoopThreads - 1) / kLoopThreads;
   if (blocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int warps = D.O < 1 ? 1 : (D.O < kMaxWarps ? static_cast<int>(D.O)
+                                                   : kMaxWarps);
 #ifdef OMG_CUDA_EMU
   (void)stream;
-  emu::launch(sdf_query_kernel<kBaked>, static_cast<int>(blocks), kThreads,
-              0, A, D);
+  if (spread)
+    emu::launch(sdf_spread_kernel<kBaked>, static_cast<int>(blocks),
+                32 * warps, 0, A, D, static_cast<unsigned>(tiles));
+  else
+    emu::launch(sdf_loop_kernel<kBaked>, static_cast<int>(blocks),
+                kLoopThreads, 0, A, D);
 #else
-  sdf_query_kernel<kBaked><<<static_cast<unsigned>(blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(A, D);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (spread)
+    sdf_spread_kernel<kBaked><<<static_cast<unsigned>(blocks), 32 * warps, 0,
+                                s>>>(A, D, static_cast<unsigned>(tiles));
+  else
+    sdf_loop_kernel<kBaked><<<static_cast<unsigned>(blocks), kLoopThreads, 0,
+                              s>>>(A, D);
 #endif
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,17 +32,18 @@ Kernels:
   ``sdf_potentials_analytic_plain`` and ``sdf_potentials_baked_plain``.
 
 Neither of the last two has a Pallas counterpart: the JAX package leaves
-both to XLA.  Both are ``torch.library`` custom operators, so the scene
-batches' ``torch.func.vmap`` reaches them: their CPU implementation is the
-plain version, their CUDA implementation the launch, and a vmap rule folds
-the mapped axis into the kernel's own batch axis (configurations for
-``panda_fk``, scene rows for ``sdf_query``).  Neither has a gradient:
-backward through them raises.
+both to XLA.  Both are operators of the ``omg_torch`` namespace of a
+``torch.library.Library``, so the scene batches' ``torch.func.vmap``
+reaches them: their CPU kernel is the plain version, their CUDA kernel the
+launch, and a vmap rule folds the mapped axis into the kernel's own batch
+axis (configurations for ``panda_fk``, scene rows for ``sdf_query``).
+Neither has a gradient: a call on an input that requires grad raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -165,6 +166,11 @@ def _entry(lib: str, name: str):
     return fn
 
 
+def _stream(dev) -> int:
+    """PyTorch's current stream on CUDA device ``dev``."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _check_points(name: str, t: torch.Tensor, device):
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -207,10 +213,8 @@ def min_dist_grid(grid: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
         raise ValueError("min_dist_grid: more than 2^31 coordinates")
     fn = _entry("min_dist_grid", "omg_min_dist_grid")
     out = torch.empty(g, dtype=torch.float32, device=grid.device)
-    with torch.cuda.device(grid.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(grid.data_ptr(), points.data_ptr(), out.data_ptr(),
-                    g, n, stream)
+    status = fn(grid.data_ptr(), points.data_ptr(), out.data_ptr(), g, n,
+                _stream(grid.device))
     if status != 0:
         raise RuntimeError(f"min_dist_grid launch failed: CUDA error {status}")
     min_dist_grid.launches += 1
@@ -350,9 +354,7 @@ def _launch_rollout(lib: str, name: str, args, kw, cycles: bool = False):
         ptrs = (ctypes.c_void_p * (len(ptrs) + 1))(*ptrs,
                                                    out_cyc.data_ptr())
     fn = _entry(lib, name)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(ptrs, dims, stream)
+    status = fn(ptrs, dims, _stream(dev))
     del keep  # the stream orders any reuse of these blocks after the launch
     if status != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {status}")
@@ -398,6 +400,68 @@ def rigid_rollout_cycles(*args, **kw):
     return final, traces, cyc
 
 
+# -- the plan kernels' operators ----------------------------------------------
+#
+# ``panda_fk`` and ``sdf_query`` are operators of one ``torch.library``
+# namespace, so the scene batches' ``torch.func.vmap`` reaches them: the CPU
+# key runs the plain version, the CUDA key the launch, a vmap rule folds the
+# mapped axis into one launch, and the Autograd key raises on an input that
+# requires grad (neither has a gradient) and otherwise passes the call on.
+# They are registered on a ``Library`` directly, not as ``custom_op``s,
+# whose first call imports ``torch._dynamo``, ``sympy`` and
+# ``torch.distributed.tensor`` (seconds in every fresh process) and whose
+# dispatch costs more host time a call.
+
+_LIB = torch.library.Library("omg_torch", "DEF")
+
+
+def _no_autograd(op):
+    """The Autograd kernel of ``op``: raises when grad mode is on and an
+    input requires grad, else runs ``op`` below autograd."""
+    def kernel(*args):
+        if torch.is_grad_enabled() and any(
+                isinstance(a, Tensor) and a.requires_grad for a in args):
+            raise RuntimeError(f"{op}: the kernel has no autograd formula "
+                               "(no gradient flows through it)")
+        with torch._C._AutoDispatchBelowAutograd():
+            return op(*args)
+    return kernel
+
+
+def _define(schema: str, cpu, cuda, vmap_rule):
+    """Define ``omg_torch::<schema>`` with its CPU, CUDA and Autograd
+    kernels and its vmap rule (``vmap_rule(op)``); returns the
+    operator."""
+    name = schema.split("(")[0]
+    _LIB.define(schema)
+    op = getattr(torch.ops.omg_torch, name).default
+    _LIB.impl(name, cpu, "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    _LIB.impl(name, _no_autograd(op), "Autograd")
+    torch.library.register_vmap(f"omg_torch::{name}", vmap_rule(op),
+                                lib=_LIB)
+    return op
+
+
+def _checked(name: str, t: Tensor, device, dtype, shape) -> Tensor:
+    """``t``, after checking that it has ``dtype``, lies on ``device`` and
+    has ``shape`` (None: any size); raises on anything else."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.shape != shape and (t.ndim != len(shape) or any(
+            w is not None and w != n for w, n in zip(shape, t.shape))):
+        raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    return t
+
+
+def _f32_on(name: str, t: Tensor, device, shape) -> Tensor:
+    """``t`` as the kernel reads it: float32, on ``device``, of ``shape``,
+    contiguous."""
+    return _checked(name, t, device, torch.float32, shape).contiguous()
+
+
 # -- panda_fk ----------------------------------------------------------------
 
 FK_LINKS = panda.NUM_LINKS
@@ -415,59 +479,32 @@ def panda_fk_plain(q, pqr, pose_0, center_offset, points,
     return poses, og, ax, x
 
 
-@torch.library.custom_op("omg_torch::panda_fk", mutates_args=(),
-                         device_types="cpu")
-def _panda_fk_op(q: Tensor, pqr: Tensor, pose_0: Tensor,
-                 center_offset: Tensor, points: Tensor, apply_offset: bool,
-                 with_points: bool) -> tuple[Tensor, Tensor, Tensor, Tensor]:
-    """CPU: :func:`panda_fk_plain`; CUDA: the launch."""
-    return panda_fk_plain(q, pqr, pose_0, center_offset, points,
-                          apply_offset, with_points)
-
-
-@_panda_fk_op.register_fake
-def _panda_fk_fake(q, pqr, pose_0, center_offset, points, apply_offset,
-                   with_points):
-    n, p = q.shape[0], points.shape[1] if with_points else 0
-    return (q.new_empty(n, FK_LINKS, 4, 4), q.new_empty(n, FK_LINKS, 3),
-            q.new_empty(n, FK_LINKS, 3), q.new_empty(n, FK_LINKS, p, 3))
-
-
-def _checked(name: str, t: Tensor, device, dtype, shape) -> Tensor:
-    """``t``, after checking that it has ``dtype``, lies on ``device`` and
-    has ``shape`` (None: any size); raises on anything else."""
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.ndim != len(shape) or any(
-            w is not None and w != n for w, n in zip(shape, t.shape)):
-        raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    return t
-
-
-def _f32_on(name: str, t: Tensor, device, shape) -> Tensor:
-    """``t`` as the kernel reads it: float32, on ``device``, of ``shape``,
-    contiguous."""
-    return _checked(name, t, device, torch.float32, shape).contiguous()
-
-
-def _stream(dev) -> int:
-    with torch.cuda.device(dev):
-        return torch.cuda.current_stream().cuda_stream
+@functools.lru_cache(maxsize=16)
+def _fk_tables(pqr, pose_0, center_offset, points) -> Tensor:
+    """A model's tables as the kernel reads them, checked and laid out once
+    per model (they are constants, as ``panda.pqr_table`` caches them):
+    pqr [7, 3, 4, 4], pose_0 [10, 4, 4], center_offset [10, 4, 4] and
+    points [10, P, 3], flat in one float32 buffer on pose_0's device."""
+    dev = pose_0.device
+    return torch.cat([
+        _f32_on("pqr", pqr, dev, (7, 3, 4, 4)).reshape(-1),
+        _f32_on("pose_0", pose_0, dev, (FK_LINKS, 4, 4)).reshape(-1),
+        _f32_on("center_offset", center_offset, dev,
+                (FK_LINKS, 4, 4)).reshape(-1),
+        _f32_on("points", points, dev, (FK_LINKS, None, 3)).reshape(-1)])
 
 
 def _panda_fk_pack(q, pqr, pose_0, center_offset, points, apply_offset,
                    with_points):
     """Check and lay out the C entry point's arguments: (tensors to keep
-    alive, (poses, origins, axes, x), the 9 pointers, the 4 ints)."""
+    alive, (poses, origins, axes, x), the 6 pointers, the 4 ints)."""
     dev = q.device
     q = _f32_on("q", q, dev, (None, 9))
+    tables = _fk_tables(pqr, pose_0, center_offset, points)
+    if tables.device != dev:
+        raise ValueError(f"the model's tables are on {tables.device}, "
+                         f"expected {dev}")
     n, p = q.shape[0], points.shape[1]
-    keep = [q, _f32_on("pqr", pqr, dev, (7, 3, 4, 4)),
-            _f32_on("pose_0", pose_0, dev, (FK_LINKS, 4, 4)),
-            _f32_on("center_offset", center_offset, dev, (FK_LINKS, 4, 4)),
-            _f32_on("points", points, dev, (FK_LINKS, None, 3))]
     if n * FK_LINKS * max(16, 3 * p) >= 2**31:
         raise ValueError("panda_fk: more than 2^31 output values")
     outs = (torch.empty(n, FK_LINKS, 4, 4, dtype=torch.float32, device=dev),
@@ -475,12 +512,12 @@ def _panda_fk_pack(q, pqr, pose_0, center_offset, points, apply_offset,
             torch.empty(n, FK_LINKS, 3, dtype=torch.float32, device=dev),
             torch.empty(n, FK_LINKS, p if with_points else 0, 3,
                         dtype=torch.float32, device=dev))
-    ptrs = (ctypes.c_void_p * 9)(*[t.data_ptr() for t in keep + list(outs)])
+    ptrs = (ctypes.c_void_p * 6)(q.data_ptr(), tables.data_ptr(),
+                                 *[t.data_ptr() for t in outs])
     dims = (ctypes.c_int * 4)(n, p, int(apply_offset), int(with_points))
-    return keep, outs, ptrs, dims
+    return (q, tables), outs, ptrs, dims
 
 
-@_panda_fk_op.register_kernel("cuda")
 def _panda_fk_cuda(q, pqr, pose_0, center_offset, points, apply_offset,
                    with_points):
     keep, outs, ptrs, dims = _panda_fk_pack(q, pqr, pose_0, center_offset,
@@ -496,23 +533,31 @@ def _panda_fk_cuda(q, pqr, pose_0, center_offset, points, apply_offset,
     return outs
 
 
-def _panda_fk_vmap(info, in_dims, q, pqr, pose_0, center_offset, points,
-                   apply_offset, with_points):
-    """vmap rule: the mapped axis of ``q`` folds into the configurations
-    (one launch); the model's tables must not be mapped."""
-    if any(d is not None for d in in_dims[1:5]):
-        raise ValueError("panda_fk under vmap: the model's tables must be "
-                         "the same for every mapped row")
-    args = (pqr, pose_0, center_offset, points, apply_offset, with_points)
-    if in_dims[0] is None:
-        return _panda_fk_op(q, *args), (None,) * 4
-    q = q.movedim(in_dims[0], 0)
-    s, n = q.shape[:2]
-    out = _panda_fk_op(q.reshape(s * n, q.shape[-1]), *args)
-    return tuple(o.reshape(s, n, *o.shape[1:]) for o in out), (0,) * 4
+def _panda_fk_vmap(op):
+    def rule(info, in_dims, q, pqr, pose_0, center_offset, points,
+             apply_offset, with_points):
+        """vmap rule: the mapped axis of ``q`` folds into the
+        configurations (one launch); the model's tables must not be
+        mapped."""
+        if any(d is not None for d in in_dims[1:5]):
+            raise ValueError("panda_fk under vmap: the model's tables must "
+                             "be the same for every mapped row")
+        args = (pqr, pose_0, center_offset, points, apply_offset,
+                with_points)
+        if in_dims[0] is None:
+            return op(q, *args), (None,) * 4
+        q = q.movedim(in_dims[0], 0)
+        s, n = q.shape[:2]
+        out = op(q.reshape(s * n, q.shape[-1]), *args)
+        return tuple(o.reshape(s, n, *o.shape[1:]) for o in out), (0,) * 4
+    return rule
 
 
-_panda_fk_op.register_vmap(_panda_fk_vmap)
+_panda_fk_op = _define(
+    "panda_fk(Tensor q, Tensor pqr, Tensor pose_0, Tensor center_offset, "
+    "Tensor points, bool apply_offset, bool with_points) "
+    "-> (Tensor, Tensor, Tensor, Tensor)",
+    panda_fk_plain, _panda_fk_cuda, _panda_fk_vmap)
 
 
 def panda_fk(q: Tensor, pose_0: Tensor, chain_post: Tensor,
@@ -556,49 +601,6 @@ def _sdf_query_rows(scene_of, row_args, scene_args):
     return tuple(torch.stack(t) for t in zip(*outs))
 
 
-@torch.library.custom_op("omg_torch::sdf_query_analytic", mutates_args=(),
-                         device_types="cpu")
-def _sdf_analytic_op(inv_poses: Tensor, points: Tensor, epsilons: Tensor,
-                     padding_scales: Tensor, clearances: Tensor,
-                     disables: Tensor, kinds: Tensor, halfs: Tensor,
-                     penals: Tensor, rounds: Tensor
-                     ) -> tuple[Tensor, Tensor, Tensor]:
-    """CPU: :func:`sdf_query_plain` of each scene row; CUDA: the
-    launch."""
-    from .sdf import AnalyticScene
-
-    return _sdf_query_rows(
-        AnalyticScene,
-        (inv_poses, points, epsilons, padding_scales, clearances, disables),
-        (kinds, halfs, penals, rounds))
-
-
-@torch.library.custom_op("omg_torch::sdf_query_baked", mutates_args=(),
-                         device_types="cpu")
-def _sdf_baked_op(inv_poses: Tensor, points: Tensor, epsilons: Tensor,
-                  padding_scales: Tensor, clearances: Tensor,
-                  disables: Tensor, data4: Tensor, limits: Tensor
-                  ) -> tuple[Tensor, Tensor, Tensor]:
-    """CPU: :func:`sdf_query_plain` of each scene row; CUDA: the
-    launch."""
-    from .sdf import BakedSceneSDF
-
-    return _sdf_query_rows(
-        BakedSceneSDF,
-        (inv_poses, points, epsilons, padding_scales, clearances, disables),
-        (data4, limits))
-
-
-def _sdf_fake(inv_poses, points, *rest):
-    b, p = points.shape[:2]
-    return (points.new_empty(b, p), points.new_empty(b, p, 3),
-            points.new_empty(b, p))
-
-
-_sdf_analytic_op.register_fake(_sdf_fake)
-_sdf_baked_op.register_fake(_sdf_fake)
-
-
 def _rows(name: str, t: Tensor, device, dtype, shape) -> tuple:
     """(tensor, scene-axis stride in elements) of an input ``[B, ...]``
     as the kernel reads it: each row contiguous, rows ``stride`` apart (0
@@ -621,35 +623,32 @@ def _sdf_query_pack(row_args, scene_args):
     b, p = points.shape[:2]
     o = inv_poses.shape[1]
     f32 = torch.float32
-    ins = {"points": _rows("points", points, dev, f32, (b, p, 3)),
-           "inv": _rows("inv_poses", inv_poses, dev, f32, (b, o, 4, 4))}
-    for key, name, t in zip(("eps", "pad", "clr", "dis"),
-                            ("epsilons", "padding_scales", "clearances",
-                             "disables"), row_args[2:]):
-        ins[key] = _rows(name, t, dev, f32, (b, o))
+    got = [_rows("points", points, dev, f32, (b, p, 3)),
+           _rows("inv_poses", inv_poses, dev, f32, (b, o, 4, 4))]
+    got += [_rows(name, t, dev, f32, (b, o)) for name, t in zip(
+        ("epsilons", "padding_scales", "clearances", "disables"),
+        row_args[2:])]
     v = 0
     if len(scene_args) == 4:
-        for key, t, dtype, shape in zip(
-                ("kinds", "halfs", "penals", "rounds"), scene_args,
-                (torch.int32, f32, f32, f32), ((b, o), (b, o, 3), (b, o),
-                                               (b, o))):
-            ins[key] = _rows(key, t, dev, dtype, shape)
+        got += [_rows(key, t, dev, dtype, shape) for key, t, dtype, shape
+                in zip(("kinds", "halfs", "penals", "rounds"), scene_args,
+                       (torch.int32, f32, f32, f32),
+                       ((b, o), (b, o, 3), (b, o), (b, o)))]
+        got += [(None, 0)] * 2
     else:
         data4, stride = _rows("data4", scene_args[0], dev, f32,
                               (b, o, None, None, None, 4))
         if data4.data_ptr() % 16:     # read as float4
             data4 = data4.clone()
         v = data4[0, 0].numel() // 4
-        ins["grid"] = (data4, stride // 4)
-        ins["limits"] = _rows("limits", scene_args[1], dev, f32, (b, o, 10))
+        got += [(None, 0)] * 4
+        got += [(data4, stride // 4),
+                _rows("limits", scene_args[1], dev, f32, (b, o, 10))]
     if b * p >= 2**31:
         raise ValueError("sdf_query: more than 2^31 points")
     outs = (torch.empty(b, p, dtype=f32, device=dev),
             torch.empty(b, p, 3, dtype=f32, device=dev),
             torch.empty(b, p, dtype=f32, device=dev))
-    order = ("points", "inv", "eps", "pad", "clr", "dis", "kinds", "halfs",
-             "penals", "rounds", "grid", "limits")
-    got = [ins.get(k, (None, 0)) for k in order]
     ptrs = (ctypes.c_void_p * 15)(
         *[0 if t is None else t.data_ptr() for t, _ in got],
         *[t.data_ptr() for t in outs])
@@ -670,24 +669,6 @@ def _sdf_query_cuda(entry, row_args, scene_args):
     return outs
 
 
-@_sdf_analytic_op.register_kernel("cuda")
-def _sdf_analytic_cuda(inv_poses, points, epsilons, padding_scales,
-                       clearances, disables, kinds, halfs, penals, rounds):
-    return _sdf_query_cuda(
-        "omg_sdf_query_analytic",
-        (inv_poses, points, epsilons, padding_scales, clearances, disables),
-        (kinds, halfs, penals, rounds))
-
-
-@_sdf_baked_op.register_kernel("cuda")
-def _sdf_baked_cuda(inv_poses, points, epsilons, padding_scales, clearances,
-                    disables, data4, limits):
-    return _sdf_query_cuda(
-        "omg_sdf_query_baked",
-        (inv_poses, points, epsilons, padding_scales, clearances, disables),
-        (data4, limits))
-
-
 def _sdf_vmap(op):
     def rule(info, in_dims, *args):
         """vmap rule: the mapped axis folds into the scene rows (one
@@ -700,8 +681,54 @@ def _sdf_vmap(op):
     return rule
 
 
-_sdf_analytic_op.register_vmap(_sdf_vmap(_sdf_analytic_op))
-_sdf_baked_op.register_vmap(_sdf_vmap(_sdf_baked_op))
+_SDF_ROWS = ("Tensor inv_poses, Tensor points, Tensor epsilons, "
+             "Tensor padding_scales, Tensor clearances, Tensor disables")
+
+
+def _sdf_analytic_cpu(inv_poses, points, epsilons, padding_scales,
+                      clearances, disables, kinds, halfs, penals, rounds):
+    from .sdf import AnalyticScene
+
+    return _sdf_query_rows(
+        AnalyticScene,
+        (inv_poses, points, epsilons, padding_scales, clearances, disables),
+        (kinds, halfs, penals, rounds))
+
+
+def _sdf_analytic_cuda(inv_poses, points, epsilons, padding_scales,
+                       clearances, disables, kinds, halfs, penals, rounds):
+    return _sdf_query_cuda(
+        "omg_sdf_query_analytic",
+        (inv_poses, points, epsilons, padding_scales, clearances, disables),
+        (kinds, halfs, penals, rounds))
+
+
+def _sdf_baked_cpu(inv_poses, points, epsilons, padding_scales, clearances,
+                   disables, data4, limits):
+    from .sdf import BakedSceneSDF
+
+    return _sdf_query_rows(
+        BakedSceneSDF,
+        (inv_poses, points, epsilons, padding_scales, clearances, disables),
+        (data4, limits))
+
+
+def _sdf_baked_cuda(inv_poses, points, epsilons, padding_scales, clearances,
+                    disables, data4, limits):
+    return _sdf_query_cuda(
+        "omg_sdf_query_baked",
+        (inv_poses, points, epsilons, padding_scales, clearances, disables),
+        (data4, limits))
+
+
+_sdf_analytic_op = _define(
+    f"sdf_query_analytic({_SDF_ROWS}, Tensor kinds, Tensor halfs, "
+    "Tensor penals, Tensor rounds) -> (Tensor, Tensor, Tensor)",
+    _sdf_analytic_cpu, _sdf_analytic_cuda, _sdf_vmap)
+_sdf_baked_op = _define(
+    f"sdf_query_baked({_SDF_ROWS}, Tensor data4, Tensor limits) "
+    "-> (Tensor, Tensor, Tensor)",
+    _sdf_baked_cpu, _sdf_baked_cuda, _sdf_vmap)
 
 
 def sdf_query(scene, inv_poses: Tensor, points: Tensor, epsilons: Tensor,

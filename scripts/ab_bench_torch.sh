@@ -1,6 +1,7 @@
 #!/bin/bash
 # Same-call A/B of two checkouts on one card: alternating parent/change
-# runs of bench_torch.py, one JSON line per run, then the per-side medians.
+# runs of bench_torch.py, one JSON line per run, then the per-side medians
+# (with each run's first goal-set build, from its log, and its total wall).
 #
 #   scripts/ab_bench_torch.sh PARENT_DIR OUT_DIR [PAIRS [bench args...]]
 #   scripts/ab_bench_torch.sh --summary OUT_DIR
@@ -12,16 +13,21 @@
 set -u
 summary() {
   python3 - "$1" <<'PY'
-import glob, json, os, statistics, sys
+import glob, json, os, re, statistics, sys
 keys = ("value", "serial_e2e_plans_per_s", "pipelined_plans_per_s",
         "p50_plan_latency_ms", "mean_plan_latency_ms",
-        "warm_goal_set_build_s", "mean_steps", "host_syncs_per_plan",
-        "success_rate")
+        "warm_goal_set_build_s", "first_build_s", "total_wall_s",
+        "mean_steps", "host_syncs_per_plan", "success_rate")
 runs = {"parent": [], "change": []}
 for path in sorted(glob.glob(os.path.join(sys.argv[1], "*-*.json")),
                    key=lambda p: int(os.path.basename(p).split("-")[0])):
     side = os.path.basename(path).split("-")[1].split(".")[0]
-    runs[side].append(json.loads(open(path).read().strip().splitlines()[-1]))
+    run = json.loads(open(path).read().strip().splitlines()[-1])
+    # the first build of the fresh process: "[bench] scene 0: build X s"
+    log = open(path[:-len(".json")] + ".err").read()
+    run["first_build_s"] = float(
+        re.search(r"scene 0: build ([\d.]+)s", log).group(1))
+    runs[side].append(run)
 for key in keys:
     vals = {s: [r[key] for r in rs] for s, rs in runs.items()}
     print(key, " ".join(f"{s}: median {statistics.median(v)} runs {v}"
