@@ -29,12 +29,26 @@ Phases (any failure exits non-zero; no phase is skipped):
    bound; a fresh process's first ``panda_fk`` and ``sdf_query`` calls
    (walls), failing if they import ``torch._dynamo``,
    ``torch.distributed.tensor`` or ``sympy``;
+3c. learner kernels, the plan step's two loops: ``md_update`` (the MD
+   learner's expert update) and ``joint_limit`` (the joint-limit
+   projection) against their plain versions on the card, on every call
+   suite scene 1's plan makes (the inputs captured as the learner and
+   the CHOMP step pass them) and on seeded inputs at S = 1 and 8 rows
+   (G = 100 goals; T = 30, D = 9 trajectories pushed up to 1.2 rad past
+   the limits; the last row not live); bars: ``md_update`` p and experts_p within 1e-6, experts_costs
+   and q within 1e-5 of their size (1e-12 where q underflows),
+   ``joint_limit`` no farther from the float64 plain version than
+   max(1e-6, 2 x the plain version's own error); rows of a batch bit for
+   bit their single launches; each kernel's device time (50 launches in
+   one CUDA graph, median of 5 replays), the plain version's, the
+   wrapper's host time a call and the bound from this data's work (the
+   Bregman passes of each expert, the joint-limit passes of each row);
 4. reference: a small plan staged on the CPU, planned on the CPU and on
    the card — same goal, same verdict, trajectories within 2e-3;
 5. the standard plan at the full ``OMGConfig()`` width on three
-   ``data/suite_v2`` scenes (each must launch ``panda_fk`` and
-   ``sdf_query`` and no other kernel; their counts go into the kernels
-   line), with wall time and host syncs per plan;
+   ``data/suite_v2`` scenes (each must launch ``panda_fk``, ``sdf_query``,
+   ``md_update`` and ``joint_limit`` and no other kernel; their counts go
+   into the kernels line), with wall time and host syncs per plan;
 6. a ``torch.profiler`` trace of one standard plan: the device's busy
    share, its operations per plan and per plan step (fails if it records
    none), and the operations by the port's function that launched them
@@ -133,14 +147,16 @@ Phases (any failure exits non-zero; no phase is skipped):
     against ``plan_fast`` on scene 1.
 
 Phases 5, 7, 8 and each phase from 10 on run with the launch counts set
-to 0 and check them after: ``panda_fk`` and ``sdf_query`` must launch on
-every phase that plans a Panda (the chain phase: ``sdf_query`` alone),
-``rigid_rollout`` on the physics, service and viz and apps phases,
-``min_dist_grid`` in phase 7, and no kernel elsewhere.
+to 0 and check them after: ``panda_fk``, ``sdf_query``, ``md_update`` and
+``joint_limit`` must launch on every phase that plans a Panda (the chain
+phase, which plans without a goal set and so without the learner:
+``sdf_query`` and ``joint_limit``), ``rigid_rollout`` on the physics,
+service and viz and apps phases, ``min_dist_grid`` in phase 7, and no
+kernel elsewhere.
 The line before the last is a JSON object listing every kernel with its
 launches on its path (phase 7 for ``min_dist_grid``, 13 for
-``rigid_rollout``, 5 for the plan kernels), error, times and bound; the
-last line is ``{"ok": true, "device": {...}}``.
+``rigid_rollout``, 5 for the plan and loop kernels), error, times and
+bound; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -847,6 +863,299 @@ def phase_plan_kernels(dev):
     return entries
 
 
+# operations of md_update, counted from csrc/md_update.cu: per (expert,
+# valid goal) the row's set-up (the goal count, delta, v, upper), each pass
+# of the Bregman loop (the logsumexp's two sweeps, the new alpha and its
+# squared step) and the final solve (the logsumexp, the projection, its
+# normalisation and the two cost terms); per valid goal the mixture (five
+# products, the sums and the normalisation); per row eta and the q
+# recurrence (5 steps of 5 exponentials, products and divisions, and a sum)
+MD_FLOPS = dict(setup=6, loop_pass=34, final=42, mix=12, row=104)
+# operations of joint_limit per (t, d) element: each check of the loop (the
+# violation, its square summed) and each pass besides (the argmax, the
+# update; plus the length-T dot product, 2 T - 1)
+JL_FLOPS = dict(check=5, pass_extra=4)
+
+
+def _md_rows(g: int, s: int, gen) -> list:
+    """``md_update``'s inputs for ``s`` rows of ``g`` goals from ``gen``:
+    the experts' distributions on ~70% valid goals, a unit-norm cost
+    vector (1e6 on the other goals, as ``finalize_cost_vector`` leaves
+    them), the experts' last costs and a mixture (CPU tensors)."""
+    mask = torch.rand(s, g, generator=gen) < 0.7
+    mask[:, 0] = True
+    mf = mask.float()
+    ep = -torch.log(torch.rand(s, 5, g, generator=gen)) * mf[:, None]
+    ep = ep / ep.sum(-1, keepdim=True)
+    cv = torch.rand(s, g, generator=gen) * mf
+    cv = torch.where(mask, cv / cv.norm(dim=-1, keepdim=True),
+                     torch.full_like(cv, 1e6))
+    q = -torch.log(torch.rand(s, 5, generator=gen))
+    return [ep, cv, mask, 2 * torch.rand(s, 5, generator=gen),
+            q / q.sum(-1, keepdim=True)]
+
+
+def _md_passes(args, optim_steps: int) -> torch.Tensor:
+    """The Bregman loop's passes for each (row, expert) of ``md_update``'s
+    inputs ``args`` ([S, ...]; the live flag last), from one run of the
+    plain version."""
+    return kernels.md_update_plain(*args, optim_steps, passes=True)[4].cpu()
+
+
+def _md_work(args, passes) -> tuple:
+    """(operations, bytes) of one ``md_update`` call on ``args``: the
+    per-goal work on each row's valid goals, the loop's at this data's
+    passes; each input read once (the live flags where given) and each
+    output written once."""
+    ep, cv, mask = args[:3]
+    s, e, g = ep.shape
+    valid = mask.float().sum(-1).cpu()                           # [S]
+    per_goal = (e * (MD_FLOPS["setup"] + MD_FLOPS["final"]) + MD_FLOPS["mix"])
+    flops = float((valid * per_goal).sum()
+                  + (valid[:, None] * passes * MD_FLOPS["loop_pass"]).sum()
+                  + s * MD_FLOPS["row"])
+    nbytes = s * (4 * (2 * e * g + 2 * g + 4 * e) + g
+                  + (args[5] is not None))
+    return flops, nbytes
+
+
+def _jl_passes(xi, lo, hi, ainv, live, max_steps: int) -> list:
+    """The joint-limit loop's passes for each row of ``xi [S, T, D]``
+    (the plain loop traced row by row; none for a row that is not live)."""
+    return [0 if live is not None and not bool(live[r]) else len(
+        kernels.limit_loop_trace(xi[r], lo[r], hi[r], ainv, max_steps)[0]) - 1
+        for r in range(xi.shape[0])]
+
+
+def _jl_work(xi, passes, live) -> tuple:
+    """(operations, bytes) of one ``joint_limit`` call on ``xi [S, T, D]``
+    at ``passes`` per row: each live row's checks and passes; the
+    trajectories read and written once, the limits read for the live rows,
+    Ainv only where a row makes a pass, the live flags where given."""
+    s, t, d = xi.shape
+    n = t * d
+    on = [True] * s if live is None else live.tolist()
+    flops = float(sum(n * JL_FLOPS["check"] * (k + 1)
+                      + k * (n * (2 * t - 1 + JL_FLOPS["pass_extra"]) + 3)
+                      for k, row_on in zip(passes, on) if row_on))
+    nbytes = (4 * (2 * s * n + 2 * sum(on) * d + t * t * (max(passes) > 0))
+              + s * (live is not None))
+    return flops, nbytes
+
+
+def _md_vs_plain(args, what):
+    """``md_update`` against its plain version on the same card inputs.
+    Bars: p and experts_p within 1e-6; experts_costs and q within 1e-5 of
+    their size (and 1e-12 where q underflows toward 0).  Returns (the
+    kernel's outputs, max |kernel - plain| over the four)."""
+    k = kernels.md_update(*args, OMG_OPTIM_STEPS)
+    ref = kernels.md_update_plain(*args, OMG_OPTIM_STEPS)
+    _sync(args[0].device)
+    abs_err = _err(k[:2], ref[:2])
+    rel = max(float(((a - b).abs() - 1e-12).clamp(min=0).div(
+        b.abs().clamp(min=1e-30)).max()) for a, b in zip(k[2:], ref[2:]))
+    log(f"md_update {what}: max|kernel-plain| p/experts_p {abs_err:.3e}, "
+        f"experts_costs/q relative {rel:.3e}")
+    if not (abs_err <= 1e-6 and rel <= 1e-5):
+        raise AssertionError(f"md_update {what}: error {abs_err}, {rel}")
+    return k, max(abs_err, _err(k[2:], ref[2:]))
+
+
+def _jl_vs_plain(args, what):
+    """``joint_limit`` against its plain version on the same card inputs,
+    and both against the plain version in float64.  Bar: no farther from
+    float64 than max(1e-6, 2 x the plain version's own error) (the two sum
+    the length-T dot products in different orders, and the passes carry
+    it).  Returns (the kernel's output, |kernel - plain|)."""
+    xi, lo, hi, ainv, live = args
+    k = kernels.joint_limit(*args, 10)
+    ref = kernels.joint_limit_plain(*args, 10)
+    ref64 = kernels.joint_limit_plain(xi.double(), lo.double(), hi.double(),
+                                      ainv.double(), live, 10)
+    _sync(xi.device)
+    err = _err([k], [ref])
+    own, mine = _err([ref.double()], [ref64]), _err([k.double()], [ref64])
+    log(f"joint_limit {what}: max|kernel-plain| {err:.3e}, "
+        f"max|kernel-float64| {mine:.3e}, max|plain-float64| {own:.3e}")
+    if not mine <= max(1e-6, 2 * own):
+        raise AssertionError(f"joint_limit {what}: error {mine} against "
+                             f"float64 (plain's {own})")
+    return k, err
+
+
+def _pushed(model, s: int, gen) -> torch.Tensor:
+    """``s`` trajectories [30, 9] between two in-limit configurations,
+    with one to four joints pushed up to 1.2 rad past a limit over a
+    stretch of timesteps (CPU)."""
+    lo, hi = model.joint_lower.cpu(), model.joint_upper.cpu()
+    out = []
+    for _ in range(s):
+        ends = lo + (hi - lo) * (0.1 + 0.8 * torch.rand(2, 9, generator=gen))
+        u = torch.linspace(0.0, 1.0, 30)[:, None]
+        xi = ends[0] + u * (ends[1] - ends[0])
+        for _ in range(int(torch.randint(1, 5, (1,), generator=gen))):
+            j = int(torch.randint(0, 7, (1,), generator=gen))
+            a = int(torch.randint(0, 25, (1,), generator=gen))
+            b = min(30, a + int(torch.randint(1, 12, (1,), generator=gen)))
+            amount = 0.6 * float(torch.rand(1, generator=gen)) + 0.005
+            ramp = amount * (1.0 + torch.linspace(0.0, 1.0, b - a))
+            xi[a:b, j] = (hi[j] + ramp if torch.rand(1, generator=gen) < 0.5
+                          else lo[j] - ramp)
+        out.append(xi)
+    return torch.stack(out)
+
+
+#: ``OMGConfig().optim_steps``: the MD learner's eta at full width
+OMG_OPTIM_STEPS = OMGConfig().optim_steps
+
+
+def phase_learner_kernels(dev):
+    """``md_update`` and ``joint_limit`` against their plain versions on
+    the card at the plan's shapes (S = 1 and 8 rows; G = 100; T = 30, D =
+    9), seeded and as suite scene 1's plan gives them, rows of a batch
+    against single launches, timings and bounds; returns their two kernel
+    entries."""
+    cfg = OMGConfig(silent=True)
+    scene = PlanningScene.from_npz(cfg, os.path.join(SUITE, "scene_1.npz"),
+                                   device=dev)
+    # suite scene 1's plan, its learner updates and joint-limit calls
+    # captured as the operators get them
+    calls = {"md": [], "jl": []}
+    upd, hjl = learner_mod.update_goal_dist, chomp_mod.handle_joint_limit
+
+    def rec_md(cfg_, state, cv, goal_set, traj_end, live=None):
+        calls["md"].append([t.clone() for t in (
+            state.experts_p, cv, goal_set.mask, state.experts_costs,
+            state.q)] + [live])
+        return upd(cfg_, state, cv, goal_set, traj_end, live)
+
+    def rec_jl(hp, cfg_, xi, lower, upper):
+        calls["jl"].append([xi.clone(), lower, upper, hp.Ainv, None])
+        return hjl(hp, cfg_, xi, lower, upper)
+
+    learner_mod.update_goal_dist, chomp_mod.handle_joint_limit = (rec_md,
+                                                                  rec_jl)
+    try:
+        res = scene.step(fast=True)
+    finally:
+        learner_mod.update_goal_dist, chomp_mod.handle_joint_limit = upd, hjl
+    _sync(dev)
+    steps = int(res.steps_used)
+    log(f"learner kernels: suite scene 1's plan ({steps} steps) made "
+        f"{len(calls['md'])} md_update and {len(calls['jl'])} joint_limit "
+        "calls")
+    if not calls["md"] or not calls["jl"]:
+        raise AssertionError("suite scene 1's plan missed a loop kernel's "
+                             "path")
+
+    gen = torch.Generator().manual_seed(13)
+    md_err = jl_err = 0.0
+    # md_update: every captured call, then seeded rows at S = 1 and 8 (the
+    # last row not live), and the 8 rows against single launches
+    for i, args in enumerate(calls["md"]):
+        md_err = max(md_err, _md_vs_plain(args, f"suite scene 1 call {i}")[1])
+    md8 = [t.to(dev) for t in _md_rows(100, 8, gen)]
+    md8.append(torch.arange(8, device=dev) < 7)
+    md1 = [t[:1] for t in md8]
+    md_err = max(md_err, _md_vs_plain(md1, "seeded S=1")[1])
+    k8, err = _md_vs_plain(md8, "seeded S=8")
+    md_err = max(md_err, err)
+    same = True
+    for r in range(8):
+        one = kernels.md_update(*[t[r:r + 1] for t in md8], OMG_OPTIM_STEPS)
+        same &= all(torch.equal(a[0], b[r]) for a, b in zip(one, k8))
+    log(f"md_update S=8: rows against their single launches "
+        f"{'bit-equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("md_update rows depend on the batch")
+
+    # joint_limit: every captured call, seeded trajectories pushed past the
+    # limits at S = 1 and 8 (the last row not live), the rows alone
+    model = scene.model
+    ainv = cfg.horizon().on(dev).Ainv
+    for i, args in enumerate(calls["jl"]):
+        jl_err = max(jl_err, _jl_vs_plain(args, f"suite scene 1 call {i}")[1])
+    xi8 = _pushed(model, 8, gen).to(dev)
+    lo8 = model.joint_lower[None].expand(8, 9).contiguous()
+    hi8 = model.joint_upper[None].expand(8, 9).contiguous()
+    live8 = torch.arange(8, device=dev) < 7
+    jl8 = [xi8, lo8, hi8, ainv, live8]
+    jl1 = [xi8[0], lo8[0], hi8[0], ainv, None]
+    jl_err = max(jl_err, _jl_vs_plain(jl1, "seeded S=1")[1])
+    k8, err = _jl_vs_plain(jl8, "seeded S=8")
+    jl_err = max(jl_err, err)
+    passes8 = _jl_passes(xi8, lo8, hi8, ainv, live8, 10)
+    same = all(torch.equal(kernels.joint_limit(
+        xi8[r:r + 1], lo8[r:r + 1], hi8[r:r + 1], ainv, live8[r:r + 1],
+        10)[0], k8[r]) for r in range(8))
+    log(f"joint_limit S=8 (passes {passes8}): rows against their single "
+        f"launches {'bit-equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("joint_limit rows depend on the batch")
+
+    # timings: 50 launches in one CUDA graph (median of 5 replays), the
+    # plain version, the wrapper's host time a call, the bound
+    main_md = calls["md"][len(calls["md"]) // 2]
+    main_jl = calls["jl"][len(calls["jl"]) // 2]
+    cases = {
+        ("md_update", "suite scene 1 (S=1)"): main_md,
+        ("md_update", "seeded S=1"): md1, ("md_update", "seeded S=8"): md8,
+        ("joint_limit", "suite scene 1 (S=1)"): main_jl,
+        ("joint_limit", "seeded S=1"): jl1, ("joint_limit", "seeded S=8"): jl8,
+    }
+    smi = clocks_under_load(lambda: kernels.md_update(*md8, OMG_OPTIM_STEPS))
+    log(f"learner kernels under load: clocks.sm, power.draw, power.limit = "
+        f"{smi}")
+    timing = {}
+    for (name, what), args in cases.items():
+        if name == "md_update":
+            def run(args=args):
+                return kernels.md_update(*args, OMG_OPTIM_STEPS)
+
+            def plain(args=args):
+                return kernels.md_update_plain(*args, OMG_OPTIM_STEPS)
+            batch = ([t[None] for t in args[:5]] + [None]
+                     if args[0].ndim == 2 else list(args))
+            passes = _md_passes(batch, OMG_OPTIM_STEPS)
+            flops, nbytes = _md_work(batch, passes)
+            detail = f"Bregman passes per expert {passes.tolist()}"
+        else:
+            def run(args=args):
+                return kernels.joint_limit(*args, 10)
+
+            def plain(args=args):
+                return kernels.joint_limit_plain(*args, 10)
+            xi = args[0] if args[0].ndim == 3 else args[0][None]
+            lo = args[1] if args[1].ndim == 2 else args[1][None]
+            hi = args[2] if args[2].ndim == 2 else args[2][None]
+            passes = _jl_passes(xi, lo, hi, args[3], args[4], 10)
+            flops, nbytes = _jl_work(xi, passes, args[4])
+            detail = f"passes {passes}"
+        ms = time_graph(run)
+        plain_ms = time_ms(plain, 5, 1)
+        bound, by = _bound(flops, nbytes)
+        host = _host_us(run)
+        timing[(name, what)] = (ms, plain_ms, bound, by)
+        log(f"{name} {what}: kernel {ms:.4f} ms (graph of 50), plain "
+            f"{plain_ms:.4f} ms, bound {bound:.7f} ms ({by}; {flops:.3e} "
+            f"flop, {nbytes} B), share of bound {bound / ms:.5f}, wrapper "
+            f"host {host:.1f} us a call; {detail}")
+    sm = float(smi.split()[0])
+    entries = []
+    for name, src, rep, err in (
+            ("md_update", "omg_planner_torch/csrc/md_update.cu",
+             "omg_planner_tpu/ops/learner.py:361", md_err),
+            ("joint_limit", "omg_planner_torch/csrc/joint_limit.cu",
+             "omg_planner_tpu/ops/chomp.py:363", jl_err)):
+        ms, plain_ms, bound, by = timing[(name, "suite scene 1 (S=1)")]
+        entries.append(dict(name=name, route="cuda", source=src,
+                            replaces=rep, launches=0, max_abs_err=err,
+                            ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=by, library_ms=None,
+                            share_of_bound=bound / ms, sm_clock_mhz=sm))
+    return entries
+
+
 def phase_reference(dev):
     """The plan loop on one CPU-staged problem, on the CPU and on ``dev``."""
     scene = PlanningScene.synthetic(SMALL_CFG, scene_id=5, n_obstacles=2,
@@ -891,8 +1200,9 @@ def _timed_plan(scene, dev, what):
     return res
 
 
-#: the kernels every plan launches, and none other outside their phases
-PLAN_KERNELS = ("panda_fk", "sdf_query")
+#: the kernels every Panda plan with the MD learner launches, and none
+#: other outside their phases
+PLAN_KERNELS = ("panda_fk", "sdf_query", "md_update", "joint_limit")
 
 
 def _check_launches(what, expect) -> dict:
@@ -967,7 +1277,8 @@ def _profiled(fn, dev, what, cpu: bool = True):
 
 # phase 6's attribution: the port's functions whose device operations it
 # counts, each under its label (the first two are the functions of the two
-# plan kernels); a function called inside another counts under its own
+# plan kernels, "joint-limit loop" and "MD expert update" those of the two
+# loop kernels); a function called inside another counts under its own
 # label.  The ranges are put around each name in the module that calls it,
 # by this script only.
 ATTRIBUTION = {
@@ -982,10 +1293,12 @@ ATTRIBUTION = {
         (learner_mod, "get_derivative")],
     "smoothness": [(chomp_mod, "smooth_loss")],
     "CHOMP cost, the rest": [(chomp_mod, "compute_total_loss")],
-    "CHOMP update and joint limits": [(chomp_mod, n) for n in (
+    "CHOMP update and limit check": [(chomp_mod, n) for n in (
         "goal_set_projection_update", "unconstrained_update",
-        "apply_update", "handle_joint_limit", "check_joint_limit")],
+        "apply_update", "check_joint_limit")],
+    "joint-limit loop (joint_limit)": [(chomp_mod, "handle_joint_limit")],
     "learner sweep, the rest": [(learner_mod, "cost_vector_raw")],
+    "MD expert update (md_update)": [(learner_mod, "update_goal_dist")],
     "learner, the rest": [(learner_mod, "update_goal")],
 }
 
@@ -1952,7 +2265,7 @@ def phase_scene_batches(dev):
     batched goal-set build (``plan_pipelined(build_batch=4)``) against the
     per-scene build, and ``plan_batch_vmap`` against ``plan_fast`` per
     scene, at the full budget and at ``optim_steps=10,
-    extra_smooth_steps=1``.  The path has no hand kernel."""
+    extra_smooth_steps=1``."""
     cfg = OMGConfig(silent=True)
     sids = list(range(8))
 
@@ -2021,7 +2334,6 @@ def phase_scene_batches(dev):
         f"{100 * busy / wall:.1f}%) | plan_fast suite scene 1 "
         f"{n_ops1 / int(one.steps_used):.0f} ({n_ops1} in {wall1:.1f} ms, "
         f"device busy {busy1:.2f} ms, {100 * busy1 / wall1:.1f}%)")
-    log("scene batches: no hand kernel on this path")
 
 
 def _importable(name: str) -> bool:
@@ -2264,6 +2576,7 @@ def main() -> int:
     timed("build", phase_build)
     entry = timed("kernels", phase_kernels, "cuda")
     plan_entries = timed("plan kernels", phase_plan_kernels, "cuda")
+    plan_entries += timed("learner kernels", phase_learner_kernels, "cuda")
     timed("reference", phase_reference, "cuda")
     standard = timed("standard", phase_standard, "cuda")
     for e in plan_entries:
@@ -2274,7 +2587,7 @@ def main() -> int:
     timed("bench", phase_bench)
     # phases from here on: the kernels each path must launch
     rollout = ("rigid_rollout",) + PLAN_KERNELS
-    expect = {"fused": PLAN_KERNELS, "chain": ("sdf_query",),
+    expect = {"fused": PLAN_KERNELS, "chain": ("sdf_query", "joint_limit"),
               "tasks": PLAN_KERNELS,
               "physics": ("rigid_rollout", "panda_fk"), "serve": rollout,
               "scale-out": PLAN_KERNELS, "viz and apps": rollout,

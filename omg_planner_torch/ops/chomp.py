@@ -20,7 +20,7 @@ from ..config import DIFF_RULES, DIFF_RULE_LENGTH, DeviceHorizon, OMGConfig
 from ..models import api as model_api
 from ..utils.diff import get_derivative
 from ..utils.linalg import top_k
-from ..utils.sync import host_bool
+from . import kernels
 from .sdf import WorldField, sdf_potentials, world_field_query
 
 
@@ -275,32 +275,14 @@ def apply_update(model, cfg: OMGConfig, xi, update):
     return model_api.gripper_clamp(model, xi)
 
 
-def _limit_violation(xi, lower, upper):
-    return (lower - xi) * (xi < lower) + (upper - xi) * (xi > upper)
-
-
-def _limit_step(hp: DeviceHorizon, xi, tv):
-    """One smoothing pass: ``xi + scale * Ainv @ tv``."""
-    tvs = hp.Ainv @ tv
-    flat_idx = torch.argmax(torch.abs(tv))
-    scale = (torch.abs(tv).max()
-             / (torch.abs(tvs.reshape(-1)[flat_idx]) + 1e-8))
-    return xi + scale * tvs
-
-
 def handle_joint_limit(hp: DeviceHorizon, cfg: OMGConfig, xi, lower, upper):
     """Smoothed joint-limit projection (``omg/optimizer.py:148-164``):
     repeatedly add ``scale * Ainv @ violation`` while the violation norm
-    exceeds 1e-2, at most ``joint_limit_max_steps`` times.  Each check is a
-    host read."""
-    tv = _limit_violation(xi, lower, upper)
-    cnt = 0
-    while (cnt < cfg.joint_limit_max_steps
-           and host_bool(torch.linalg.norm(tv) > 1e-2)):
-        xi = _limit_step(hp, xi, tv)
-        cnt += 1
-        tv = _limit_violation(xi, lower, upper)
-    return xi
+    exceeds 1e-2, at most ``joint_limit_max_steps`` times.  One launch of
+    the ``joint_limit`` kernel on the card; on the CPU its plain version,
+    where each check is a host read."""
+    return kernels.joint_limit(xi, lower, upper, hp.Ainv, None,
+                               cfg.joint_limit_max_steps)
 
 
 def handle_joint_limit_batch(hp: DeviceHorizon, cfg: OMGConfig, xi, lower,
@@ -309,23 +291,10 @@ def handle_joint_limit_batch(hp: DeviceHorizon, cfg: OMGConfig, xi, lower,
     D]``, ``lower``/``upper [S, D]``.  Each scene's loop runs while its own
     violation norm (over its whole trajectory) exceeds 1e-2, and only while
     ``live [S]``; a scene whose loop has ended keeps its trajectory.  One
-    host read ("any scene still running") per pass."""
-    vmap = torch.func.vmap
-    lo, hi = lower[:, None, :], upper[:, None, :]
-    tv = _limit_violation(xi, lo, hi)
-
-    def over(tv):
-        return vmap(torch.linalg.norm)(tv) > 1e-2
-
-    run = live & over(tv)
-    cnt = 0
-    while cnt < cfg.joint_limit_max_steps and host_bool(run.any()):
-        step = vmap(lambda x, t: _limit_step(hp, x, t))(xi, tv)
-        xi = torch.where(run[:, None, None], step, xi)
-        cnt += 1
-        tv = _limit_violation(xi, lo, hi)
-        run = run & over(tv)
-    return xi
+    launch for every scene on the card; on the CPU one host read ("any
+    scene still running") a pass."""
+    return kernels.joint_limit(xi, lower, upper, hp.Ainv, live,
+                               cfg.joint_limit_max_steps)
 
 
 def check_joint_limit(xi, lower, upper):

@@ -30,14 +30,25 @@ Kernels:
   an analytic or a baked scene; ``ops/sdf.py::sdf_potentials_analytic``
   and ``sdf_potentials_baked`` route here.  Its plain versions are
   ``sdf_potentials_analytic_plain`` and ``sdf_potentials_baked_plain``.
+* :func:`md_update` (``csrc/md_update.cu``) — the MD learner's expert
+  update (the Bregman projections' fixed-point loop, the experts' costs,
+  the q recurrence and the mixture), one block a scene row;
+  ``ops/learner.py::update_goal_dist`` routes its MD branch here.  Its
+  plain version is :func:`md_update_plain`.
+* :func:`joint_limit` (``csrc/joint_limit.cu``) — the CHOMP step's
+  smoothed joint-limit projection loop, one block a scene row;
+  ``ops/chomp.py::handle_joint_limit`` and ``handle_joint_limit_batch``
+  route here.  Its plain version is :func:`joint_limit_plain`.
 
-Neither of the last two has a Pallas counterpart: the JAX package leaves
-both to XLA.  Both are operators of the ``omg_torch`` namespace of a
-``torch.library.Library``, so the scene batches' ``torch.func.vmap``
-reaches them: their CPU kernel is the plain version, their CUDA kernel the
-launch, and a vmap rule folds the mapped axis into the kernel's own batch
-axis (configurations for ``panda_fk``, scene rows for ``sdf_query``).
-Neither has a gradient: a call on an input that requires grad raises.
+None of the last four has a Pallas counterpart: the JAX package leaves
+them to XLA (the last two are its ``lax.while_loop``s, which in eager
+PyTorch read the host on every pass).  All four are operators of the
+``omg_torch`` namespace of a ``torch.library.Library``, so the scene
+batches' ``torch.func.vmap`` reaches them: their CPU kernel is the plain
+version, their CUDA kernel the launch, and a vmap rule folds the mapped
+axis into the kernel's own batch axis (configurations for ``panda_fk``,
+scene rows for the others).  None has a gradient: a call on an input that
+requires grad raises.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ import torch
 from torch import Tensor
 
 from ..models import panda
+from ..utils.sync import host_bool
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -84,6 +96,12 @@ _LIBS = {
         name: [ctypes.POINTER(ctypes.c_void_p),
                ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
         for name in ("omg_sdf_query_analytic", "omg_sdf_query_baked")}),
+    "md_update": ("md_update.cu", (), {"omg_md_update": [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_float, ctypes.c_void_p]}),
+    "joint_limit": ("joint_limit.cu", (), {"omg_joint_limit": [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_void_p]}),
 }
 _ENTRIES: dict = {}
 
@@ -753,6 +771,289 @@ def sdf_query(scene, inv_poses: Tensor, points: Tensor, epsilons: Tensor,
 
 sdf_query.launches = 0
 
+
+def _rows_vmap(n_out: int, shared: tuple = ()):
+    """A vmap rule maker for an operator whose leading dims are scene rows:
+    the mapped axis becomes the leading row axis (one launch), an unmapped
+    row input is shared by every mapped row, and the inputs at the
+    positions of ``shared`` must not be mapped."""
+    def make(op):
+        def rule(info, in_dims, *args):
+            s = info.batch_size
+            rows = []
+            for i, (a, d) in enumerate(zip(args, in_dims)):
+                if not isinstance(a, Tensor) or i in shared:
+                    if d is not None:
+                        raise ValueError(f"{op} under vmap: argument {i} "
+                                         "must be the same for every row")
+                    rows.append(a)
+                else:
+                    rows.append(a.expand(s, *a.shape) if d is None
+                                else a.movedim(d, 0))
+            return op(*rows), ((0,) * n_out if n_out > 1 else 0)
+        return rule
+    return make
+
+
+def _row_count(lead) -> int:
+    s = 1
+    for n in lead:
+        s *= n
+    if s >= 2**31:
+        raise ValueError("more than 2^31 scene rows")
+    return s
+
+
+# -- md_update ---------------------------------------------------------------
+
+#: the MD learner's experts (``ops/learner.py::NUM_EXPERTS``)
+MD_EXPERTS = 5
+#: shared memory a block of ``md_update`` may hold (Hopper's 227 KB)
+_MAX_SMEM = 232448
+
+
+def md_update_plain(experts_p, cv, mask, experts_costs, q, live,
+                    optim_steps: int, max_iters: int = 20,
+                    tol: float = 1e-6, passes: bool = False):
+    """Plain version of the ``md_update`` kernel, on the arguments of its
+    operator: the MD branch of ``ops/learner.py::update_goal_dist``
+    (reference ``online_learner.py:213-235``) on ``experts_p [..., 5,
+    G]``, the finalised ``cv [..., G]``, ``mask [..., G]``,
+    ``experts_costs [..., 5]``, ``q [..., 5]`` and ``live [...]`` or None
+    (leading dims: scene rows; a row that is not live runs no pass of the
+    Bregman loop, whose condition is read on the host).  Returns (p,
+    experts_p, experts_costs, q), and with ``passes`` each (row, expert)'s
+    passes of the loop ``[..., 5]``."""
+    from .learner import _ETA_POWERS, NUM_EXPERTS, bregman_projection
+
+    mf = mask.to(cv.dtype)
+    n_valid = torch.clamp(mf.sum(-1), min=1.0)
+    eta = torch.sqrt(torch.log(n_valid + 1.0) / optim_steps)
+    etas = torch.stack([eta * (2.0**x) for x in _ETA_POWERS], dim=-1)
+    delta = mf / (4.0 * n_valid[..., None] + 1.0)  # reference :85
+    w = torch.ones_like(cv)
+    # the experts' projections are independent: one batched projection
+    p_new, it = bregman_projection(experts_p,
+                                   etas[..., :, None] * cv[..., None, :],
+                                   delta, w, mask, max_iters, tol, live=live,
+                                   passes=True)
+    c_new = ((cv * mf)[..., None, :] * p_new).sum(-1) + (
+        (w * mf)[..., None, :] * torch.abs(p_new - experts_p)).sum(-1)
+    # only the q recurrence is order-dependent: at inner step i the
+    # reference sees fresh costs for experts 0..i and last step's for the
+    # rest
+    ar = torch.arange(NUM_EXPERTS, device=cv.device)
+    for i in range(NUM_EXPERTS):
+        costs_i = torch.where(ar <= i, c_new, experts_costs)
+        q = q * torch.exp(-costs_i)
+        q = q / torch.clamp(torch.sum(q, -1, keepdim=True), min=1e-12)
+    p = torch.einsum("...e,...eg->...g", q, p_new)
+    p = p / torch.clamp(torch.sum(p, -1, keepdim=True), min=1e-12)
+    out = (p * mf, p_new, c_new, q)
+    return out + (it,) if passes else out
+
+
+def _md_update_pack(experts_p, cv, mask, experts_costs, q, live,
+                    optim_steps, max_iters):
+    """Check and lay out the C entry point's arguments: (tensors to keep
+    alive, (p, experts_p, experts_costs, q), the 10 pointers, the 4
+    ints)."""
+    dev = cv.device
+    lead, g = tuple(cv.shape[:-1]), cv.shape[-1]
+    e = MD_EXPERTS
+    if g == 0 or 4 * ((2 + 3 * e) * g + 2 * e) > _MAX_SMEM:
+        raise ValueError(f"md_update: {g} goals; the kernel takes 1 to "
+                         "3,417")
+    keep = [_f32_on("experts_p", experts_p, dev, lead + (e, g)),
+            _f32_on("cv", cv, dev, lead + (g,)),
+            _checked("mask", mask, dev, torch.bool, lead + (g,)
+                     ).contiguous(),
+            _f32_on("experts_costs", experts_costs, dev, lead + (e,)),
+            _f32_on("q", q, dev, lead + (e,))]
+    if live is not None:
+        keep.append(_checked("live", live, dev, torch.bool, lead
+                             ).contiguous())
+    outs = tuple(torch.empty(lead + shape, dtype=torch.float32, device=dev)
+                 for shape in ((g,), (e, g), (e,), (e,)))
+    ptrs = (ctypes.c_void_p * 10)(
+        *[t.data_ptr() for t in keep[:5]],
+        keep[5].data_ptr() if live is not None else None,
+        *[t.data_ptr() for t in outs])
+    dims = (ctypes.c_int * 4)(_row_count(lead), g, optim_steps, max_iters)
+    return keep, outs, ptrs, dims
+
+
+def _md_update_cuda(experts_p, cv, mask, experts_costs, q, live,
+                    optim_steps, max_iters, tol):
+    keep, outs, ptrs, dims = _md_update_pack(
+        experts_p, cv, mask, experts_costs, q, live, optim_steps, max_iters)
+    if dims[0] == 0:
+        return outs
+    status = _entry("md_update", "omg_md_update")(ptrs, dims, tol,
+                                                  _stream(cv.device))
+    del keep  # the stream orders any reuse of these blocks after the launch
+    if status != 0:
+        raise RuntimeError(f"md_update launch failed: CUDA error {status}")
+    md_update.launches += 1
+    return outs
+
+
+_md_update_op = _define(
+    "md_update(Tensor experts_p, Tensor cv, Tensor mask, "
+    "Tensor experts_costs, Tensor q, Tensor? live, int optim_steps, "
+    "int max_iters, float tol) -> (Tensor, Tensor, Tensor, Tensor)",
+    md_update_plain, _md_update_cuda, _rows_vmap(4))
+
+
+def md_update(experts_p: Tensor, cv: Tensor, mask: Tensor,
+              experts_costs: Tensor, q: Tensor, live, optim_steps: int,
+              max_iters: int = 20, tol: float = 1e-6):
+    """The MD learner's expert update of :func:`md_update_plain`'s
+    arguments (any leading scene dims; ``live`` None: every row): the
+    kernel for CUDA tensors (one launch, no host read), the plain version
+    for CPU tensors; under ``torch.func.vmap`` one call for every mapped
+    row.  Returns (p, experts_p, experts_costs, q)."""
+    return _md_update_op(experts_p, cv, mask, experts_costs, q, live,
+                         optim_steps, max_iters, tol)
+
+
+md_update.launches = 0
+
+
+# -- joint_limit -------------------------------------------------------------
+
+def _limit_violation(xi, lower, upper):
+    return (lower - xi) * (xi < lower) + (upper - xi) * (xi > upper)
+
+
+def _limit_step(ainv, xi, tv):
+    """One smoothing pass: ``xi + scale * Ainv @ tv``."""
+    tvs = ainv @ tv
+    flat_idx = torch.argmax(torch.abs(tv))
+    scale = (torch.abs(tv).max()
+             / (torch.abs(tvs.reshape(-1)[flat_idx]) + 1e-8))
+    return xi + scale * tvs
+
+
+def limit_loop_trace(xi, lower, upper, ainv, max_steps: int):
+    """The plain joint-limit loop on one trajectory ``xi [T, D]`` with
+    ``lower``/``upper [D]``, traced: (the violation norms it checks, in
+    order, and at each pass the gap between the largest |violation| and
+    the next, the argmax's margin).  It ran ``len(norms) - 1`` passes."""
+    norms, gaps = [], []
+    for _ in range(max_steps + 1):
+        tv = _limit_violation(xi, lower, upper)
+        norms.append(float(torch.linalg.norm(tv)))
+        if norms[-1] <= 1e-2 or len(norms) > max_steps:
+            break
+        top = torch.topk(tv.abs().reshape(-1), 2).values
+        gaps.append(float(top[0] - top[1]))
+        xi = _limit_step(ainv, xi, tv)
+    return norms, gaps
+
+
+def joint_limit_plain(xi, lower, upper, ainv, live, max_steps: int):
+    """Plain version of the ``joint_limit`` kernel, on the arguments of
+    its operator: the smoothed joint-limit projection
+    (``omg/optimizer.py:148-164``), which adds ``scale * Ainv @
+    violation`` while the violation's norm exceeds 1e-2, at most
+    ``max_steps`` times; each check is a host read.  ``xi [T, D]`` with
+    ``lower``/``upper [D]`` and no ``live`` is one scene; otherwise
+    ``xi [..., T, D]``, ``lower``/``upper [..., D]`` and ``live [...]``
+    (None: every row) are scene rows in lockstep, each running while its
+    own violation's norm exceeds 1e-2 and only while ``live`` (one host
+    read, "any row still running", a pass); a row whose loop has ended
+    keeps its trajectory."""
+    if xi.ndim == 2 and live is None:
+        tv = _limit_violation(xi, lower, upper)
+        cnt = 0
+        while cnt < max_steps and host_bool(torch.linalg.norm(tv) > 1e-2):
+            xi = _limit_step(ainv, xi, tv)
+            cnt += 1
+            tv = _limit_violation(xi, lower, upper)
+        return xi
+    vmap = torch.func.vmap
+    shape = xi.shape
+    xi = xi.reshape(-1, *shape[-2:])
+    lo = lower.reshape(-1, 1, shape[-1])
+    hi = upper.reshape(-1, 1, shape[-1])
+    tv = _limit_violation(xi, lo, hi)
+
+    def over(tv):
+        return vmap(torch.linalg.norm)(tv) > 1e-2
+
+    run = over(tv)
+    if live is not None:
+        run = live.reshape(-1) & run
+    cnt = 0
+    while cnt < max_steps and host_bool(run.any()):
+        step = vmap(lambda x, t: _limit_step(ainv, x, t))(xi, tv)
+        xi = torch.where(run[:, None, None], step, xi)
+        cnt += 1
+        tv = _limit_violation(xi, lo, hi)
+        run = run & over(tv)
+    return xi.reshape(shape)
+
+
+def _joint_limit_pack(xi, lower, upper, ainv, live, max_steps):
+    """Check and lay out the C entry point's arguments: (tensors to keep
+    alive, the output trajectory, the 6 pointers, the 4 ints)."""
+    dev = xi.device
+    if xi.ndim < 2:
+        raise ValueError(f"xi must be [..., T, D], got {tuple(xi.shape)}")
+    lead, (t, d) = tuple(xi.shape[:-2]), xi.shape[-2:]
+    if 4 * (t * t + 3 * t * d + 2 * d + 96) > _MAX_SMEM:
+        raise ValueError(f"joint_limit: T = {t}, D = {d} exceed a block's "
+                         "shared memory")
+    keep = [_f32_on("xi", xi, dev, lead + (t, d)),
+            _f32_on("lower", lower, dev, lead + (d,)),
+            _f32_on("upper", upper, dev, lead + (d,)),
+            _f32_on("ainv", ainv, dev, (t, t))]
+    if live is not None:
+        keep.append(_checked("live", live, dev, torch.bool, lead
+                             ).contiguous())
+    out = torch.empty(lead + (t, d), dtype=torch.float32, device=dev)
+    ptrs = (ctypes.c_void_p * 6)(
+        *[a.data_ptr() for a in keep[:4]],
+        keep[4].data_ptr() if live is not None else None, out.data_ptr())
+    dims = (ctypes.c_int * 4)(_row_count(lead) if t * d else 0, t, d,
+                              max_steps)
+    return keep, out, ptrs, dims
+
+
+def _joint_limit_cuda(xi, lower, upper, ainv, live, max_steps):
+    keep, out, ptrs, dims = _joint_limit_pack(xi, lower, upper, ainv, live,
+                                              max_steps)
+    if dims[0] == 0:
+        return out
+    status = _entry("joint_limit", "omg_joint_limit")(ptrs, dims,
+                                                      _stream(xi.device))
+    del keep  # the stream orders any reuse of these blocks after the launch
+    if status != 0:
+        raise RuntimeError(f"joint_limit launch failed: CUDA error {status}")
+    joint_limit.launches += 1
+    return out
+
+
+_joint_limit_op = _define(
+    "joint_limit(Tensor xi, Tensor lower, Tensor upper, Tensor ainv, "
+    "Tensor? live, int max_steps) -> Tensor",
+    joint_limit_plain, _joint_limit_cuda, _rows_vmap(1, shared=(3,)))
+
+
+def joint_limit(xi: Tensor, lower: Tensor, upper: Tensor, ainv: Tensor,
+                live=None, max_steps: int = 10) -> Tensor:
+    """The smoothed joint-limit projection of :func:`joint_limit_plain`'s
+    arguments (``ainv [T, T]``: ``DeviceHorizon.Ainv``): the kernel for
+    CUDA tensors (one launch, no host read), the plain version for CPU
+    tensors; under ``torch.func.vmap`` one call for every mapped row.
+    Returns the trajectory, shaped as ``xi``."""
+    return _joint_limit_op(xi, lower, upper, ainv, live, max_steps)
+
+
+joint_limit.launches = 0
+
 # every kernel wrapper of the package, for launch accounting
 KERNELS = {"min_dist_grid": min_dist_grid, "rigid_rollout": rigid_rollout,
-           "panda_fk": panda_fk, "sdf_query": sdf_query}
+           "panda_fk": panda_fk, "sdf_query": sdf_query,
+           "md_update": md_update, "joint_limit": joint_limit}

@@ -24,6 +24,7 @@ from ..utils.linalg import take_rows, top_k
 from ..utils.spline import multi_linear_interpolate
 from ..utils.sync import host_bool
 from ..utils.vmap import vmap_scenes
+from . import kernels
 from .chomp import CostParams, GoalSet
 from .sdf import (AnalyticScene, WorldPotential, sdf_potentials,
                   world_potential_lookup, world_potential_lookup_nearest)
@@ -83,7 +84,7 @@ def find_zero(f, x0, x1, iters: int = 30):
 
 def bregman_projection(x, v, delta, w, mask, max_iters: int = 20,
                        tol: float = 1e-6, uniform_w: bool = True,
-                       live=None):
+                       live=None, passes: bool = False):
     """Weighted/shifted-entropy Bregman projection onto the simplex
     (reference ``bp``, ``online_learner.py:32-58``), masked to valid goals,
     batched over rows: ``x, v [..., E, G]``; ``delta, w, mask [..., G]``
@@ -95,7 +96,8 @@ def bregman_projection(x, v, delta, w, mask, max_iters: int = 20,
     host.  ``live [...]`` (optional) leaves the rows of the scenes it marks
     False out of the loop.  ``uniform_w`` solves the inner root in closed
     form (``el = log target - logsumexp(log shiftx + z)``, clipped to the
-    bisection's bracket)."""
+    bisection's bracket).  ``passes`` also returns each row's passes of
+    the loop ``[..., E]``."""
     m = mask.to(x.dtype)[..., None, :]                        # [..., 1, G]
     delta = delta[..., None, :]
     w = w[..., None, :]
@@ -143,7 +145,8 @@ def bregman_projection(x, v, delta, w, mask, max_iters: int = 20,
     y = shiftx * torch.exp(torch.clamp((el[..., None] + alpha - v) / w,
                                        -60.0, 60.0)) - delta
     y = torch.clamp(y * m, min=0.0)
-    return y / torch.clamp(torch.sum(y, dim=-1, keepdim=True), min=1e-12)
+    y = y / torch.clamp(torch.sum(y, dim=-1, keepdim=True), min=1e-12)
+    return (y, it) if passes else y
 
 
 def _start_index(cfg: OMGConfig, t: float) -> int:
@@ -270,12 +273,22 @@ def update_goal_dist(cfg: OMGConfig, state: LearnerState, cv,
     may carry leading scene dims (``cv [..., G]``, ``traj_end [..., D]``);
     ``live`` then keeps the Bregman loop to the scenes it marks."""
     mask = goal_set.mask
+    alg = cfg.ol_alg
+    if alg == "MD":
+        # the expert update in one kernel launch (the plain version on the
+        # CPU): the five Bregman projections, their costs, the q
+        # recurrence and the mixture
+        p, experts_p, experts_costs, q = kernels.md_update(
+            state.experts_p, cv, mask, state.experts_costs, state.q, live,
+            cfg.optim_steps)
+        return state._replace(p=p, experts_p=experts_p,
+                              experts_costs=experts_costs, q=q)
+
     mf = mask.to(cv.dtype)
     g = mask.shape[-1]
     n_valid = torch.clamp(mf.sum(-1), min=1.0)
     inf = torch.full_like(cv, torch.inf)
 
-    alg = cfg.ol_alg
     if alg == "Proj":
         dists = torch.where(
             mask, torch.linalg.norm(traj_end[..., None, :] - goal_set.grasps,
@@ -299,32 +312,6 @@ def update_goal_dist(cfg: OMGConfig, state: LearnerState, cv,
         p = (p_new * 0.999 + norm_sum * 0.001) * mf
         p = p / (torch.sum(p, -1, keepdim=True) + 1e-8)
         return state._replace(p=p, sum_costs=sum_costs)
-
-    if alg == "MD":
-        eta = torch.sqrt(torch.log(n_valid + 1.0) / cfg.optim_steps)
-        etas = torch.stack([eta * (2.0**x) for x in _ETA_POWERS], dim=-1)
-        delta = mf / (4.0 * n_valid[..., None] + 1.0)  # reference :85
-        w = torch.ones_like(cv)
-        # the experts' projections are independent: one batched projection
-        p_new = bregman_projection(state.experts_p,
-                                   etas[..., :, None] * cv[..., None, :],
-                                   delta, w, mask, live=live)
-        c_new = ((cv * mf)[..., None, :] * p_new).sum(-1) + (
-            (w * mf)[..., None, :]
-            * torch.abs(p_new - state.experts_p)).sum(-1)
-        # only the q recurrence is order-dependent: at inner step i the
-        # reference sees fresh costs for experts 0..i and last step's for
-        # the rest
-        q = state.q
-        ar = torch.arange(NUM_EXPERTS, device=cv.device)
-        for i in range(NUM_EXPERTS):
-            costs_i = torch.where(ar <= i, c_new, state.experts_costs)
-            q = q * torch.exp(-costs_i)
-            q = q / torch.clamp(torch.sum(q, -1, keepdim=True), min=1e-12)
-        p = torch.einsum("...e,...eg->...g", q, p_new)
-        p = p / torch.clamp(torch.sum(p, -1, keepdim=True), min=1e-12)
-        return state._replace(p=p * mf, experts_p=p_new,
-                              experts_costs=c_new, q=q)
 
     raise ValueError(f"unknown ol_alg {alg}")
 

@@ -1,23 +1,32 @@
-"""Before and after of the plan kernels (``panda_fk``, ``sdf_query``) on one
-card, in one call: this checkout against another (for example the parent
-commit, unpacked with ``git archive`` into a directory that ``.gitignore``
-lists).
+"""Before and after on one card, in one call: this checkout against another
+(for example the parent commit, unpacked with ``git archive`` into a
+directory that ``.gitignore`` lists).
 
     python3 scripts/plan_kernels_ab.py OTHER_CHECKOUT [OUT_DIR] [PAIRS]
+        [--phases 3b|5-6]
 
-Runs each checkout's own ``chip_smoke.py`` phase 3b (``phase_environment``
-then ``phase_plan_kernels``: its kernels built from its own sources, its
-wrappers, its checks) in a fresh process, in the order other, this, this,
-other, ... (PAIRS pairs, default 2), each followed by the cold-start probe
-of this checkout's ``chip_smoke.COLD_PROBE`` on that checkout's package.
-Each run's output goes to OUT_DIR (default ``build/plan_kernels_ab``) as
-``<i>-<side>.out``.  Prints, for every phase 3b shape and side, the
-medians over the side's runs of the kernel's time (50 launches in one CUDA
-graph), its share of the bound, the time through the wrapper (or the
-vmap) and the wrapper's host time a call, then each side's cold first
-calls and the modules they imported.
+Runs each checkout's own ``chip_smoke.py`` phases in a fresh process, in
+the order other, this, this, other, ... (PAIRS pairs, default 2):
+
+* ``3b`` (default): ``phase_plan_kernels``, the plan kernels (``panda_fk``,
+  ``sdf_query``) built from the checkout's own sources, its wrappers, its
+  checks; each run followed by the cold-start probe of this checkout's
+  ``chip_smoke.COLD_PROBE`` on that checkout's package.  Reads, for every
+  shape, the kernel's time (50 launches in one CUDA graph), its bound, the
+  time through the wrapper (or the vmap) and the wrapper's host time a
+  call.
+* ``5-6``: ``phase_standard`` and ``phase_profile``, three full-width suite
+  plans, then suite scene 1's plan under ``torch.profiler``.  Reads each
+  plan's wall and host syncs, and the profiled plan's wall, device busy
+  time and device operations a step.
+
+Each run's output goes to OUT_DIR (default ``build/plan_kernels_ab/
+<phases>``) as ``<i>-<side>.out``.  Prints every run's figures, then for
+each figure and side the median over the side's runs (and, for 3b, each
+side's cold first calls and the modules they imported).
 """
 
+import argparse
 import json
 import os
 import re
@@ -30,71 +39,109 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-PHASE = ("import chip_smoke as cs; cs.phase_environment(); "
-         "cs.phase_plan_kernels('cuda')")
-LINE = re.compile(
+KERNEL_LINE = re.compile(
     r"^(panda_fk N=\d+|sdf_query \w+ B=\d+ P=\d+(?: \(vmap\))?): kernel "
     r"([\d.]+) ms \(graph of 50\), through the (?:wrapper|vmap) ([\d.]+) ms "
     r"a call.* bound ([\d.]+) ms .* wrapper host ([\d.]+) us a call")
+PLAN_LINE = re.compile(r"^standard plan suite scene (\d+): .* \| plan "
+                       r"([\d.]+) ms, (\d+) host syncs")
+PROFILE_LINE = re.compile(r"^profile standard plan suite scene 1 .*: wall "
+                          r"([\d.]+) ms under the profiler, device busy "
+                          r"([\d.]+) ms .* ([\d.]+) a plan step")
 
 
-def run_phase(root: str) -> tuple:
-    """({shape: (graph ms, bound ms, wrapper ms, host us)}, output) of one
-    run of ``root``'s phase 3b."""
-    out = subprocess.run([sys.executable, "-c", PHASE], cwd=root,
-                         capture_output=True, text=True, timeout=900)
+def read_kernels(line: str) -> dict:
+    m = KERNEL_LINE.match(line)
+    if not m:
+        return {}
+    ms, wrapped, bound, host = map(float, m.groups()[1:])
+    shape = m.group(1)
+    return {f"{shape} graph ms": ms, f"{shape} share of bound": bound / ms,
+            f"{shape} wrapper ms": wrapped, f"{shape} host us": host}
+
+
+def read_plan(line: str) -> dict:
+    m = PLAN_LINE.match(line)
+    if m:
+        return {f"scene {m.group(1)} plan ms": float(m.group(2)),
+                f"scene {m.group(1)} host syncs": float(m.group(3))}
+    m = PROFILE_LINE.match(line)
+    if m:
+        return dict(zip(("profiled wall ms", "device busy ms",
+                         "device ops a step"), map(float, m.groups())))
+    return {}
+
+
+# --phases -> (the chip_smoke phases after phase_environment, the line
+# reader, whether to probe the cold start)
+PHASES = {
+    "3b": ("cs.phase_plan_kernels('cuda')", read_kernels, True),
+    "5-6": ("cs.phase_standard('cuda'); cs.phase_profile('cuda')", read_plan,
+            False),
+}
+
+
+def run_phases(root: str, phases: str) -> tuple:
+    """({figure: value}, output) of one run of ``root``'s phases."""
+    code, read, _ = PHASES[phases]
+    out = subprocess.run(
+        [sys.executable, "-c",
+         f"import chip_smoke as cs; cs.phase_environment(); {code}"],
+        cwd=root, capture_output=True, text=True, timeout=900)
     if out.returncode != 0:
-        raise RuntimeError(f"phase 3b of {root} failed:\n"
+        raise RuntimeError(f"phases {phases} of {root} failed:\n"
                            f"{out.stderr[-3000:]}")
     rows = {}
     for line in out.stdout.splitlines():
-        m = LINE.match(line)
-        if m:
-            ms, wrapped, bound, host = map(float, m.groups()[1:])
-            rows[m.group(1)] = (ms, bound, wrapped, host)
+        rows.update(read(line))
     return rows, out.stdout
 
 
 def main() -> int:
-    other = os.path.abspath(sys.argv[1])
-    out_dir = (sys.argv[2] if len(sys.argv) > 2
-               else os.path.join(ROOT, "build", "plan_kernels_ab"))
-    pairs = int(sys.argv[3]) if len(sys.argv) > 3 else 2
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("other")
+    ap.add_argument("out_dir", nargs="?")
+    ap.add_argument("pairs", nargs="?", type=int, default=2)
+    ap.add_argument("--phases", choices=sorted(PHASES), default="3b")
+    args = ap.parse_args()
+    other = os.path.abspath(args.other)
+    out_dir = args.out_dir or os.path.join(ROOT, "build", "plan_kernels_ab",
+                                           args.phases)
     os.makedirs(out_dir, exist_ok=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
     order = []
-    for p in range(pairs):
+    for p in range(args.pairs):
         order += ["other", "this"] if p % 2 == 0 else ["this", "other"]
     runs = {"other": [], "this": []}
     colds = {"other": [], "this": []}
     for i, side in enumerate(order, 1):
         root = other if side == "other" else ROOT
-        rows, text = run_phase(root)
-        cold = cs.cold_start(root)
+        rows, text = run_phases(root, args.phases)
+        if PHASES[args.phases][2]:
+            cold = cs.cold_start(root)
+            colds[side].append(cold)
+            text += json.dumps(cold) + "\n"
         with open(os.path.join(out_dir, f"{i}-{side}.out"), "w") as f:
-            f.write(text + json.dumps(cold) + "\n")
+            f.write(text)
         runs[side].append(rows)
-        colds[side].append(cold)
-        print(f"run {i} {side}: {len(rows)} shapes, cold {cold}", flush=True)
-    for shape in runs["this"][0]:
+        print(f"run {i} {side}: {rows}", flush=True)
+    for key in runs["this"][0]:
         cells = []
         for side in ("other", "this"):
-            vals = [r[shape] for r in runs[side] if shape in r]
-            ms, bound, wrapped, host = (statistics.median(v[k] for v in vals)
-                                        for k in range(4))
-            cells.append(f"{side}: graph {ms:.4f} ms ({bound / ms:.2%} of "
-                         f"bound {bound:.6f}), wrapper {wrapped:.4f} ms, host "
-                         f"{host:.1f} us")
-        print(f"{shape}: " + "; ".join(cells))
-    for side in ("other", "this"):
-        firsts = [c["first"] for c in colds[side]]
-        print(f"cold start {side}: first panda_fk "
-              f"{[round(f[0], 4) for f in firsts]} s, first sdf_query "
-              f"{[round(f[1], 4) for f in firsts]} s, imported "
-              f"{sorted({m for c in colds[side] for m in c['heavy']})}")
+            vals = [r[key] for r in runs[side] if key in r]
+            cells.append(f"{side}: median {statistics.median(vals)} runs "
+                         f"{vals}")
+        print(f"{key}: " + "; ".join(cells))
+    for side, side_colds in colds.items():
+        if side_colds:
+            firsts = [c["first"] for c in side_colds]
+            print(f"cold start {side}: first panda_fk "
+                  f"{[round(f[0], 4) for f in firsts]} s, first sdf_query "
+                  f"{[round(f[1], 4) for f in firsts]} s, imported "
+                  f"{sorted({m for c in side_colds for m in c['heavy']})}")
     return 0
 
 
