@@ -34,15 +34,20 @@ Phases (any failure exits non-zero; no phase is skipped):
    projection) against their plain versions on the card, on every call
    suite scene 1's plan makes (the inputs captured as the learner and
    the CHOMP step pass them) and on seeded inputs at S = 1 and 8 rows
-   (G = 100 goals; T = 30, D = 9 trajectories pushed up to 1.2 rad past
-   the limits; the last row not live); bars: ``md_update`` p and experts_p within 1e-6, experts_costs
-   and q within 1e-5 of their size (1e-12 where q underflows),
-   ``joint_limit`` no farther from the float64 plain version than
-   max(1e-6, 2 x the plain version's own error); rows of a batch bit for
-   bit their single launches; each kernel's device time (50 launches in
-   one CUDA graph, median of 5 replays), the plain version's, the
-   wrapper's host time a call and the bound from this data's work (the
-   Bregman passes of each expert, the joint-limit passes of each row);
+   (G = 100 goals; T = 30, D = 9 trajectories with one to four joints
+   pushed up to 1.2 rad past the limits, ``limit_cases.seeded`` of
+   :data:`JL_SEEDS`; the last row not live); bars: ``md_update`` p and
+   experts_p within 1e-6, experts_costs and q within 1e-5 of their size
+   (1e-12 where q underflows), ``joint_limit`` no farther from the
+   float64 plain version than max(1e-6, 2 x the plain version's own
+   error); rows of a batch bit for bit their single launches; each
+   kernel's device time (50 launches in one CUDA graph, median of 5
+   replays) beside the floor (an empty kernel at the same grid, timed the
+   same way), its time through the wrapper (5 runs of 50 back-to-back
+   calls), the plain version's, the wrapper's host time a call split into
+   dispatch, checks, allocation and launch, and the bound from this
+   data's work (the Bregman passes of each expert, the joint-limit passes
+   of each row);
 4. reference: a small plan staged on the CPU, planned on the CPU and on
    the card — same goal, same verdict, trajectories within 2e-3;
 5. the standard plan at the full ``OMGConfig()`` width on three
@@ -198,6 +203,7 @@ from omg_planner_torch.planner import tasks
 from omg_planner_torch.planner.runner import (SuiteRunner, plan_pipelined,
                                               prebuild_goal_sets)
 from omg_planner_torch.planner.scene import PlanningScene
+from omg_planner_torch.utils import limit_cases
 from omg_planner_torch.utils.sync import SYNCS
 from omg_planner_torch.utils.timing import RETRIES
 from omg_planner_torch.viz.render import collision_probe
@@ -864,13 +870,14 @@ def phase_plan_kernels(dev):
 
 
 # operations of md_update, counted from csrc/md_update.cu: per (expert,
-# valid goal) the row's set-up (the goal count, delta, v, upper), each pass
-# of the Bregman loop (the logsumexp's two sweeps, the new alpha and its
-# squared step) and the final solve (the logsumexp, the projection, its
-# normalisation and the two cost terms); per valid goal the mixture (five
-# products, the sums and the normalisation); per row eta and the q
-# recurrence (5 steps of 5 exponentials, products and divisions, and a sum)
-MD_FLOPS = dict(setup=6, loop_pass=34, final=42, mix=12, row=104)
+# valid goal) the set-up (the goal count, delta, shiftx, v, the two logs,
+# upper), each pass of the Bregman loop (the logsumexp's two sweeps, the
+# new alpha and its squared step), the final solve (the logsumexp, the
+# projection, its normalisation and the two cost terms); per valid goal
+# the mixture (five products, the sums and the normalisation); per row
+# eta and the q recurrence (10 exponentials, 5 steps of 5 products, sums
+# and divisions)
+MD_FLOPS = dict(setup=14, loop_pass=15, final=25, mix=12, row=90)
 # operations of joint_limit per (t, d) element: each check of the loop (the
 # violation, its square summed) and each pass besides (the argmax, the
 # update; plus the length-T dot product, 2 T - 1)
@@ -931,7 +938,9 @@ def _jl_work(xi, passes, live) -> tuple:
     """(operations, bytes) of one ``joint_limit`` call on ``xi [S, T, D]``
     at ``passes`` per row: each live row's checks and passes; the
     trajectories read and written once, the limits read for the live rows,
-    Ainv only where a row makes a pass, the live flags where given."""
+    Ainv only where a row makes a pass, the live flags where given.  (The
+    kernel starts Ainv's copy before its first check, so it reads Ainv on
+    every live row; the bound counts what the function needs.)"""
     s, t, d = xi.shape
     n = t * d
     on = [True] * s if live is None else live.tolist()
@@ -983,43 +992,20 @@ def _jl_vs_plain(args, what):
     return k, err
 
 
-def _pushed(model, s: int, gen) -> torch.Tensor:
-    """``s`` trajectories [30, 9] between two in-limit configurations,
-    with one to four joints pushed up to 1.2 rad past a limit over a
-    stretch of timesteps (CPU)."""
-    lo, hi = model.joint_lower.cpu(), model.joint_upper.cpu()
-    out = []
-    for _ in range(s):
-        ends = lo + (hi - lo) * (0.1 + 0.8 * torch.rand(2, 9, generator=gen))
-        u = torch.linspace(0.0, 1.0, 30)[:, None]
-        xi = ends[0] + u * (ends[1] - ends[0])
-        for _ in range(int(torch.randint(1, 5, (1,), generator=gen))):
-            j = int(torch.randint(0, 7, (1,), generator=gen))
-            a = int(torch.randint(0, 25, (1,), generator=gen))
-            b = min(30, a + int(torch.randint(1, 12, (1,), generator=gen)))
-            amount = 0.6 * float(torch.rand(1, generator=gen)) + 0.005
-            ramp = amount * (1.0 + torch.linspace(0.0, 1.0, b - a))
-            xi[a:b, j] = (hi[j] + ramp if torch.rand(1, generator=gen) < 0.5
-                          else lo[j] - ramp)
-        out.append(xi)
-    return torch.stack(out)
-
-
 #: ``OMGConfig().optim_steps``: the MD learner's eta at full width
 OMG_OPTIM_STEPS = OMGConfig().optim_steps
+#: phase 3c's pushed trajectories: ``limit_cases.seeded`` of these seeds
+#: (no other check uses them), one to four joints up to 1.2 rad past a limit
+JL_SEEDS, JL_MOST, JL_REACH = range(3000, 3008), 4, 0.6
 
 
-def phase_learner_kernels(dev):
-    """``md_update`` and ``joint_limit`` against their plain versions on
-    the card at the plan's shapes (S = 1 and 8 rows; G = 100; T = 30, D =
-    9), seeded and as suite scene 1's plan gives them, rows of a batch
-    against single launches, timings and bounds; returns their two kernel
-    entries."""
+def capture_loop_calls(dev) -> tuple:
+    """Suite scene 1's plan at full width: (its steps, {"md": [...], "jl":
+    [...]}), the arguments of every ``md_update`` and ``joint_limit``
+    call it makes, captured as the learner and the CHOMP step pass them."""
     cfg = OMGConfig(silent=True)
     scene = PlanningScene.from_npz(cfg, os.path.join(SUITE, "scene_1.npz"),
                                    device=dev)
-    # suite scene 1's plan, its learner updates and joint-limit calls
-    # captured as the operators get them
     calls = {"md": [], "jl": []}
     upd, hjl = learner_mod.update_goal_dist, chomp_mod.handle_joint_limit
 
@@ -1040,22 +1026,102 @@ def phase_learner_kernels(dev):
     finally:
         learner_mod.update_goal_dist, chomp_mod.handle_joint_limit = upd, hjl
     _sync(dev)
-    steps = int(res.steps_used)
+    return int(res.steps_used), calls
+
+
+def seeded_loop_inputs(dev, model) -> tuple:
+    """Phase 3c's seeded inputs on ``dev``: (``md_update``'s 8 rows of G =
+    100 from a generator seeded 13, the last not live; ``joint_limit``'s 8
+    trajectories of :data:`JL_SEEDS` with the model's limits and Ainv, the
+    last not live)."""
+    gen = torch.Generator().manual_seed(13)
+    md8 = [t.to(dev) for t in _md_rows(100, 8, gen)]
+    md8.append(torch.arange(8, device=dev) < 7)
+    lo, hi = model.joint_lower, model.joint_upper
+    xi8 = torch.as_tensor(limit_cases.seeded(
+        (lo.cpu().numpy(), hi.cpu().numpy()), JL_SEEDS, JL_MOST,
+        JL_REACH)).to(dev)
+    jl8 = [xi8, lo[None].expand(8, 9).contiguous(),
+           hi[None].expand(8, 9).contiguous(),
+           OMGConfig().horizon().on(dev).Ainv,
+           torch.arange(8, device=dev) < 7]
+    return md8, jl8
+
+
+def _block_threads(name: str, args) -> tuple:
+    """(blocks, threads a block) of one launch of ``name`` on ``args``."""
+    if name == "md_update":
+        return int(np.prod(args[1].shape[:-1])), 32 * kernels.MD_EXPERTS
+    n = args[0].shape[-2] * args[0].shape[-1]
+    return int(np.prod(args[0].shape[:-2])), min(1024, (n + 31) // 32 * 32)
+
+
+def floor_ms(blocks: int, threads: int, dev: torch.device) -> float:
+    """An empty kernel's time at ``blocks`` x ``threads`` on CUDA device
+    ``dev`` (50 launches in one CUDA graph): what no launch of that grid
+    goes below."""
+    entry = kernels._entry("md_update", "omg_empty_launch")
+
+    def empty():
+        if entry(blocks, threads, kernels._raw_stream(dev)) != 0:
+            raise RuntimeError("the empty launch failed")
+    return time_graph(empty)
+
+
+def host_split(name: str, args) -> dict:
+    """The wrapper's host time a call (us, 200 calls each): the whole
+    call, its input checks, its output allocation and its launch (the
+    ctypes arguments and the call), and the dispatch, what is left (the
+    operator's dispatch and the wrapper's own frames)."""
+    dev = args[0].device
+    if name == "md_update":
+        ins, lead, g = kernels._md_update_inputs(*args)
+        buf, _ = kernels._md_update_outputs(lead, g, dev)
+        entry = kernels._entry("md_update", "omg_md_update")
+        parts = dict(
+            checks=lambda: kernels._md_update_inputs(*args),
+            allocation=lambda: kernels._md_update_outputs(lead, g, dev),
+            launch=lambda: entry(*kernels._md_update_args(
+                ins, buf, lead, g, OMG_OPTIM_STEPS, 20), 1e-6,
+                kernels._raw_stream(dev)))
+        whole = lambda: kernels.md_update(*args, OMG_OPTIM_STEPS)  # noqa: E731
+    else:
+        ins, lead, t, d = kernels._joint_limit_inputs(*args)
+        out = torch.empty(lead + (t, d), device=dev)
+        entry = kernels._entry("joint_limit", "omg_joint_limit")
+        parts = dict(
+            checks=lambda: kernels._joint_limit_inputs(*args),
+            allocation=lambda: torch.empty(lead + (t, d), device=dev),
+            launch=lambda: entry(*kernels._joint_limit_args(
+                ins, out, lead, t, d, 10), kernels._raw_stream(dev)))
+        whole = lambda: kernels.joint_limit(*args, 10)  # noqa: E731
+    split = {k: _host_us(fn) for k, fn in parts.items()}
+    split["total"] = _host_us(whole)
+    split["dispatch"] = split["total"] - sum(split[k] for k in parts)
+    return split
+
+
+def phase_learner_kernels(dev):
+    """``md_update`` and ``joint_limit`` against their plain versions on
+    the card at the plan's shapes (S = 1 and 8 rows; G = 100; T = 30, D =
+    9), seeded and as suite scene 1's plan gives them, rows of a batch
+    against single launches, timings, the launch floor, the wrapper's host
+    time split and bounds; returns their two kernel entries."""
+    steps, calls = capture_loop_calls(dev)
     log(f"learner kernels: suite scene 1's plan ({steps} steps) made "
         f"{len(calls['md'])} md_update and {len(calls['jl'])} joint_limit "
         "calls")
     if not calls["md"] or not calls["jl"]:
         raise AssertionError("suite scene 1's plan missed a loop kernel's "
                              "path")
+    model = panda_mod.load_panda(15, dev)
+    md8, jl8 = seeded_loop_inputs(dev, model)
 
-    gen = torch.Generator().manual_seed(13)
     md_err = jl_err = 0.0
     # md_update: every captured call, then seeded rows at S = 1 and 8 (the
     # last row not live), and the 8 rows against single launches
     for i, args in enumerate(calls["md"]):
         md_err = max(md_err, _md_vs_plain(args, f"suite scene 1 call {i}")[1])
-    md8 = [t.to(dev) for t in _md_rows(100, 8, gen)]
-    md8.append(torch.arange(8, device=dev) < 7)
     md1 = [t[:1] for t in md8]
     md_err = max(md_err, _md_vs_plain(md1, "seeded S=1")[1])
     k8, err = _md_vs_plain(md8, "seeded S=8")
@@ -1071,15 +1137,9 @@ def phase_learner_kernels(dev):
 
     # joint_limit: every captured call, seeded trajectories pushed past the
     # limits at S = 1 and 8 (the last row not live), the rows alone
-    model = scene.model
-    ainv = cfg.horizon().on(dev).Ainv
     for i, args in enumerate(calls["jl"]):
         jl_err = max(jl_err, _jl_vs_plain(args, f"suite scene 1 call {i}")[1])
-    xi8 = _pushed(model, 8, gen).to(dev)
-    lo8 = model.joint_lower[None].expand(8, 9).contiguous()
-    hi8 = model.joint_upper[None].expand(8, 9).contiguous()
-    live8 = torch.arange(8, device=dev) < 7
-    jl8 = [xi8, lo8, hi8, ainv, live8]
+    xi8, lo8, hi8, ainv, live8 = jl8
     jl1 = [xi8[0], lo8[0], hi8[0], ainv, None]
     jl_err = max(jl_err, _jl_vs_plain(jl1, "seeded S=1")[1])
     k8, err = _jl_vs_plain(jl8, "seeded S=8")
@@ -1093,8 +1153,10 @@ def phase_learner_kernels(dev):
     if not same:
         raise AssertionError("joint_limit rows depend on the batch")
 
-    # timings: 50 launches in one CUDA graph (median of 5 replays), the
-    # plain version, the wrapper's host time a call, the bound
+    # timings: 50 launches in one CUDA graph (median of 5 replays) beside
+    # an empty kernel's at the same grid, the time through the wrapper (5
+    # runs of 50 back-to-back calls), the plain version, the wrapper's
+    # host time a call and its split, the bound
     main_md = calls["md"][len(calls["md"]) // 2]
     main_jl = calls["jl"][len(calls["jl"]) // 2]
     cases = {
@@ -1132,14 +1194,23 @@ def phase_learner_kernels(dev):
             flops, nbytes = _jl_work(xi, passes, args[4])
             detail = f"passes {passes}"
         ms = time_graph(run)
+        blocks, threads = _block_threads(name, args)
+        floor = floor_ms(blocks, threads, args[0].device)
+        wrapped = time_launches(run)
         plain_ms = time_ms(plain, 5, 1)
         bound, by = _bound(flops, nbytes)
-        host = _host_us(run)
-        timing[(name, what)] = (ms, plain_ms, bound, by)
-        log(f"{name} {what}: kernel {ms:.4f} ms (graph of 50), plain "
+        split = host_split(name, args)
+        timing[(name, what)] = (ms, plain_ms, bound, by, floor,
+                                split["total"])
+        log(f"{name} {what}: kernel {ms:.5f} ms (graph of 50), floor "
+            f"{floor:.5f} ms (an empty launch of {blocks} x {threads}), "
+            f"through the wrapper {wrapped:.4f} ms a call, plain "
             f"{plain_ms:.4f} ms, bound {bound:.7f} ms ({by}; {flops:.3e} "
             f"flop, {nbytes} B), share of bound {bound / ms:.5f}, wrapper "
-            f"host {host:.1f} us a call; {detail}")
+            f"host {split['total']:.1f} us a call (dispatch "
+            f"{split['dispatch']:.1f}, checks {split['checks']:.1f}, "
+            f"allocation {split['allocation']:.1f}, launch "
+            f"{split['launch']:.1f}); {detail}")
     sm = float(smi.split()[0])
     entries = []
     for name, src, rep, err in (
@@ -1147,12 +1218,14 @@ def phase_learner_kernels(dev):
              "omg_planner_tpu/ops/learner.py:361", md_err),
             ("joint_limit", "omg_planner_torch/csrc/joint_limit.cu",
              "omg_planner_tpu/ops/chomp.py:363", jl_err)):
-        ms, plain_ms, bound, by = timing[(name, "suite scene 1 (S=1)")]
+        ms, plain_ms, bound, by, floor, host = timing[
+            (name, "suite scene 1 (S=1)")]
         entries.append(dict(name=name, route="cuda", source=src,
                             replaces=rep, launches=0, max_abs_err=err,
                             ms=ms, plain_ms=plain_ms, bound_ms=bound,
                             bound_by=by, library_ms=None,
-                            share_of_bound=bound / ms, sm_clock_mhz=sm))
+                            share_of_bound=bound / ms, floor_ms=floor,
+                            host_us=host, sm_clock_mhz=sm))
     return entries
 
 

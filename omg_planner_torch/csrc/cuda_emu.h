@@ -1,7 +1,8 @@
 // Test-only CPU emulation of the CUDA subset that the kernels of this
 // directory use, so that g++ can compile and run a kernel's own source on
 // the host (tests/test_torch_rollout_emu.py,
-// tests/test_torch_plan_kernels_emu.py).  Never part of a build for the
+// tests/test_torch_plan_kernels_emu.py,
+// tests/test_torch_learner_kernels_emu.py).  Never part of a build for the
 // card.
 //
 //   g++ -std=c++20 -O1 -shared -fPIC -DOMG_CUDA_EMU
@@ -12,12 +13,12 @@
 // and a small scheduler runs the fibers that are not waiting.
 // __syncthreads waits for the whole block, __syncwarp for the warp; a
 // block's static __shared__ arrays are one instance that every fiber sees.
-// A warp shuffle (xor or broadcast, within the warp or a segment of it) or
-// vote writes the fiber's value to a per-warp slot, waits for
-// the warp and reads its partner's slot.  Two slot buffers alternate, so
-// one wait a shuffle is enough: a fiber writes a buffer again only after
-// the whole warp passed the wait of the shuffle in between, that is after
-// every read of the earlier one.  One host thread, so the run is the same
+// A warp shuffle (xor or broadcast, within the warp or a segment of it),
+// vote or warp-wide min or max writes the fiber's value to a per-warp
+// slot, waits for the warp and reads its partner's slot (or all 32).
+// Two slot buffers alternate, so one wait a shuffle is enough: a fiber
+// writes a buffer again only after the whole warp passed the wait of the
+// shuffle in between, that is after every read of the earlier one.  One host thread, so the run is the same
 // however loaded the machine is, and a barrier that some thread never
 // reaches is reported instead of hanging.  Pointers are host pointers
 // (CPU tensors).  Every warp-level call must be made by all 32 threads of
@@ -31,6 +32,7 @@
 #include <cstddef>
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 #include <deque>
 #include <functional>
 #include <memory>
@@ -90,6 +92,7 @@ struct Barrier {
 struct Block {
   Block(int threads, size_t smem_bytes)
       : fibers(threads), warps(threads / 32), slots(2 * threads),
+        uslots(2 * threads),
         smem(smem_bytes / 4 + 4) {
     all.expected = threads;
     for (auto& w : warps) w.expected = 32;
@@ -98,6 +101,7 @@ struct Block {
   Barrier all;
   std::vector<Barrier> warps;
   std::vector<float> slots;  // [2][threads]: shuffle and vote exchange
+  std::vector<unsigned> uslots;  // [2][threads]: warp-wide min and max
   std::vector<float> smem;   // the block's dynamic shared memory
   std::deque<Fiber*> ready;
   ucontext_t scheduler;
@@ -135,6 +139,20 @@ inline float exchange(float v, int lane) {
   return buf[(t & ~31u) | static_cast<unsigned>(lane)];
 }
 
+// Publish v, meet the warp, return the warp's 32 values folded by f.
+template <class F>
+inline unsigned fold(unsigned v, F f) {
+  Fiber* me = block->current;
+  const unsigned t = me->tid;
+  unsigned* buf =
+      block->uslots.data() + (me->turn ^= 1) * block->fibers.size();
+  buf[t] = v;
+  wait_at(my_warp());
+  unsigned r = buf[t & ~31u];
+  for (unsigned l = 1; l < 32; ++l) r = f(r, buf[(t & ~31u) | l]);
+  return r;
+}
+
 inline void fiber_main() {
   block->body();
   block->current->done = true;
@@ -168,10 +186,38 @@ inline int __any_sync(unsigned, int pred) {
   return any;
 }
 
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  return emu::fold(v, [](unsigned a, unsigned b) { return a > b ? a : b; });
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  return emu::fold(v, [](unsigned a, unsigned b) { return a < b ? a : b; });
+}
+
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof u);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+
 // round-to-nearest products and sums that are never contracted (g++
 // contracts no multiply-add into an FMA for x86-64 without -mfma)
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
+
+// the pipeline primitives (cp.async): the copy happens at once, so the
+// waits have nothing to wait for
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t size,
+                                    size_t zfill = 0) {
+  std::memcpy(dst, src, size - zfill);
+  std::memset(static_cast<char*>(dst) + (size - zfill), 0, zfill);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 
 inline int atomicAdd(int* p, int v) {
   const int old = *p;

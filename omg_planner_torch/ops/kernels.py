@@ -96,9 +96,11 @@ _LIBS = {
         name: [ctypes.POINTER(ctypes.c_void_p),
                ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
         for name in ("omg_sdf_query_analytic", "omg_sdf_query_baked")}),
-    "md_update": ("md_update.cu", (), {"omg_md_update": [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-        ctypes.c_float, ctypes.c_void_p]}),
+    "md_update": ("md_update.cu", (), {
+        "omg_md_update": [ctypes.POINTER(ctypes.c_void_p),
+                          ctypes.POINTER(ctypes.c_int), ctypes.c_float,
+                          ctypes.c_void_p],
+        "omg_empty_launch": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}),
     "joint_limit": ("joint_limit.cu", (), {"omg_joint_limit": [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
         ctypes.c_void_p]}),
@@ -187,6 +189,13 @@ def _entry(lib: str, name: str):
 def _stream(dev) -> int:
     """PyTorch's current stream on CUDA device ``dev``."""
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raw_stream(dev) -> int:
+    """:func:`_stream` without building a ``torch.cuda.Stream``: the
+    current stream's handle as an int, read on every call (a graph's
+    capture, or a caller's ``torch.cuda.stream``, changes it)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def _check_points(name: str, t: torch.Tensor, device):
@@ -853,34 +862,66 @@ def md_update_plain(experts_p, cv, mask, experts_costs, q, live,
     return out + (it,) if passes else out
 
 
-def _md_update_pack(experts_p, cv, mask, experts_costs, q, live,
-                    optim_steps, max_iters):
-    """Check and lay out the C entry point's arguments: (tensors to keep
-    alive, (p, experts_p, experts_costs, q), the 10 pointers, the 4
-    ints)."""
+def _input(name: str, t: Tensor, device, dtype, shape) -> Tensor:
+    """``t`` as a kernel reads it, in one pass: of ``dtype``, on ``device``,
+    of exactly ``shape``, contiguous (copied only if it is not); raises on
+    anything else."""
+    if t.dtype != dtype or t.device != device or t.shape != shape:
+        _checked(name, t, device, dtype, shape)
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _md_update_inputs(experts_p, cv, mask, experts_costs, q, live):
+    """The kernel's inputs, checked and contiguous: (experts_p, cv, mask,
+    experts_costs, q, live or None), the leading (row) dims and G."""
     dev = cv.device
     lead, g = tuple(cv.shape[:-1]), cv.shape[-1]
-    e = MD_EXPERTS
+    e, f32 = MD_EXPERTS, torch.float32
     if g == 0 or 4 * ((2 + 3 * e) * g + 2 * e) > _MAX_SMEM:
         raise ValueError(f"md_update: {g} goals; the kernel takes 1 to "
                          "3,417")
-    keep = [_f32_on("experts_p", experts_p, dev, lead + (e, g)),
-            _f32_on("cv", cv, dev, lead + (g,)),
-            _checked("mask", mask, dev, torch.bool, lead + (g,)
-                     ).contiguous(),
-            _f32_on("experts_costs", experts_costs, dev, lead + (e,)),
-            _f32_on("q", q, dev, lead + (e,))]
-    if live is not None:
-        keep.append(_checked("live", live, dev, torch.bool, lead
-                             ).contiguous())
-    outs = tuple(torch.empty(lead + shape, dtype=torch.float32, device=dev)
-                 for shape in ((g,), (e, g), (e,), (e,)))
-    ptrs = (ctypes.c_void_p * 10)(
-        *[t.data_ptr() for t in keep[:5]],
-        keep[5].data_ptr() if live is not None else None,
-        *[t.data_ptr() for t in outs])
-    dims = (ctypes.c_int * 4)(_row_count(lead), g, optim_steps, max_iters)
-    return keep, outs, ptrs, dims
+    return (_input("experts_p", experts_p, dev, f32, lead + (e, g)),
+            _input("cv", cv, dev, f32, lead + (g,)),
+            _input("mask", mask, dev, torch.bool, lead + (g,)),
+            _input("experts_costs", experts_costs, dev, f32, lead + (e,)),
+            _input("q", q, dev, f32, lead + (e,)),
+            None if live is None
+            else _input("live", live, dev, torch.bool, lead)), lead, g
+
+
+def _md_update_outputs(lead, g: int, device):
+    """One buffer for the four outputs and its contiguous views (p [...,
+    G], experts_p [..., 5, G], experts_costs [..., 5], q [..., 5]), one
+    after another as the kernel writes them."""
+    s, e = _row_count(lead), MD_EXPERTS
+    buf = torch.empty(s * (6 * g + 2 * e), dtype=torch.float32,
+                      device=device)
+    p, ep, costs, q = buf.unsafe_split_with_sizes((s * g, s * e * g, s * e,
+                                                   s * e))
+    if lead:
+        p, costs, q = (p.view(lead + (g,)), costs.view(lead + (e,)),
+                       q.view(lead + (e,)))
+    return buf, (p, ep.view(lead + (e, g)), costs, q)
+
+
+def _md_update_args(ins, buf, lead, g, optim_steps, max_iters):
+    """The C entry point's 7 pointers and 4 ints."""
+    ptrs = (ctypes.c_void_p * 7)(*[None if t is None else t.data_ptr()
+                                   for t in ins], buf.data_ptr())
+    return ptrs, (ctypes.c_int * 4)(_row_count(lead), g, optim_steps,
+                                    max_iters)
+
+
+def _md_update_pack(experts_p, cv, mask, experts_costs, q, live,
+                    optim_steps, max_iters):
+    """Check and lay out the C entry point's arguments: (tensors to keep
+    alive, (p, experts_p, experts_costs, q), the 7 pointers, the 4
+    ints)."""
+    ins, lead, g = _md_update_inputs(experts_p, cv, mask, experts_costs, q,
+                                     live)
+    buf, outs = _md_update_outputs(lead, g, cv.device)
+    ptrs, dims = _md_update_args(ins, buf, lead, g, optim_steps, max_iters)
+    return ins, outs, ptrs, dims
 
 
 def _md_update_cuda(experts_p, cv, mask, experts_costs, q, live,
@@ -890,7 +931,7 @@ def _md_update_cuda(experts_p, cv, mask, experts_costs, q, live,
     if dims[0] == 0:
         return outs
     status = _entry("md_update", "omg_md_update")(ptrs, dims, tol,
-                                                  _stream(cv.device))
+                                                  _raw_stream(cv.device))
     del keep  # the stream orders any reuse of these blocks after the launch
     if status != 0:
         raise RuntimeError(f"md_update launch failed: CUDA error {status}")
@@ -995,30 +1036,40 @@ def joint_limit_plain(xi, lower, upper, ainv, live, max_steps: int):
     return xi.reshape(shape)
 
 
-def _joint_limit_pack(xi, lower, upper, ainv, live, max_steps):
-    """Check and lay out the C entry point's arguments: (tensors to keep
-    alive, the output trajectory, the 6 pointers, the 4 ints)."""
+def _joint_limit_inputs(xi, lower, upper, ainv, live):
+    """The kernel's inputs, checked and contiguous: (xi, lower, upper,
+    ainv, live or None), the leading (row) dims, T and D."""
     dev = xi.device
     if xi.ndim < 2:
         raise ValueError(f"xi must be [..., T, D], got {tuple(xi.shape)}")
     lead, (t, d) = tuple(xi.shape[:-2]), xi.shape[-2:]
-    if 4 * (t * t + 3 * t * d + 2 * d + 96) > _MAX_SMEM:
+    if 4 * (t * t + 3 * t * d + 2 * d + 196) > _MAX_SMEM:
         raise ValueError(f"joint_limit: T = {t}, D = {d} exceed a block's "
                          "shared memory")
-    keep = [_f32_on("xi", xi, dev, lead + (t, d)),
-            _f32_on("lower", lower, dev, lead + (d,)),
-            _f32_on("upper", upper, dev, lead + (d,)),
-            _f32_on("ainv", ainv, dev, (t, t))]
-    if live is not None:
-        keep.append(_checked("live", live, dev, torch.bool, lead
-                             ).contiguous())
-    out = torch.empty(lead + (t, d), dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * 6)(
-        *[a.data_ptr() for a in keep[:4]],
-        keep[4].data_ptr() if live is not None else None, out.data_ptr())
-    dims = (ctypes.c_int * 4)(_row_count(lead) if t * d else 0, t, d,
-                              max_steps)
-    return keep, out, ptrs, dims
+    f32 = torch.float32
+    return (_input("xi", xi, dev, f32, lead + (t, d)),
+            _input("lower", lower, dev, f32, lead + (d,)),
+            _input("upper", upper, dev, f32, lead + (d,)),
+            _input("ainv", ainv, dev, f32, (t, t)),
+            None if live is None
+            else _input("live", live, dev, torch.bool, lead)), lead, t, d
+
+
+def _joint_limit_args(ins, out, lead, t, d, max_steps):
+    """The C entry point's 6 pointers and 4 ints."""
+    ptrs = (ctypes.c_void_p * 6)(*[None if a is None else a.data_ptr()
+                                   for a in ins], out.data_ptr())
+    return ptrs, (ctypes.c_int * 4)(_row_count(lead) if t * d else 0, t, d,
+                                    max_steps)
+
+
+def _joint_limit_pack(xi, lower, upper, ainv, live, max_steps):
+    """Check and lay out the C entry point's arguments: (tensors to keep
+    alive, the output trajectory, the 6 pointers, the 4 ints)."""
+    ins, lead, t, d = _joint_limit_inputs(xi, lower, upper, ainv, live)
+    out = torch.empty(lead + (t, d), dtype=torch.float32, device=xi.device)
+    ptrs, dims = _joint_limit_args(ins, out, lead, t, d, max_steps)
+    return ins, out, ptrs, dims
 
 
 def _joint_limit_cuda(xi, lower, upper, ainv, live, max_steps):
@@ -1027,7 +1078,7 @@ def _joint_limit_cuda(xi, lower, upper, ainv, live, max_steps):
     if dims[0] == 0:
         return out
     status = _entry("joint_limit", "omg_joint_limit")(ptrs, dims,
-                                                      _stream(xi.device))
+                                                      _raw_stream(xi.device))
     del keep  # the stream orders any reuse of these blocks after the launch
     if status != 0:
         raise RuntimeError(f"joint_limit launch failed: CUDA error {status}")

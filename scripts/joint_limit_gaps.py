@@ -6,9 +6,9 @@ random trajectories pushed past the Panda's limits (CPU).
 
 Trial i draws a [30, 9] trajectory with seed i between two in-limit
 configurations and pushes one to three joints past a limit over a stretch
-of timesteps (``tests/test_torch_learner_kernels.py``'s ``pushed`` and
-``random_pushes``).  It runs ``omg_planner_torch.ops.kernels.
-joint_limit_plain`` in float32 and float64,
+of timesteps (``omg_planner_torch/utils/limit_cases.py``'s ``seeded``).
+It runs ``omg_planner_torch.ops.kernels.joint_limit_plain`` in float32
+and float64,
 ``omg_planner_tpu.ops.chomp.handle_joint_limit`` at
 ``tests/test_golden.py``'s config, and ``csrc/joint_limit.cu`` compiled
 with g++ against ``csrc/cuda_emu.h`` (as
@@ -36,9 +36,9 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 from omg_planner_torch.config import OMGConfig  # noqa: E402
 from omg_planner_torch.models import panda  # noqa: E402
 from omg_planner_torch.ops import kernels  # noqa: E402
+from omg_planner_torch.utils.limit_cases import seeded  # noqa: E402
 from omg_planner_tpu.config import OMGConfig as JConfig  # noqa: E402
 from omg_planner_tpu.ops import chomp as jchomp  # noqa: E402
-from test_torch_learner_kernels import pushed, random_pushes  # noqa: E402
 from test_torch_learner_kernels_emu import _compile, _jl_emu  # noqa: E402
 
 CFG = dict(optim_steps=10, extra_smooth_steps=3, goal_set_max_num=12,
@@ -58,9 +58,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         emu = _compile(tmp, "joint_limit").omg_joint_limit
         emu.argtypes = kernels._LIBS["joint_limit"][2]["omg_joint_limit"]
-        xis = [torch.as_tensor(pushed(
-            limits, i, random_pushes(np.random.default_rng(i))))
-            for i in range(trials)]
+        xis = list(torch.as_tensor(seeded(limits, range(trials))))
         emus = []
         for c in range(0, trials, CHUNK):
             xi = torch.stack(xis[c:c + CHUNK])

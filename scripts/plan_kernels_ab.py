@@ -3,7 +3,7 @@
 directory that ``.gitignore`` lists).
 
     python3 scripts/plan_kernels_ab.py OTHER_CHECKOUT [OUT_DIR] [PAIRS]
-        [--phases 3b|5-6]
+        [--phases 3b|3c|5-6]
 
 Runs each checkout's own ``chip_smoke.py`` phases in a fresh process, in
 the order other, this, this, other, ... (PAIRS pairs, default 2):
@@ -15,6 +15,15 @@ the order other, this, this, other, ... (PAIRS pairs, default 2):
   shape, the kernel's time (50 launches in one CUDA graph), its bound, the
   time through the wrapper (or the vmap) and the wrapper's host time a
   call.
+* ``3c``: ``phase_learner_kernels``, the loop kernels (``md_update``,
+  ``joint_limit``) built from the checkout's own sources, its wrappers,
+  its checks.  Reads, for every shape, the kernel's time (50 launches in
+  one CUDA graph), its bound, the floor (an empty kernel at the same grid,
+  50 in one graph), the time through the wrapper and the wrapper's host
+  time a call with its split (dispatch, checks, allocation, launch);
+  what a checkout's phase does not print is left out.  Each side times
+  its own phase's inputs: suite scene 1's calls are the same on both
+  sides, seeded rows only where both checkouts draw them alike.
 * ``5-6``: ``phase_standard`` and ``phase_profile``, three full-width suite
   plans, then suite scene 1's plan under ``torch.profiler``.  Reads each
   plan's wall and host syncs, and the profiled plan's wall, device busy
@@ -43,6 +52,13 @@ KERNEL_LINE = re.compile(
     r"^(panda_fk N=\d+|sdf_query \w+ B=\d+ P=\d+(?: \(vmap\))?): kernel "
     r"([\d.]+) ms \(graph of 50\), through the (?:wrapper|vmap) ([\d.]+) ms "
     r"a call.* bound ([\d.]+) ms .* wrapper host ([\d.]+) us a call")
+LOOP_LINE = re.compile(
+    r"^((?:md_update|joint_limit) .+?): kernel ([\d.]+) ms \(graph of 50\),"
+    r"(?: floor ([\d.]+) ms \([^)]*\),)?"
+    r"(?: through the wrapper ([\d.]+) ms a call,)? plain [\d.]+ ms, bound "
+    r"([\d.]+) ms .* wrapper host ([\d.]+) us a call"
+    r"(?: \(dispatch ([-\d.]+), checks ([\d.]+), allocation ([\d.]+), "
+    r"launch ([\d.]+)\))?")
 PLAN_LINE = re.compile(r"^standard plan suite scene (\d+): .* \| plan "
                        r"([\d.]+) ms, (\d+) host syncs")
 PROFILE_LINE = re.compile(r"^profile standard plan suite scene 1 .*: wall "
@@ -58,6 +74,20 @@ def read_kernels(line: str) -> dict:
     shape = m.group(1)
     return {f"{shape} graph ms": ms, f"{shape} share of bound": bound / ms,
             f"{shape} wrapper ms": wrapped, f"{shape} host us": host}
+
+
+def read_loop_kernels(line: str) -> dict:
+    m = LOOP_LINE.match(line)
+    if not m:
+        return {}
+    shape = m.group(1)
+    names = ("graph ms", "floor ms", "wrapper ms", "bound ms", "host us",
+             "dispatch us", "checks us", "allocation us", "launch us")
+    out = {f"{shape} {k}": float(v)
+           for k, v in zip(names, m.groups()[1:]) if v is not None}
+    out[f"{shape} share of bound"] = (out[f"{shape} bound ms"]
+                                      / out[f"{shape} graph ms"])
+    return out
 
 
 def read_plan(line: str) -> dict:
@@ -76,6 +106,7 @@ def read_plan(line: str) -> dict:
 # reader, whether to probe the cold start)
 PHASES = {
     "3b": ("cs.phase_plan_kernels('cuda')", read_kernels, True),
+    "3c": ("cs.phase_learner_kernels('cuda')", read_loop_kernels, False),
     "5-6": ("cs.phase_standard('cuda'); cs.phase_profile('cuda')", read_plan,
             False),
 }
@@ -133,7 +164,7 @@ def main() -> int:
         for side in ("other", "this"):
             vals = [r[key] for r in runs[side] if key in r]
             cells.append(f"{side}: median {statistics.median(vals)} runs "
-                         f"{vals}")
+                         f"{vals}" if vals else f"{side}: not printed")
         print(f"{key}: " + "; ".join(cells))
     for side, side_colds in colds.items():
         if side_colds:

@@ -57,6 +57,7 @@ from omg_planner_torch.ops import kernels
 from omg_planner_torch.ops import learner as tol
 from omg_planner_torch.ops.chomp import CostParams, GoalSet
 from omg_planner_torch.ops.sdf import AnalyticScene
+from omg_planner_torch.utils.limit_cases import pushed
 from omg_planner_torch.utils.sync import SYNCS
 from test_golden import CFG
 
@@ -222,36 +223,6 @@ def test_md_update_vmap_and_grad():
 def limits():
     model = panda.load_panda(15, "cpu")
     return model.joint_lower.numpy(), model.joint_upper.numpy()
-
-
-def pushed(limits, seed, push):
-    """A [30, 9] trajectory between two in-limit configurations, with
-    joint j's timesteps a..b moved past its limit for each (j, a, b,
-    amount) of ``push``: by ``amount`` at a, rising linearly to twice that
-    at b - 1 (amount > 0: past the upper limit, < 0: the lower)."""
-    lo, hi = limits
-    rng = np.random.default_rng(seed)
-    mid, span = (lo + hi) / 2, (hi - lo) / 2
-    ends = mid + span * rng.uniform(-0.8, 0.8, (2, 9))
-    u = np.linspace(0.0, 1.0, 30)[:, None]
-    xi = (ends[0] + u * (ends[1] - ends[0])).astype(np.float32)
-    for j, a, b, amount in push:
-        b = min(b, 30)
-        ramp = amount * (1.0 + np.linspace(0.0, 1.0, b - a))
-        xi[a:b, j] = (hi[j] + ramp) if amount > 0 else (lo[j] + ramp)
-    return xi
-
-
-def random_pushes(rng):
-    """One to three pushes for :func:`pushed` drawn from ``rng``: an arm
-    joint, a stretch of 1 to 11 timesteps, 0.005 to 0.4 rad past its
-    upper or lower limit."""
-    out = []
-    for _ in range(rng.integers(1, 4)):
-        j, a = int(rng.integers(0, 7)), int(rng.integers(0, 25))
-        out.append((j, a, a + int(rng.integers(1, 12)),
-                    float(rng.choice([-1, 1]) * rng.uniform(0.005, 0.4))))
-    return out
 
 
 # (seed, pushes): the loop runs 1, 3 and all 10 passes on these

@@ -10,19 +10,28 @@ Arguments are packed by the wrappers' own packers
 (``ops/kernels.py::_md_update_pack``, ``_joint_limit_pack``) from CPU
 tensors.  Cases, at small sizes from numpy seeds:
 
-* ``md_update``: one row at G = 100; three rows at G = 12 and G = 100
-  (masked lanes, a row with one valid goal, a row that is not live); two
-  rows with the Bregman loop cut at ``max_iters`` = 1 and 3; the rows alone and
-  reversed against the launch of three; and the q recurrence's order: with
-  the experts' last costs far from their new ones, the kernel's q is the
-  plain version's and stands far from the q that fresh costs at every
-  step, or the steps in reverse order, would give;
+* ``md_update``: one row at G = 100; three rows (masked lanes, a row
+  with one valid goal, a row that is not live) at G = 1, 12, 32, 33, 65,
+  100 and 128 (1 to 4 goals a lane, held in registers) and at 129 and
+  3,417 (the layout in shared memory; 3,417 is the wrapper's largest G,
+  and 0 and 3,418 raise); two rows with the Bregman loop cut at
+  ``max_iters`` = 1 and 3; the rows alone and reversed against the launch
+  of three; and the q recurrence's order: with the experts' last costs far
+  from their new ones, the kernel's q is the plain version's and stands
+  far from the q that fresh costs at every step, or the steps in reverse
+  order, would give;
 * ``joint_limit``: the trajectories of ``tests/test_torch_learner_kernels.py``
   whose loop runs 1, 3 and 10 passes, alone (no leading dims) and as
-  four rows with one not live; the rows alone against the launch; and a
+  four rows with one not live; the rows alone against the launch; a
   horizon of T = 120 (1,080 elements: a thread takes two; the first
-  argmax a tie), and sixteen trajectories from fresh seeds (no case
-  chosen), each held to the plain version in float64.
+  argmax a tie); sixteen trajectories from fresh seeds (no case chosen),
+  each held to the plain version in float64; rows that make no pass on an
+  Ainv of NaN (unchanged) beside one that makes a pass (NaN); and two
+  equal largest violations, in one warp and in two, where the kernel
+  takes the first index as the plain version does;
+* the wrapper: ``md_update``'s four outputs as contiguous views of one
+  buffer, and every operator's one Autograd kernel, which dispatches
+  again below autograd.
 
 Bars: ``p`` and ``experts_p`` atol 1e-6, ``experts_costs`` and ``q`` rtol
 1e-5 (the warp reductions sum in another order than torch, and the host's
@@ -47,21 +56,21 @@ import torch
 from omg_planner_torch.config import OMGConfig
 from omg_planner_torch.models import panda
 from omg_planner_torch.ops import kernels
-from test_torch_learner_kernels import (JL_CASES, MD_NAMES, md_close,
-                                        md_rows, pushed, random_pushes)
+from omg_planner_torch.utils.limit_cases import pushed, seeded
+from test_torch_learner_kernels import JL_CASES, MD_NAMES, md_close, md_rows
 
 torch.set_num_threads(2)
 
 OPTIM_STEPS = 10
 
 
-def _compile(out_dir, src):
+def _compile(out_dir, src, *flags):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel source for the CPU")
-    lib = os.path.join(out_dir, f"lib{src}_emu.so")
+    lib = os.path.join(out_dir, f"lib{src}{len(flags)}_emu.so")
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-DOMG_CUDA_EMU", "-x", "c++",
+                    "-DOMG_CUDA_EMU", *flags, "-x", "c++",
                     os.path.join(kernels.CSRC, f"{src}.cu"), "-o", lib],
                    check=True, capture_output=True)
     return ctypes.CDLL(lib)
@@ -102,7 +111,9 @@ def test_md_update_one_row(libs):
     assert got[0].shape == (100,) and got[1].shape == (5, 100)
 
 
-@pytest.mark.parametrize("g", [12, 100])
+# G = 1 to 128: 1, 2, 3 and 4 goals a lane in registers; 129 and 3,417
+# (the wrapper's largest): the shared-memory layout
+@pytest.mark.parametrize("g", [1, 12, 32, 33, 65, 100, 128, 129, 3417])
 def test_md_update_rows(libs, g):
     rows = md_rows(g, 11 * g, [None, 1, None])
     live = np.array([True, True, False])
@@ -154,6 +165,20 @@ def test_md_update_keeps_the_q_order(libs):
     for other in (recurrence(range(5), fresh_all=True),
                   recurrence(range(4, -1, -1))):
         assert np.abs(mine / other - 1).max() > 1e-2
+
+
+def test_md_update_goal_range():
+    """The wrapper takes 1 to 3,417 goals (the shared-memory layout's
+    largest block) and raises on 0 or more."""
+    for g in (0, 3418):
+        rows = [torch.as_tensor(a) for a in md_rows(max(g, 1), 3, [None])]
+        if g == 0:
+            rows = [r[..., :0] if r.shape[-1] != 5 else r for r in rows]
+        else:
+            rows = [torch.cat([r, r[..., :1]], -1) if r.shape[-1] != 5 else r
+                    for r in rows]
+        with pytest.raises(ValueError, match="1 to 3,417"):
+            kernels._md_update_pack(*rows, None, OPTIM_STEPS, 20)
 
 
 def _jl_emu(fn, xi, lo, hi, ainv, live=None):
@@ -221,14 +246,13 @@ def test_joint_limit_long_horizon(libs, limits):
 
 def test_joint_limit_seeded_pushes(libs, limits):
     """Sixteen trajectories from fresh seeds, each pushed past the limits
-    as ``random_pushes`` draws it (no case chosen), as the rows of one
-    launch.  Bar, per row: no farther from the plain version in float64
-    than max(1e-6, 2 x the float32 plain version's own distance)."""
+    as ``limit_cases.random_pushes`` draws it (no case chosen), as the
+    rows of one launch.  Bar, per row: no farther from the plain version
+    in float64 than max(1e-6, 2 x the float32 plain version's own
+    distance)."""
     lo, hi = map(torch.as_tensor, limits)
     ainv = OMGConfig().horizon().on("cpu").Ainv
-    xi = torch.stack([torch.as_tensor(pushed(
-        limits, s, random_pushes(np.random.default_rng(s))))
-        for s in range(1000, 1016)])
+    xi = torch.as_tensor(seeded(limits, range(1000, 1016)))
     lo16, hi16 = lo.expand(16, 9), hi.expand(16, 9)
     got = _jl_emu(libs["joint_limit"], xi, lo16, hi16, ainv)
     plain = kernels.joint_limit_plain(xi, lo16, hi16, ainv, None, 10)
@@ -239,3 +263,87 @@ def test_joint_limit_seeded_pushes(libs, limits):
         mine = float((got[r].double() - f64[r]).abs().max())
         assert mine <= max(1e-6, 2 * own), (r, mine, own)
     assert float((got - xi).abs().max()) > 1e-3
+
+
+def test_joint_limit_no_pass_needs_no_ainv(libs, limits):
+    """A row whose first check passes (in limits) and a row that is not
+    live make no pass: with Ainv all NaN their trajectories come out as
+    they went in.  (The kernel starts Ainv's copy before its first check,
+    so it reads Ainv on a live row, but uses it only in a pass.)  A row
+    with a pass, on the same NaN Ainv, comes out NaN."""
+    lo, hi = map(torch.as_tensor, limits)
+    nan = torch.full((30, 30), float("nan"))
+    xi = torch.stack([torch.as_tensor(pushed(limits, 3, [])),
+                      torch.as_tensor(pushed(limits, *JL_CASES[3])),
+                      torch.as_tensor(pushed(limits, *JL_CASES[1]))])
+    live = torch.tensor([True, False, True])
+    got = _jl_emu(libs["joint_limit"], xi, lo.expand(3, 9), hi.expand(3, 9),
+                  nan, live)
+    assert torch.equal(got[:2], xi[:2])
+    assert bool(got[2].isnan().any())
+
+
+def _last_index_loop(xi, lo, hi, ainv):
+    """The plain loop in float64, but with the last index of max |tv| on
+    ties (the rule the kernel must not follow)."""
+    x, lo, hi, ainv = (t.double() for t in (xi, lo, hi, ainv))
+    for _ in range(10):
+        tv = kernels._limit_violation(x, lo, hi)
+        if float(torch.linalg.norm(tv)) <= 1e-2:
+            break
+        a = tv.abs().reshape(-1)
+        idx = a.numel() - 1 - int(torch.argmax(a.flip(0)))
+        tvs = ainv @ tv
+        x = x + a.max() / (tvs.reshape(-1)[idx].abs() + 1e-8) * tvs
+    return x
+
+
+@pytest.mark.parametrize("steps", [(0, 3), (2, 25)])
+def test_joint_limit_argmax_ties(libs, limits, steps):
+    """Joint 4 pushed 0.2 rad past its upper limit at two timesteps alone:
+    the two largest |violation|s are equal (flat indices 4 and 31 in one
+    warp; 22 and 229 in warps 0 and 7).  The fused reduction takes the
+    first index, as torch.argmax: the kernel source is within 1e-6 of the
+    plain version and stands far from the loop that takes the last."""
+    lo, hi = map(torch.as_tensor, limits)
+    ainv = OMGConfig().horizon().on("cpu").Ainv
+    xi = torch.as_tensor(pushed(limits, 3, []))
+    for t in steps:
+        xi[t, 4] = hi[4] + 0.2
+    tv = kernels._limit_violation(xi, lo, hi).abs().reshape(-1)
+    top = torch.topk(tv, 2)
+    assert float(top.values[0]) == float(top.values[1]) > 0.1
+    assert sorted(top.indices.tolist()) == [9 * t + 4 for t in steps]
+    got = _jl_emu(libs["joint_limit"], xi, lo, hi, ainv)
+    _jl_close(got, kernels.joint_limit_plain(xi, lo, hi, ainv, None, 10))
+    last = _last_index_loop(xi, lo, hi, ainv)
+    assert float((got.double() - last).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_md_update_outputs_share_one_buffer(lead):
+    """The wrapper makes one allocation for the four outputs: contiguous
+    views of the shapes the schema promises, one after another in the
+    order the kernel writes them."""
+    buf, outs = kernels._md_update_outputs(lead, 7, torch.device("cpu"))
+    shapes = [lead + (7,), lead + (5, 7), lead + (5,), lead + (5,)]
+    assert [tuple(o.shape) for o in outs] == shapes
+    at = 0
+    for o in outs:
+        assert o.is_contiguous() and o.dtype == torch.float32
+        assert o.data_ptr() == buf.data_ptr() + 4 * at
+        at += o.numel()
+    assert at == buf.numel()
+
+
+def test_operators_reach_the_backend_through_the_dispatcher():
+    """Every operator of the library has one Autograd kernel, which
+    dispatches again below autograd, and no AutogradCUDA kernel of its
+    own: on the card a call reaches the CUDA kernel through every dispatch
+    key between (a dispatch mode, fake tensors, functionalization)."""
+    has = torch._C._dispatch_has_kernel_for_dispatch_key
+    for name in ("panda_fk", "sdf_query_analytic", "sdf_query_baked",
+                 "md_update", "joint_limit"):
+        op = f"omg_torch::{name}"
+        assert all(has(op, key) for key in ("CPU", "CUDA", "Autograd"))
+        assert not has(op, "AutogradCUDA")
