@@ -48,17 +48,38 @@ Phases (any failure exits non-zero; no phase is skipped):
    dispatch, checks, allocation and launch, and the bound from this
    data's work (the Bregman passes of each expert, the joint-limit passes
    of each row);
+3d. IK kernels, the goal-set build's two loops: ``ik_prefilter`` (the
+   two-stage prefilter) and ``ik_chain`` (the fused standoff chain)
+   against their plain versions on the card, on every call that suite
+   scenes 0-7's builds and a batched build of scenes 0-3 (a wave of 4)
+   make, captured as ``ops/ik.py`` passes them (B = 624 and 2,496
+   prefilter lanes, 256 and 1,024 chain lanes); bars: the prefilter's
+   lanes beyond each of 1e-6 ... 1e-2 from the float64 plain version at
+   most 2 x + 3 as many as the float32 plain version's (about 1% of its
+   lanes are chaotic) and its flags (twist norm under
+   ``ik_prefilter_tol``) the plain version's; the chain's ``ok`` equal on
+   all but one lane in 256 (each difference logged with its acceptance
+   ratios) and ``qs`` within 1e-4 rad on the lanes ok in both; rows alone
+   bit for bit their rows of the launch; each kernel's device time (50
+   launches in one CUDA graph) beside the floor, its time through the
+   wrapper, the plain version's, the wrapper's host time a call and the
+   bound from the lane-iterations this data runs;
 4. reference: a small plan staged on the CPU, planned on the CPU and on
    the card — same goal, same verdict, trajectories within 2e-3;
 5. the standard plan at the full ``OMGConfig()`` width on three
    ``data/suite_v2`` scenes (each must launch ``panda_fk``, ``sdf_query``,
-   ``md_update`` and ``joint_limit`` and no other kernel; their counts go
-   into the kernels line), with wall time and host syncs per plan;
+   ``md_update``, ``joint_limit`` and, once each in its goal-set build,
+   ``ik_prefilter`` and ``ik_chain``, and no other kernel; their counts
+   go into the kernels line), with wall time and host syncs per staging
+   (at most 9) and per plan;
 6. a ``torch.profiler`` trace of one standard plan: the device's busy
    share, its operations per plan and per plan step (fails if it records
    none), and the operations by the port's function that launched them
    (``record_function`` ranges this script puts around the FK, the
-   collision query, the CHOMP terms and the learner);
+   collision query, the CHOMP terms and the learner); then the same
+   scene's goal-set build, warm, its device operations by function (the
+   prefilter, the chain, the rest of the IK, flip and filter, prune,
+   dedupe, sampling);
 7. the perception-mode plan (``python -m omg_planner_torch -p -f 0``) at
    full width, which must launch ``min_dist_grid``;
 8. the suite runner: ``SuiteRunner`` plans ``data/suite_v2`` scenes 0-7
@@ -152,15 +173,17 @@ Phases (any failure exits non-zero; no phase is skipped):
     against ``plan_fast`` on scene 1.
 
 Phases 5, 7, 8 and each phase from 10 on run with the launch counts set
-to 0 and check them after: ``panda_fk``, ``sdf_query``, ``md_update`` and
-``joint_limit`` must launch on every phase that plans a Panda (the chain
-phase, which plans without a goal set and so without the learner:
-``sdf_query`` and ``joint_limit``), ``rigid_rollout`` on the physics,
-service and viz and apps phases, ``min_dist_grid`` in phase 7, and no
-kernel elsewhere.
+to 0 and check them after: ``panda_fk``, ``sdf_query``, ``md_update``,
+``joint_limit``, ``ik_prefilter`` and ``ik_chain`` must launch on every
+phase that builds a Panda goal set from the grasp database and plans (the
+chain phase, which plans without a goal set and so without the learner:
+``sdf_query`` and ``joint_limit``; the physics phase, which plans before
+its counts start: ``rigid_rollout`` and ``panda_fk``), ``rigid_rollout``
+on the physics, service and viz and apps phases, ``min_dist_grid`` in
+phase 7, and no kernel elsewhere.
 The line before the last is a JSON object listing every kernel with its
 launches on its path (phase 7 for ``min_dist_grid``, 13 for
-``rigid_rollout``, 5 for the plan and loop kernels), error, times and
+``rigid_rollout``, 5 for the plan, loop and IK kernels), error, times and
 bound; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -188,6 +211,7 @@ from omg_planner_torch.models import api as model_api
 from omg_planner_torch.models import chain
 from omg_planner_torch.models import panda as panda_mod
 from omg_planner_torch.ops import chomp as chomp_mod
+from omg_planner_torch.ops import ik as ik_mod
 from omg_planner_torch.ops import kernels
 from omg_planner_torch.ops import learner as learner_mod
 from omg_planner_torch.ops import sdf as sdf_mod
@@ -1229,6 +1253,282 @@ def phase_learner_kernels(dev):
     return entries
 
 
+# flops of one IK lane's twist evaluation (the hand FK with the joints'
+# origins and axes 1,302, the twist error 64, the Jacobian 84, its norm
+# 12; each cosf, sinf and acosf counted as one), of one damped Newton step
+# (J J^T + lam I 279, the Cholesky 97, the two substitutions 72, J^T sol
+# 77, the update 7) and of one stage's acceptance (two norms of 3)
+IK_FLOPS = dict(eval=1462, newton=532, accept=12)
+# the IK kernels' lanes a block, and the floats of the tables and limits a
+# block reads
+IK_BLOCK = 32
+IK_TABLES = 7 * 48 + 8 * 16 + 14
+
+
+def _ik_plain_args(args) -> list:
+    """A wrapper's arguments (the model's ``pose_0, chain_post``) as its
+    plain version takes them (``pqr, pose_0``)."""
+    at = 4 if len(args) == 13 else 2           # the chain has 13
+    pose_0, chain_post = args[at:at + 2]
+    return (list(args[:at]) + [panda_mod.pqr_table(pose_0, chain_post),
+                               pose_0] + list(args[at + 2:]))
+
+
+def _ik_work(args) -> tuple:
+    """(flops, bytes, lane-iterations) of one IK call on its data: the
+    prefilter's lanes x (iters + 1) evaluations and iters Newton steps;
+    the chain's evaluations, steps and stage ends of each lane as this
+    data runs them (``ik_chain_plain(..., passes=True)``), reading the
+    targets of the stages an active lane reaches (at most one more than it
+    ends).  The tables and limits once."""
+    b = args[1].shape[0]
+    if len(args) != 13:
+        iters = args[7]
+        flops = b * ((iters + 1) * IK_FLOPS["eval"]
+                     + iters * IK_FLOPS["newton"])
+        return flops, 4 * (b * (16 + 7 + 7 + 1) + IK_TABLES), b * (iters + 1)
+    _, _, evals, steps = kernels.ik_chain_plain(*_ik_plain_args(args),
+                                                passes=True)
+    k = args[0].shape[1]
+    ends = evals - steps
+    ev, st, en = int(evals.sum()), int(steps.sum()), int(ends.sum())
+    flops = (ev * IK_FLOPS["eval"] + st * IK_FLOPS["newton"]
+             + en * IK_FLOPS["accept"])
+    active = args[2]
+    reached = int(torch.clamp(ends[active] + 1, max=k).sum())
+    nbytes = (4 * 16 * reached + 4 * 7 * int(active.sum())
+              + b * (1 + 4 + 4 * 7 * (k - 1) + 1) + 4 * IK_TABLES)
+    return flops, nbytes, ev
+
+
+def capture_ik_calls(dev) -> list:
+    """[(kind, what, arguments)] of every ``ik_prefilter`` and ``ik_chain``
+    call that suite scenes 0-7's goal-set builds make (each scene's own
+    build) and one batched build of scenes 0-3 (a wave of 4, as
+    ``plan_pipelined(build_batch=4)`` builds it), captured as
+    ``ops/ik.py`` passes them."""
+    cfg = OMGConfig(silent=True)
+    calls, at = [], ["?"]
+
+    class Recorder:
+        """``ops/ik.py``'s view of ``ops/kernels.py`` while capturing: the
+        two IK wrappers record their arguments, the rest is the module."""
+
+        def __getattr__(self, name):
+            return getattr(kernels, name)
+
+    def recorder(kind):
+        def rec(*args):
+            calls.append((kind, at[0], [a.clone() if torch.is_tensor(a)
+                                        else a for a in args]))
+            return getattr(kernels, kind)(*args)
+        return rec
+
+    view = Recorder()
+    view.ik_prefilter, view.ik_chain = (recorder("ik_prefilter"),
+                                        recorder("ik_chain"))
+    ik_mod.kernels = view
+    try:
+        scenes = [(i, PlanningScene.from_npz(
+            cfg, os.path.join(SUITE, f"scene_{i}.npz"), device=dev))
+            for i in range(8)]
+        for i, sc in scenes:
+            at[0] = f"suite scene {i}"
+            sc.build_problem(assume_goals=True)
+        max_obj = max(len(sc.env.objects) for _, sc in scenes)
+        wave = [(i, PlanningScene.from_npz(
+            cfg, os.path.join(SUITE, f"scene_{i}.npz"), device=dev))
+            for i in range(4)]
+        at[0] = "wave of suite scenes 0-3"
+        prebuild_goal_sets(wave, cfg, wave[0][1].model, 4, max_obj)
+    finally:
+        ik_mod.kernels = kernels
+    _sync(dev)
+    return calls
+
+
+#: distances from the float64 plain version at which phase 3d counts the
+#: prefilter's lanes
+IK_DIST_STEPS = (1e-6, 1e-5, 1e-4, 1e-3, 1e-2)
+
+
+def _beyond(d: torch.Tensor) -> list:
+    """How many lanes stand farther than each of :data:`IK_DIST_STEPS`."""
+    return [int((d > x).sum()) for x in IK_DIST_STEPS]
+
+
+def _prefilter_vs_plain(args, what) -> float:
+    """``ik_prefilter`` against its plain version and the plain version in
+    float64 on the same inputs.  Its 12 steps from far seeds are chaotic
+    on about 1% of the lanes (the redundant arm's null space, ``so3_log``
+    near pi): there one ulp of a cosine moves a lane by up to 1e-1, in the
+    plain version as in the kernel, so no lane-wise or largest-distance
+    bar holds from one call to the next.  Bars: at each distance of
+    :data:`IK_DIST_STEPS`, the kernel has at most 2 x + 3 as many lanes
+    (q, and the twist norm) beyond it from float64 as the float32 plain
+    version; the flags the build takes (twist norm under
+    ``ik_prefilter_tol``) are the plain version's, but for a lane whose
+    float64 norm sits within max(1e-6, 2 x the plain version's own
+    distance on that lane) of the threshold.  Returns the largest
+    |kernel - plain|."""
+    q, err = kernels.ik_prefilter(*args)
+    pa = _ik_plain_args(args)
+    qp, ep = kernels.ik_prefilter_plain(*pa)
+    q64, e64 = kernels.ik_prefilter_plain(
+        *[_f64(a) if torch.is_tensor(a) else a for a in pa])
+    _sync(q.device)
+    ok = True
+    parts = []
+    for name, mine, own in (
+            ("q", (q.double() - q64).abs().amax(-1),
+             (qp.double() - q64).abs().amax(-1)),
+            ("norm", (err.double() - e64).abs(), (ep.double() - e64).abs())):
+        m_n, o_n = _beyond(mine), _beyond(own)
+        ok &= all(m <= 2 * o + 3 for m, o in zip(m_n, o_n))
+        parts.append(f"{name}: lanes beyond {IK_DIST_STEPS} from float64 "
+                     f"kernel {m_n}, plain {o_n}; mean/max kernel "
+                     f"{float(mine.mean()):.3e}/{float(mine.max()):.3e}, "
+                     f"plain {float(own.mean()):.3e}/{float(own.max()):.3e}")
+    tol = OMGConfig().ik_prefilter_tol
+    own_e = (ep.double() - e64).abs()
+    flips = torch.nonzero((err < tol) != (ep < tol)).flatten().tolist()
+    for i in flips:
+        margin = float(e64[i]) - tol
+        near = abs(margin) <= max(1e-6, 2 * float(own_e[i]))
+        ok &= near
+        log(f"  ik_prefilter {what}: lane {i} flag differs: kernel "
+            f"{float(err[i]):.6g}, plain {float(ep[i]):.6g}, float64 "
+            f"{float(e64[i]):.6g}, margin {margin:.3g} "
+            f"({'within' if near else 'BEYOND'} the plain version's own "
+            "distance)")
+    gap = _err([q, err], [qp, ep])
+    log(f"ik_prefilter {what} (B = {args[1].shape[0]}): {'; '.join(parts)}; "
+        f"{len(flips)} flags differ; max |kernel - plain| {gap:.3e}")
+    if not ok:
+        raise AssertionError(f"ik_prefilter {what}: beyond its bars")
+    return gap
+
+
+def _chain_margins(args, qs, lane) -> str:
+    """A chain lane's acceptance ratios (position, rotation error over 10 x
+    its tolerance; 1 is the threshold) at each recorded tail stage."""
+    pa = _ik_plain_args(args)
+    pos, rot = kernels.ik_acceptance(args[0][lane:lane + 1],
+                                     qs[lane:lane + 1], pa[4], pa[5])
+    return (f"pos {[round(float(v), 4) for v in pos[0] / (10 * args[9])]} "
+            f"rot {[round(float(v), 4) for v in rot[0] / (10 * args[10])]}")
+
+
+def _chain_vs_plain(args, what) -> float:
+    """``ik_chain`` against its plain version on the same inputs.  Bars:
+    ``ok`` equal on all but one lane in 256 (each difference logged with
+    both sides' acceptance ratios), ``qs`` within 1e-4 rad on the lanes ok
+    in both.  Returns that largest |qs - plain qs|."""
+    qs, ok = kernels.ik_chain(*args)
+    qsp, okp = kernels.ik_chain_plain(*_ik_plain_args(args))
+    _sync(qs.device)
+    b = ok.shape[0]
+    diff = torch.nonzero(ok != okp).flatten().tolist()
+    for i in diff:
+        log(f"  ik_chain {what}: lane {i} ok differs: kernel {bool(ok[i])} "
+            f"({_chain_margins(args, qs, i)}), plain {bool(okp[i])} "
+            f"({_chain_margins(args, qsp, i)})")
+    both = ok & okp
+    gap = (float((qs - qsp).abs().amax((1, 2))[both].max())
+           if bool(both.any()) else 0.0)
+    log(f"ik_chain {what} (B = {b}, {int(args[2].sum())} active): ok "
+        f"{int(ok.sum())}, plain {int(okp.sum())}, {len(diff)} differ; qs "
+        f"on the lanes ok in both within {gap:.3e} of the plain version")
+    if len(diff) > -(-b // 256) or gap > 1e-4:
+        raise AssertionError(f"ik_chain {what}: beyond its bars")
+    return gap
+
+
+def _ik_rows_alone(args, what):
+    """Every 8th lane of a call alone, and a ragged slice of 37 lanes,
+    against their rows of the call's launch: bit for bit."""
+    run = kernels.ik_chain if len(args) == 13 else kernels.ik_prefilter
+    n_lane = 4 if len(args) == 13 else 2    # the lane inputs lead
+    full = run(*args)
+    b = args[1].shape[0]
+    cuts = [slice(i, i + 1) for i in range(0, b, 8)] + [slice(3, 40)]
+    for rows in cuts:
+        one = run(*[a[rows] for a in args[:n_lane]], *args[n_lane:])
+        if not all(torch.equal(x, y[rows]) for x, y in zip(one, full)):
+            raise AssertionError(f"{run.__name__} {what}: rows {rows} alone "
+                                 "differ from the launch")
+    log(f"{run.__name__} {what}: {len(cuts)} row sets alone bit for bit "
+        "their rows of the launch")
+
+
+def phase_ik_kernels(dev):
+    """``ik_prefilter`` and ``ik_chain`` against their plain versions on
+    the card, on every call of suite scenes 0-7's goal-set builds and of a
+    wave of scenes 0-3; rows alone against the launch; timings beside the
+    floor; returns their two kernel entries."""
+    calls = capture_ik_calls(dev)
+    log(f"IK kernels: {len(calls)} calls captured "
+        f"({[(k, w, tuple(a[1].shape)) for k, w, a in calls]})")
+    kinds = [k for k, _, _ in calls]
+    if kinds.count("ik_prefilter") != 9 or kinds.count("ik_chain") != 9:
+        raise AssertionError("the builds missed an IK kernel's path")
+    errs = {"ik_prefilter": 0.0, "ik_chain": 0.0}
+    for kind, what, args in calls:
+        check = _chain_vs_plain if kind == "ik_chain" else _prefilter_vs_plain
+        errs[kind] = max(errs[kind], check(args, what))
+    main = {k: a for k, w, a in calls if w == "suite scene 1"}
+    wave = {k: a for k, w, a in calls if w.startswith("wave")}
+    for kind in errs:
+        _ik_rows_alone(main[kind], "suite scene 1")
+
+    # timings: 50 launches in one CUDA graph (median of 5 replays) beside
+    # an empty kernel's at the same grid, through the wrapper, the plain
+    # version, the wrapper's host time a call, the bound from this data's
+    # lane-iterations
+    smi = clocks_under_load(lambda: kernels.ik_chain(*wave["ik_chain"]))
+    log(f"IK kernels under load: clocks.sm, power.draw, power.limit = {smi}")
+    timing = {}
+    for kind in errs:
+        wrapper = getattr(kernels, kind)
+        plain_fn = getattr(kernels, f"{kind}_plain")
+        for what, args in (("suite scene 1", main[kind]),
+                           ("wave of 4", wave[kind])):
+            def run(args=args):
+                return wrapper(*args)
+
+            def plain(pa=_ik_plain_args(args)):
+                return plain_fn(*pa)
+            ms = time_graph(run)
+            blocks = -(-args[1].shape[0] // IK_BLOCK)
+            floor = floor_ms(blocks, IK_BLOCK, args[1].device)
+            wrapped = time_launches(run)
+            plain_ms = time_ms(plain, 3, 1)
+            flops, nbytes, lane_its = _ik_work(args)
+            bound, by = _bound(flops, nbytes)
+            host = _host_us(run)
+            timing[(kind, what)] = (ms, plain_ms, bound, by, floor, host)
+            log(f"{kind} {what}: kernel {ms:.5f} ms (graph of 50), floor "
+                f"{floor:.5f} ms (an empty launch of {blocks} x {IK_BLOCK}), "
+                f"through the wrapper {wrapped:.4f} ms a call, plain "
+                f"{plain_ms:.4f} ms, bound {bound:.7f} ms ({by}; "
+                f"{flops:.3e} flop, {nbytes} B, {lane_its} lane-iterations), "
+                f"share of bound {bound / ms:.5f}, wrapper host {host:.1f} "
+                "us a call")
+    sm = float(smi.split()[0])
+    entries = []
+    for name, rep in (("ik_prefilter", "omg_planner_tpu/ops/ik.py:199"),
+                      ("ik_chain", "omg_planner_tpu/ops/ik.py:266")):
+        ms, plain_ms, bound, by, floor, host = timing[(name, "suite scene 1")]
+        entries.append(dict(
+            name=name, route="cuda",
+            source="omg_planner_torch/csrc/ik_newton.cu", replaces=rep,
+            launches=0, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None,
+            share_of_bound=bound / ms, floor_ms=floor, host_us=host,
+            sm_clock_mhz=sm))
+    return entries
+
+
 def phase_reference(dev):
     """The plan loop on one CPU-staged problem, on the CPU and on ``dev``."""
     scene = PlanningScene.synthetic(SMALL_CFG, scene_id=5, n_obstacles=2,
@@ -1252,6 +1552,10 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
+#: the host syncs of each :func:`_timed_plan`'s staging, by its label
+STAGE_SYNCS = {}
+
+
 def _timed_plan(scene, dev, what):
     """Stage, then plan (``step(fast=True)``); logs and returns the
     result.  Counts are read after each part."""
@@ -1263,6 +1567,7 @@ def _timed_plan(scene, dev, what):
     res = scene.step(fast=True)
     _sync(dev)
     plan_ms, plan_syncs = (time.time() - t1) * 1e3, SYNCS.count - stage_syncs
+    STAGE_SYNCS[what] = stage_syncs
     if res is None:
         raise AssertionError(f"{what}: empty goal set")
     check_traj(res.traj, scene.model, what)
@@ -1273,9 +1578,16 @@ def _timed_plan(scene, dev, what):
     return res
 
 
-#: the kernels every Panda plan with the MD learner launches, and none
-#: other outside their phases
-PLAN_KERNELS = ("panda_fk", "sdf_query", "md_update", "joint_limit")
+#: the kernels of a Panda goal-set build from the grasp database: each
+#: launched once a build
+BUILD_KERNELS = ("ik_prefilter", "ik_chain")
+#: the kernels every Panda plan with the MD learner launches, its goal-set
+#: build included, and none other outside their phases
+PLAN_KERNELS = ("panda_fk", "sdf_query", "md_update",
+                "joint_limit") + BUILD_KERNELS
+#: the most host syncs that a suite scene's staging (its goal-set build
+#: and ``build_problem``) may take
+STAGE_SYNC_CAP = 9
 
 
 def _check_launches(what, expect) -> dict:
@@ -1299,8 +1611,16 @@ def phase_standard(dev) -> dict:
         path = os.path.join(SUITE, f"scene_{i}.npz")
         scene = PlanningScene.from_npz(cfg, path, device=dev)
         reset_counts()
-        _timed_plan(scene, dev, f"standard plan suite scene {i}")
+        what = f"standard plan suite scene {i}"
+        _timed_plan(scene, dev, what)
         counts = _check_launches(f"standard suite scene {i}", PLAN_KERNELS)
+        if (any(counts[k] != 1 for k in BUILD_KERNELS)
+                or STAGE_SYNCS[what] > STAGE_SYNC_CAP):
+            raise AssertionError(f"{what}: the build launched "
+                                 f"{[counts[k] for k in BUILD_KERNELS]} IK "
+                                 f"kernels and took {STAGE_SYNCS[what]} "
+                                 f"host syncs (1 each, at most "
+                                 f"{STAGE_SYNC_CAP})")
         for k in total:
             total[k] += counts[k]
     return total
@@ -1376,6 +1696,21 @@ ATTRIBUTION = {
 }
 
 
+# phase 6's attribution of a goal-set build's device operations: the two
+# IK kernels' functions, the rest of the IK (survivor ranking, gathers, the
+# chains' assembly) and the stages after it
+BUILD_ATTRIBUTION = {
+    "prefilter (ik_prefilter)": [(ik_mod, "ik_batch_fixed")],
+    "chain (ik_chain)": [(ik_mod, "_solve_chain_fused")],
+    "IK, the rest": [(ik_mod, "solve_goal_set")],
+    "flip and task-space filter": [(goal_set_mod, "flip_wrist"),
+                                   (goal_set_mod, "task_space_filter")],
+    "prune": [(goal_set_mod, "collision_prune")],
+    "dedupe": [(goal_set_mod, "diversity_dedupe")],
+    "sampling": [(goal_set_mod, "sample_goals")],
+}
+
+
 @contextlib.contextmanager
 def _ranges(spec):
     """Each (module, name) of ``spec`` ({label: [(module, name), ...]})
@@ -1401,7 +1736,9 @@ def _ranges(spec):
 def phase_profile(dev):
     """Where one standard plan's time goes: ``torch.profiler`` over
     ``step(fast=True)`` of suite scene 1 (goal set already staged), for
-    the device's busy share and the device operations per plan."""
+    the device's busy share and the device operations per plan; then the
+    same scene's goal-set build, warm, its device operations by the
+    function that launched them."""
     cfg = OMGConfig(silent=True)
     path = os.path.join(SUITE, "scene_1.npz")
     scene = PlanningScene.from_npz(cfg, path, device=dev)
@@ -1426,6 +1763,20 @@ def phase_profile(dev):
     for label, n in sorted(by_range.items(), key=lambda kv: -kv[1]):
         log(f"  {n:7d}  {n / steps:8.1f} a step  {100 * n / linked:5.1f}%  "
             f"{label}")
+
+    # the same scene's goal-set build, warm (the staging rebuilt)
+    scene._staged = None
+    with _ranges(BUILD_ATTRIBUTION):
+        _, wall_ms, n_ops, by_name, by_range = _profiled(
+            scene.build_problem, dev, "goal-set build suite scene 1")
+    busy_ms = sum(by_name.values()) / 1e3
+    linked = sum(by_range.values())
+    log(f"profile goal-set build suite scene 1 (warm): wall {wall_ms:.1f} ms "
+        f"under the profiler, device busy {busy_ms:.3f} ms, {n_ops} device "
+        f"operations ({linked} linked to their launch), by the function "
+        "that launched them:")
+    for label, n in sorted(by_range.items(), key=lambda kv: -kv[1]):
+        log(f"  {n:7d}  {100 * n / max(linked, 1):5.1f}%  {label}")
 
 
 def phase_perception(dev) -> int:
@@ -2650,6 +3001,7 @@ def main() -> int:
     entry = timed("kernels", phase_kernels, "cuda")
     plan_entries = timed("plan kernels", phase_plan_kernels, "cuda")
     plan_entries += timed("learner kernels", phase_learner_kernels, "cuda")
+    plan_entries += timed("IK kernels", phase_ik_kernels, "cuda")
     timed("reference", phase_reference, "cuda")
     standard = timed("standard", phase_standard, "cuda")
     for e in plan_entries:

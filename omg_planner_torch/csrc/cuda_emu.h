@@ -2,7 +2,8 @@
 // directory use, so that g++ can compile and run a kernel's own source on
 // the host (tests/test_torch_rollout_emu.py,
 // tests/test_torch_plan_kernels_emu.py,
-// tests/test_torch_learner_kernels_emu.py).  Never part of a build for the
+// tests/test_torch_learner_kernels_emu.py,
+// tests/test_torch_ik_kernels_emu.py).  Never part of a build for the
 // card.
 //
 //   g++ -std=c++20 -O1 -shared -fPIC -DOMG_CUDA_EMU
@@ -208,6 +209,8 @@ inline float __uint_as_float(unsigned u) {
 // contracts no multiply-add into an FMA for x86-64 without -mfma)
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
+// a fused multiply-add, rounded once (libm's fmaf)
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 
 // the pipeline primitives (cp.async): the copy happens at once, so the
 // waits have nothing to wait for

@@ -5,7 +5,10 @@ A joint-limit-clamped damped Newton iteration solves the whole goal set
 (grasps x seeds x standoff tail) at once.  The standoff chain reproduces
 ``solve_one_pose_ik`` (``omg/planner.py:17-86``): the farthest standoff
 first from the seed, then the tail poses, each seeded by the previous
-solution.  Every data-dependent loop exit (the JAX package's
+solution.  The goal-set build's two loops, the two-stage prefilter and
+the fused standoff chain, are the ``ik_prefilter`` and ``ik_chain``
+operators of ``ops/kernels.py`` (one launch each on the card, no host
+read); every other data-dependent loop exit (the JAX package's
 ``while_loop`` conditions) is read on the host once per iteration.
 """
 
@@ -23,6 +26,7 @@ from ..utils.collectives import all_gather_cat, all_reduce_max
 from ..utils.linalg import solve_spd_unrolled, take_rows, top_k
 from ..utils.pose import so3_angle, so3_log
 from ..utils.sync import host_bool
+from . import kernels
 
 
 class IKResult(NamedTuple):
@@ -81,27 +85,9 @@ def ik_single(model, target, seed, cfg: OMGConfig, lower7, upper7) -> IKResult:
 def _batch_error_and_jac(model, q7, targets):
     """Errors and Jacobians for a batch: q7 [B,7], targets [B,4,4]
     -> (e [B,6], jac [B,6,7])."""
-    b = q7.shape[0]
-    q9 = torch.cat([q7, _fingers((b,), q7)], dim=1)
-    poses, origins, axes = panda.forward_kinematics_batch(
-        model, q9, return_joint_info=True, apply_offset=False)
-    hand = poses[:, 7]
-    p = hand[:, :3, 3]
-    e_pos = targets[:, :3, 3] - p
-    r_err = torch.einsum("bij,bkj->bik", targets[:, :3, :3], hand[:, :3, :3])
-    e = torch.cat([e_pos, so3_log(r_err)], dim=1)
-    lin = torch.linalg.cross(axes[:, :7], p[:, None, :] - origins[:, :7],
-                             dim=-1)                            # [B,7,3]
-    jac = torch.cat([lin, axes[:, :7]], dim=-1)                 # [B,7,6]
-    return e, jac.transpose(1, 2)
-
-
-def _newton_step(jac, e, q, lam, lower7, upper7):
-    eye6 = torch.eye(6, dtype=q.dtype, device=q.device)
-    jjt = torch.einsum("bij,bkj->bik", jac, jac) + lam * eye6
-    dq = torch.einsum("bij,bi->bj", jac, solve_spd_unrolled(jjt, e))
-    return torch.minimum(torch.maximum(q + torch.clamp(dq, -0.5, 0.5),
-                                       lower7), upper7)
+    return kernels.ik_error_and_jac(
+        panda.pqr_table(model.pose_0, model.chain_post), model.pose_0, q7,
+        targets)
 
 
 def ik_batch(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
@@ -136,7 +122,8 @@ def ik_batch(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
     it = 0
     while it < cfg.ik_max_iters and host_bool(gate_open):
         e, jac = _batch_error_and_jac(model, q, targets)
-        q_new = _newton_step(jac, e, q, cfg.ik_damping, lower7, upper7)
+        q_new = kernels.ik_newton_step(jac, e, q, cfg.ik_damping, lower7,
+                                        upper7)
         q = (q_new if running is None else torch.where(
             running.repeat_interleave(b // num_scenes)[:, None], q_new, q))
         err = torch.linalg.norm(e, dim=1)
@@ -170,14 +157,12 @@ def ik_batch(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
 
 def ik_batch_fixed(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
                    iters: int):
-    """Fixed-iteration damped Newton sweep (the two-stage prefilter).
+    """Fixed-iteration damped Newton sweep (the two-stage prefilter), one
+    launch of the ``ik_prefilter`` kernel on the card.
     Returns (q [B, 7], post-sweep twist norm [B])."""
-    q = seeds
-    for _ in range(iters):
-        e, jac = _batch_error_and_jac(model, q, targets)
-        q = _newton_step(jac, e, q, cfg.ik_damping, lower7, upper7)
-    e, _ = _batch_error_and_jac(model, q, targets)
-    return q, torch.linalg.norm(e, dim=1)
+    return kernels.ik_prefilter(targets, seeds, model.pose_0,
+                                model.chain_post, lower7, upper7,
+                                cfg.ik_damping, iters)
 
 
 def solve_standoff_chain(model, grasp_pose, standoff_poses, seed,
@@ -208,73 +193,30 @@ def solve_standoff_chain(model, grasp_pose, standoff_poses, seed,
 def _solve_chain_fused(model, cfg: OMGConfig, chain_tgts, seeds, lower7,
                        upper7, active, scene_budgets=None):
     """The whole standoff chain as one loop with per-lane stage
-    advancement: when a lane's current stage converges (or exhausts
-    ``ik_max_iters``, or stalls) it records the solution, is graded by the
-    10x-loose acceptance on the ``so3_log`` norm (as the JAX package does),
-    and re-targets the next stage from the same q.  A failed stage ends the
-    lane.  ``ik_chain_total_budget`` caps the global iteration count.
+    advancement (``kernels.ik_chain_plain``; one launch of the ``ik_chain``
+    kernel on the card): when a lane's current stage converges (or
+    exhausts ``ik_max_iters``, or stalls) it records the solution, is
+    graded by the 10x-loose acceptance on the ``so3_log`` norm (as the JAX
+    package does), and re-targets the next stage from the same q.  A
+    failed stage ends the lane.  ``ik_chain_total_budget`` caps the global
+    iteration count.
 
     ``scene_budgets`` (one per scene, 0 = none) replaces the budget for a
     batch of scenes' lanes, scene-major and alike in count: a scene's
     lanes stop at its own budget.  The global iteration count is the same
     for every scene still running, so the lanes of S scenes advance as in
     S separate solves.  Returns (qs [B, K-1, 7] tail solutions, ok [B])."""
-    b, k = chain_tgts.shape[0], chain_tgts.shape[1]
-    dev = seeds.device
-    tol = cfg.ik_pos_tol
-    max_it = cfg.ik_max_iters
-    window = cfg.ik_stall_window
-    budget = cfg.ik_chain_total_budget
-    lanes = torch.arange(b, device=dev)
-    lane_budget = None
-    if scene_budgets is not None:
-        budget = 0 if 0 in scene_budgets else max(scene_budgets)
-        lane_budget = torch.tensor(
-            [v or 2**62 for v in scene_budgets],
-            device=dev).repeat_interleave(b // len(scene_budgets))
-
-    q = seeds
-    s = torch.where(active, 0, k)                # inactive lanes: done
-    it = torch.zeros(b, dtype=torch.int32, device=dev)
-    err_best = torch.full((b,), torch.inf, device=dev)
-    stall = torch.zeros(b, dtype=torch.int32, device=dev)
-    ok = active
-    qs = torch.zeros((b, k, 7), dtype=seeds.dtype, device=dev)
-    glob = 0
-    live = s < k
-    while (not budget or glob < budget) and host_bool(torch.any(live)):
-        stage = torch.clamp(s, max=k - 1)
-        tgt_now = chain_tgts[lanes, stage]
-        e, jac = _batch_error_and_jac(model, q, tgt_now)
-        err = torch.linalg.norm(e, dim=1)
-
-        stalled = (stall >= window) if window else torch.zeros_like(live)
-        fin = live & ((err <= tol) | (it >= max_it) | stalled)
-        pos_err = torch.linalg.norm(e[:, :3], dim=1)
-        rot_err = torch.linalg.norm(e[:, 3:], dim=1)
-        succ = (pos_err < tol * 10) & (rot_err < cfg.ik_rot_tol * 10)
-
-        rec = (fin[:, None]
-               & (torch.arange(k, device=dev)[None, :] == stage[:, None]))
-        qs = torch.where(rec[:, :, None], q[:, None, :], qs)
-        ok = ok & torch.where(fin, succ, torch.ones_like(succ))
-        s = torch.where(fin, torch.where(succ, s + 1, k), s)
-
-        q_new = _newton_step(jac, e, q, cfg.ik_damping, lower7, upper7)
-        upd = live & ~fin
-        improved = err < 0.85 * err_best
-        q = torch.where(upd[:, None], q_new, q)
-        it = torch.where(fin, 0, it + upd.to(it.dtype))
-        err_best = torch.where(fin, torch.full_like(err, torch.inf),
-                               torch.minimum(err_best, err))
-        stall = torch.where(fin | improved, 0, stall + upd.to(stall.dtype))
-        glob += 1
-        live = s < k
-        if lane_budget is not None:
-            live = live & (glob < lane_budget)
-    # budget-capped lanes never completed every stage: not valid
-    ok = ok & (s >= k)
-    return qs[:, 1:], ok
+    b = chain_tgts.shape[0]
+    if scene_budgets is None:
+        budgets = torch.full((b,), cfg.ik_chain_total_budget,
+                             dtype=torch.int32)
+    else:
+        budgets = torch.tensor(scene_budgets, dtype=torch.int32
+                               ).repeat_interleave(b // len(scene_budgets))
+    return kernels.ik_chain(
+        chain_tgts, seeds, active, budgets.to(seeds.device), model.pose_0,
+        model.chain_post, lower7, upper7, cfg.ik_damping, cfg.ik_pos_tol,
+        cfg.ik_rot_tol, cfg.ik_max_iters, cfg.ik_stall_window)
 
 
 def solve_lanes(cfg: OMGConfig, n_grasps: int, n_seeds: int) -> int:

@@ -39,15 +39,22 @@ Kernels:
   smoothed joint-limit projection loop, one block a scene row;
   ``ops/chomp.py::handle_joint_limit`` and ``handle_joint_limit_batch``
   route here.  Its plain version is :func:`joint_limit_plain`.
+* :func:`ik_prefilter` and :func:`ik_chain` (``csrc/ik_newton.cu``) — the
+  goal-set build's damped-Newton IK: the two-stage prefilter's fixed
+  sweep and the fused standoff chain, one thread a lane;
+  ``ops/ik.py::ik_batch_fixed`` and ``_solve_chain_fused`` route here.
+  Their plain versions are :func:`ik_prefilter_plain` and
+  :func:`ik_chain_plain`.
 
-None of the last four has a Pallas counterpart: the JAX package leaves
-them to XLA (the last two are its ``lax.while_loop``s, which in eager
-PyTorch read the host on every pass).  All four are operators of the
-``omg_torch`` namespace of a ``torch.library.Library``, so the scene
-batches' ``torch.func.vmap`` reaches them: their CPU kernel is the plain
-version, their CUDA kernel the launch, and a vmap rule folds the mapped
-axis into the kernel's own batch axis (configurations for ``panda_fk``,
-scene rows for the others).  None has a gradient: a call on an input that
+None of the last six has a Pallas counterpart: the JAX package leaves
+them to XLA (``md_update``, ``joint_limit`` and ``ik_chain`` replace its
+``lax.while_loop``s, which in eager PyTorch read the host on every pass).
+All six are operators of the ``omg_torch`` namespace of a
+``torch.library.Library``, so the scene batches' ``torch.func.vmap``
+reaches them: their CPU kernel is the plain version, their CUDA kernel
+the launch, and a vmap rule folds the mapped axis into the kernel's own
+batch axis (configurations for ``panda_fk``, IK lanes for the IK, scene
+rows for the others).  None has a gradient: a call on an input that
 requires grad raises.
 """
 
@@ -65,6 +72,8 @@ import torch
 from torch import Tensor
 
 from ..models import panda
+from ..utils.linalg import solve_spd_unrolled
+from ..utils.pose import so3_log
 from ..utils.sync import host_bool
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -104,6 +113,13 @@ _LIBS = {
     "joint_limit": ("joint_limit.cu", (), {"omg_joint_limit": [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
         ctypes.c_void_p]}),
+    "ik_newton": ("ik_newton.cu", (), {
+        "omg_ik_prefilter": [ctypes.POINTER(ctypes.c_void_p),
+                             ctypes.POINTER(ctypes.c_int), ctypes.c_float,
+                             ctypes.c_void_p],
+        "omg_ik_chain": [ctypes.POINTER(ctypes.c_void_p),
+                         ctypes.POINTER(ctypes.c_int)]
+        + [ctypes.c_float] * 4 + [ctypes.c_void_p]}),
 }
 _ENTRIES: dict = {}
 
@@ -511,14 +527,25 @@ def _fk_tables(pqr, pose_0, center_offset, points) -> Tensor:
     """A model's tables as the kernel reads them, checked and laid out once
     per model (they are constants, as ``panda.pqr_table`` caches them):
     pqr [7, 3, 4, 4], pose_0 [10, 4, 4], center_offset [10, 4, 4] and
-    points [10, P, 3], flat in one float32 buffer on pose_0's device."""
+    points [10, P, 3], flat in one float32 buffer on pose_0's device (its
+    head is :func:`_ik_tables`)."""
     dev = pose_0.device
     return torch.cat([
-        _f32_on("pqr", pqr, dev, (7, 3, 4, 4)).reshape(-1),
-        _f32_on("pose_0", pose_0, dev, (FK_LINKS, 4, 4)).reshape(-1),
+        _ik_tables(pqr, pose_0),
         _f32_on("center_offset", center_offset, dev,
                 (FK_LINKS, 4, 4)).reshape(-1),
         _f32_on("points", points, dev, (FK_LINKS, None, 3)).reshape(-1)])
+
+
+@functools.lru_cache(maxsize=16)
+def _ik_tables(pqr, pose_0) -> Tensor:
+    """The head of :func:`_fk_tables`' buffer, which the IK kernels read:
+    pqr [7, 3, 4, 4], then pose_0 [10, 4, 4], flat float32 on pose_0's
+    device, checked and laid out once per model."""
+    dev = pose_0.device
+    return torch.cat([
+        _f32_on("pqr", pqr, dev, (7, 3, 4, 4)).reshape(-1),
+        _f32_on("pose_0", pose_0, dev, (FK_LINKS, 4, 4)).reshape(-1)])
 
 
 def _panda_fk_pack(q, pqr, pose_0, center_offset, points, apply_offset,
@@ -1104,7 +1131,272 @@ def joint_limit(xi: Tensor, lower: Tensor, upper: Tensor, ainv: Tensor,
 
 joint_limit.launches = 0
 
+# -- the goal-set build's IK: ik_prefilter and ik_chain -----------------------
+
+def ik_error_and_jac(pqr, pose_0, q7, targets):
+    """Twist errors and Jacobians of the hand for a batch on the model's
+    tables: q7 [B, 7], targets [B, 4, 4] -> (e [B, 6], jac [B, 6, 7]).
+    The per-lane body that both IK kernels run."""
+    b = q7.shape[0]
+    q9 = torch.cat([q7, q7.new_full((b, 2), 0.04)], dim=1)
+    poses, origins, axes = panda.fk_batch_tables(pqr, pose_0, None, q9, True,
+                                                 False)
+    hand = poses[:, 7]
+    p = hand[:, :3, 3]
+    e_pos = targets[:, :3, 3] - p
+    r_err = torch.einsum("bij,bkj->bik", targets[:, :3, :3], hand[:, :3, :3])
+    e = torch.cat([e_pos, so3_log(r_err)], dim=1)
+    lin = torch.linalg.cross(axes[:, :7], p[:, None, :] - origins[:, :7],
+                             dim=-1)                            # [B,7,3]
+    jac = torch.cat([lin, axes[:, :7]], dim=-1)                 # [B,7,6]
+    return e, jac.transpose(1, 2)
+
+
+def ik_newton_step(jac, e, q, lam, lower7, upper7):
+    """One damped Newton step, clamped to +-0.5 rad and to the limits."""
+    eye6 = torch.eye(6, dtype=q.dtype, device=q.device)
+    jjt = torch.einsum("bij,bkj->bik", jac, jac) + lam * eye6
+    dq = torch.einsum("bij,bi->bj", jac, solve_spd_unrolled(jjt, e))
+    return torch.minimum(torch.maximum(q + torch.clamp(dq, -0.5, 0.5),
+                                       lower7), upper7)
+
+
+def ik_prefilter_plain(targets, seeds, pqr, pose_0, lower7, upper7,
+                       damping: float, iters: int):
+    """Plain version of the ``ik_prefilter`` kernel, on the arguments of its
+    operator: ``iters`` damped Newton steps from ``seeds [..., 7]`` towards
+    ``targets [..., 4, 4]`` (the leading dims are lanes), then the twist
+    error.  Returns (q [..., 7], twist norm [...])."""
+    lead = seeds.shape[:-1]
+    tgt, q = targets.reshape(-1, 4, 4), seeds.reshape(-1, 7)
+    for _ in range(iters):
+        e, jac = ik_error_and_jac(pqr, pose_0, q, tgt)
+        q = ik_newton_step(jac, e, q, damping, lower7, upper7)
+    e, _ = ik_error_and_jac(pqr, pose_0, q, tgt)
+    if iters == 0:
+        q = q.clone()      # an operator returns no alias of its input
+    return q.reshape(lead + (7,)), torch.linalg.norm(e, dim=1).reshape(lead)
+
+
+def ik_chain_plain(chain_tgts, seeds, active, budgets, pqr, pose_0, lower7,
+                   upper7, damping: float, pos_tol: float, rot_tol: float,
+                   max_iters: int, stall_window: int, passes: bool = False):
+    """Plain version of the ``ik_chain`` kernel, on the arguments of its
+    operator: the whole standoff chain of each lane (``chain_tgts [...,
+    K, 4, 4]``, far standoff first; the leading dims are lanes) as one
+    loop with per-lane stage advance.  When a lane's stage converges
+    (twist norm <= ``pos_tol``), exhausts ``max_iters`` or stalls (no 15%
+    gain in ``stall_window`` iterations) it records q, is graded by the
+    10x-loose acceptance on the ``so3_log`` norm and re-targets the next
+    stage from the same q; a failed stage ends the lane.  Lanes not
+    ``active`` start done.  ``budgets [...]`` int32 caps the iterations
+    that a lane may run, counted globally (0: no cap); a lane stopped by
+    it is not ok.  The loop reads "any lane live" on the host once a
+    pass.  Returns (qs [..., K-1, 7] tail solutions, ok [...]), and with
+    ``passes`` each lane's twist evaluations and Newton steps [...]."""
+    lead, k = seeds.shape[:-1], chain_tgts.shape[-3]
+    chain_tgts = chain_tgts.reshape(-1, k, 4, 4)
+    q = seeds.reshape(-1, 7)
+    active, budgets = active.reshape(-1), budgets.reshape(-1)
+    b, dev = q.shape[0], q.device
+    lanes = torch.arange(b, device=dev)
+    s = torch.where(active, 0, k)                # inactive lanes: done
+    it = torch.zeros(b, dtype=torch.int32, device=dev)
+    err_best = torch.full((b,), torch.inf, device=dev)
+    stall = torch.zeros(b, dtype=torch.int32, device=dev)
+    ok = active
+    qs = torch.zeros((b, k, 7), dtype=q.dtype, device=dev)
+    uncapped = budgets == 0
+    evals = torch.zeros(b, dtype=torch.int32, device=dev)
+    steps = torch.zeros(b, dtype=torch.int32, device=dev)
+    glob = 0
+    live = s < k
+    while host_bool(torch.any(live)):
+        if passes:
+            evals += live
+        stage = torch.clamp(s, max=k - 1)
+        tgt_now = chain_tgts[lanes, stage]
+        e, jac = ik_error_and_jac(pqr, pose_0, q, tgt_now)
+        err = torch.linalg.norm(e, dim=1)
+
+        stalled = ((stall >= stall_window) if stall_window
+                   else torch.zeros_like(live))
+        fin = live & ((err <= pos_tol) | (it >= max_iters) | stalled)
+        pos_err = torch.linalg.norm(e[:, :3], dim=1)
+        rot_err = torch.linalg.norm(e[:, 3:], dim=1)
+        succ = (pos_err < pos_tol * 10) & (rot_err < rot_tol * 10)
+
+        rec = (fin[:, None]
+               & (torch.arange(k, device=dev)[None, :] == stage[:, None]))
+        qs = torch.where(rec[:, :, None], q[:, None, :], qs)
+        ok = ok & torch.where(fin, succ, torch.ones_like(succ))
+        s = torch.where(fin, torch.where(succ, s + 1, k), s)
+
+        q_new = ik_newton_step(jac, e, q, damping, lower7, upper7)
+        upd = live & ~fin
+        if passes:
+            steps += upd
+        improved = err < 0.85 * err_best
+        q = torch.where(upd[:, None], q_new, q)
+        it = torch.where(fin, 0, it + upd.to(it.dtype))
+        err_best = torch.where(fin, torch.full_like(err, torch.inf),
+                               torch.minimum(err_best, err))
+        stall = torch.where(fin | improved, 0, stall + upd.to(stall.dtype))
+        glob += 1
+        live = (s < k) & (uncapped | (glob < budgets))
+    # budget-capped lanes never completed every stage: not valid
+    ok = ok & (s >= k)
+    out = qs[:, 1:].reshape(lead + (k - 1, 7)), ok.reshape(lead)
+    return out + (evals.reshape(lead), steps.reshape(lead)) if passes else out
+
+
+def ik_acceptance(chain_tgts, qs, pqr, pose_0):
+    """What the chain's acceptance compares at each recorded tail solution
+    ``qs [B, K-1, 7]`` against its stage's pose (``chain_tgts [B, K, 4,
+    4]``, far standoff first): (position error, ``so3_log`` norm), each [B,
+    K-1]; a stage is accepted below 10 x ``ik_pos_tol`` and 10 x
+    ``ik_rot_tol``."""
+    b, k = chain_tgts.shape[:2]
+    e, _ = ik_error_and_jac(pqr, pose_0, qs.reshape(-1, 7),
+                            chain_tgts[:, 1:].reshape(-1, 4, 4))
+    return (torch.linalg.norm(e[:, :3], dim=1).reshape(b, k - 1),
+            torch.linalg.norm(e[:, 3:], dim=1).reshape(b, k - 1))
+
+
+def _ik_shared(pqr, pose_0, lower7, upper7, dev) -> list:
+    """The model's tables and the limits as the kernels read them."""
+    tables = _ik_tables(pqr, pose_0)
+    if tables.device != dev:
+        raise ValueError(f"the model's tables are on {tables.device}, "
+                         f"expected {dev}")
+    return [tables, _input("lower7", lower7, dev, torch.float32, (7,)),
+            _input("upper7", upper7, dev, torch.float32, (7,))]
+
+
+def _ik_prefilter_pack(targets, seeds, pqr, pose_0, lower7, upper7, iters):
+    """Check and lay out the C entry point's arguments: (tensors to keep
+    alive, (q, err), the 7 pointers, the 2 ints)."""
+    dev = seeds.device
+    lead = tuple(seeds.shape[:-1])
+    f32 = torch.float32
+    ins = [_input("targets", targets, dev, f32, lead + (4, 4)),
+           _input("seeds", seeds, dev, f32, lead + (7,))]
+    ins += _ik_shared(pqr, pose_0, lower7, upper7, dev)
+    n = _row_count(lead)
+    buf = torch.empty(n * 8, dtype=f32, device=dev)
+    q, err = buf.unsafe_split_with_sizes((n * 7, n))
+    outs = (q.view(lead + (7,)), err.view(lead))
+    ptrs = (ctypes.c_void_p * 7)(*[t.data_ptr() for t in ins],
+                                 q.data_ptr(), err.data_ptr())
+    return ins, outs, ptrs, (ctypes.c_int * 2)(n, iters)
+
+
+def _ik_prefilter_cuda(targets, seeds, pqr, pose_0, lower7, upper7, damping,
+                       iters):
+    keep, outs, ptrs, dims = _ik_prefilter_pack(targets, seeds, pqr, pose_0,
+                                                lower7, upper7, iters)
+    if dims[0] == 0:
+        return outs
+    status = _entry("ik_newton", "omg_ik_prefilter")(
+        ptrs, dims, damping, _raw_stream(seeds.device))
+    del keep  # the stream orders any reuse of these blocks after the launch
+    if status != 0:
+        raise RuntimeError(f"ik_prefilter launch failed: CUDA error {status}")
+    ik_prefilter.launches += 1
+    return outs
+
+
+_ik_prefilter_op = _define(
+    "ik_prefilter(Tensor targets, Tensor seeds, Tensor pqr, Tensor pose_0, "
+    "Tensor lower7, Tensor upper7, float damping, int iters) "
+    "-> (Tensor, Tensor)",
+    ik_prefilter_plain, _ik_prefilter_cuda, _rows_vmap(2, (2, 3, 4, 5)))
+
+
+def ik_prefilter(targets: Tensor, seeds: Tensor, pose_0: Tensor,
+                 chain_post: Tensor, lower7: Tensor, upper7: Tensor,
+                 damping: float, iters: int):
+    """The two-stage goal-set solve's prefilter (:func:`ik_prefilter_plain`
+    on a ``PandaModel``'s ``pose_0`` and ``chain_post``): the kernel for
+    CUDA tensors (one launch, one thread a lane), the plain version for
+    CPU tensors.  Returns (q [..., 7], twist norm [...])."""
+    return _ik_prefilter_op(targets, seeds,
+                            panda.pqr_table(pose_0, chain_post), pose_0,
+                            lower7, upper7, damping, iters)
+
+
+ik_prefilter.launches = 0
+
+
+def _ik_chain_pack(chain_tgts, seeds, active, budgets, pqr, pose_0, lower7,
+                   upper7, max_iters, stall_window):
+    """Check and lay out the C entry point's arguments: (tensors to keep
+    alive, (qs, ok), the 9 pointers, the 4 ints)."""
+    dev = seeds.device
+    lead = tuple(seeds.shape[:-1])
+    k = chain_tgts.shape[-3] if chain_tgts.ndim >= 3 else 0
+    if k < 1:
+        raise ValueError("ik_chain: chain_tgts must be [..., K, 4, 4] with "
+                         f"K >= 1, got {tuple(chain_tgts.shape)}")
+    f32 = torch.float32
+    ins = [_input("chain_tgts", chain_tgts, dev, f32, lead + (k, 4, 4)),
+           _input("seeds", seeds, dev, f32, lead + (7,)),
+           _input("active", active, dev, torch.bool, lead),
+           _input("budgets", budgets, dev, torch.int32, lead)]
+    ins += _ik_shared(pqr, pose_0, lower7, upper7, dev)
+    n = _row_count(lead)
+    qs = torch.empty(lead + (k - 1, 7), dtype=f32, device=dev)
+    ok = torch.empty(lead, dtype=torch.bool, device=dev)
+    ptrs = (ctypes.c_void_p * 9)(*[t.data_ptr() for t in ins],
+                                 qs.data_ptr(), ok.data_ptr())
+    return ins, (qs, ok), ptrs, (ctypes.c_int * 4)(n, k, max_iters,
+                                                   stall_window)
+
+
+def _ik_chain_cuda(chain_tgts, seeds, active, budgets, pqr, pose_0, lower7,
+                   upper7, damping, pos_tol, rot_tol, max_iters,
+                   stall_window):
+    keep, outs, ptrs, dims = _ik_chain_pack(
+        chain_tgts, seeds, active, budgets, pqr, pose_0, lower7, upper7,
+        max_iters, stall_window)
+    if dims[0] == 0:
+        return outs
+    status = _entry("ik_newton", "omg_ik_chain")(
+        ptrs, dims, damping, pos_tol, pos_tol * 10, rot_tol * 10,
+        _raw_stream(seeds.device))
+    del keep  # the stream orders any reuse of these blocks after the launch
+    if status != 0:
+        raise RuntimeError(f"ik_chain launch failed: CUDA error {status}")
+    ik_chain.launches += 1
+    return outs
+
+
+_ik_chain_op = _define(
+    "ik_chain(Tensor chain_tgts, Tensor seeds, Tensor active, "
+    "Tensor budgets, Tensor pqr, Tensor pose_0, Tensor lower7, "
+    "Tensor upper7, float damping, float pos_tol, float rot_tol, "
+    "int max_iters, int stall_window) -> (Tensor, Tensor)",
+    ik_chain_plain, _ik_chain_cuda, _rows_vmap(2, (4, 5, 6, 7)))
+
+
+def ik_chain(chain_tgts: Tensor, seeds: Tensor, active: Tensor,
+             budgets: Tensor, pose_0: Tensor, chain_post: Tensor,
+             lower7: Tensor, upper7: Tensor, damping: float, pos_tol: float,
+             rot_tol: float, max_iters: int, stall_window: int):
+    """The fused standoff chain (:func:`ik_chain_plain` on a
+    ``PandaModel``'s ``pose_0`` and ``chain_post``): the kernel for CUDA
+    tensors (one launch, one thread a lane, no host read), the plain
+    version for CPU tensors.  Returns (qs [..., K-1, 7], ok [...])."""
+    return _ik_chain_op(chain_tgts, seeds, active, budgets,
+                        panda.pqr_table(pose_0, chain_post), pose_0, lower7,
+                        upper7, damping, pos_tol, rot_tol, max_iters,
+                        stall_window)
+
+
+ik_chain.launches = 0
+
 # every kernel wrapper of the package, for launch accounting
 KERNELS = {"min_dist_grid": min_dist_grid, "rigid_rollout": rigid_rollout,
            "panda_fk": panda_fk, "sdf_query": sdf_query,
-           "md_update": md_update, "joint_limit": joint_limit}
+           "md_update": md_update, "joint_limit": joint_limit,
+           "ik_prefilter": ik_prefilter, "ik_chain": ik_chain}

@@ -3,7 +3,7 @@
 directory that ``.gitignore`` lists).
 
     python3 scripts/plan_kernels_ab.py OTHER_CHECKOUT [OUT_DIR] [PAIRS]
-        [--phases 3b|3c|5-6]
+        [--phases 3b|3c|5-6|build]
 
 Runs each checkout's own ``chip_smoke.py`` phases in a fresh process, in
 the order other, this, this, other, ... (PAIRS pairs, default 2):
@@ -26,8 +26,13 @@ the order other, this, this, other, ... (PAIRS pairs, default 2):
   sides, seeded rows only where both checkouts draw them alike.
 * ``5-6``: ``phase_standard`` and ``phase_profile``, three full-width suite
   plans, then suite scene 1's plan under ``torch.profiler``.  Reads each
-  plan's wall and host syncs, and the profiled plan's wall, device busy
-  time and device operations a step.
+  staging's and plan's wall and host syncs, and the profiled plan's wall,
+  device busy time and device operations a step.
+* ``build``: :data:`BUILD_PROBE` (this script's, so it needs nothing of
+  the checkout's ``chip_smoke.py`` but ``phase_environment``) on that
+  checkout's package: suite scenes 0-2's goal-set builds at full width,
+  each built once, then rebuilt warm 5 times.  Reads each scene's median
+  warm build wall and its host syncs.
 
 Each run's output goes to OUT_DIR (default ``build/plan_kernels_ab/
 <phases>``) as ``<i>-<side>.out``.  Prints every run's figures, then for
@@ -59,8 +64,38 @@ LOOP_LINE = re.compile(
     r"([\d.]+) ms .* wrapper host ([\d.]+) us a call"
     r"(?: \(dispatch ([-\d.]+), checks ([\d.]+), allocation ([\d.]+), "
     r"launch ([\d.]+)\))?")
-PLAN_LINE = re.compile(r"^standard plan suite scene (\d+): .* \| plan "
-                       r"([\d.]+) ms, (\d+) host syncs")
+PLAN_LINE = re.compile(r"^standard plan suite scene (\d+): .* \| stage "
+                       r"([\d.]+) ms, (\d+) host syncs \| plan ([\d.]+) "
+                       r"ms, (\d+) host syncs")
+BUILD_LINE = re.compile(r"^warm build suite scene (\d+): ([\d.]+) ms .*, "
+                        r"(\d+) host syncs")
+# the warm goal-set builds of suite scenes 0-2 (each scene built once
+# first), in either checkout's package
+BUILD_PROBE = """
+import os, time
+import torch
+from omg_planner_torch.config import OMGConfig
+from omg_planner_torch.planner.scene import PlanningScene
+from omg_planner_torch.utils.sync import SYNCS
+cfg = OMGConfig(silent=True)
+for i in (0, 1, 2):
+    sc = PlanningScene.from_npz(
+        cfg, os.path.join("data", "suite_v2", f"scene_{i}.npz"),
+        device="cuda")
+    sc.build_problem()
+    walls = []
+    for _ in range(5):
+        sc._staged = None
+        torch.cuda.synchronize()
+        SYNCS.count = 0
+        t0 = time.perf_counter()
+        sc.build_problem()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"warm build suite scene {i}: {sorted(walls)[2]:.2f} ms (median "
+          f"of 5: {[round(w, 2) for w in walls]}), {SYNCS.count} host "
+          "syncs")
+"""
 PROFILE_LINE = re.compile(r"^profile standard plan suite scene 1 .*: wall "
                           r"([\d.]+) ms under the profiler, device busy "
                           r"([\d.]+) ms .* ([\d.]+) a plan step")
@@ -93,13 +128,23 @@ def read_loop_kernels(line: str) -> dict:
 def read_plan(line: str) -> dict:
     m = PLAN_LINE.match(line)
     if m:
-        return {f"scene {m.group(1)} plan ms": float(m.group(2)),
-                f"scene {m.group(1)} host syncs": float(m.group(3))}
+        i = m.group(1)
+        return dict(zip((f"scene {i} stage ms", f"scene {i} stage syncs",
+                         f"scene {i} plan ms", f"scene {i} host syncs"),
+                        map(float, m.groups()[1:])))
     m = PROFILE_LINE.match(line)
     if m:
         return dict(zip(("profiled wall ms", "device busy ms",
                          "device ops a step"), map(float, m.groups())))
     return {}
+
+
+def read_build(line: str) -> dict:
+    m = BUILD_LINE.match(line)
+    if not m:
+        return {}
+    return {f"scene {m.group(1)} warm build ms": float(m.group(2)),
+            f"scene {m.group(1)} warm build host syncs": float(m.group(3))}
 
 
 # --phases -> (the chip_smoke phases after phase_environment, the line
@@ -109,6 +154,7 @@ PHASES = {
     "3c": ("cs.phase_learner_kernels('cuda')", read_loop_kernels, False),
     "5-6": ("cs.phase_standard('cuda'); cs.phase_profile('cuda')", read_plan,
             False),
+    "build": (f"exec({BUILD_PROBE!r})", read_build, False),
 }
 
 
