@@ -60,10 +60,12 @@ Phases (any failure exits non-zero; no phase is skipped):
    ``ik_prefilter_tol``) the plain version's; the chain's ``ok`` equal on
    all but one lane in 256 (each difference logged with its acceptance
    ratios) and ``qs`` within 1e-4 rad on the lanes ok in both; rows alone
-   bit for bit their rows of the launch; each kernel's device time (50
-   launches in one CUDA graph) beside the floor, its time through the
-   wrapper, the plain version's, the wrapper's host time a call and the
-   bound from the lane-iterations this data runs;
+   bit for bit their rows of the launch; each kernel's registers, stack
+   frame and spill stores from ptxas (fails on a spill, or a stack frame
+   beyond libdevice's 32 bytes); each kernel's device time (50 launches
+   in one CUDA graph) beside the floor, its time through the wrapper, the
+   plain version's, the wrapper's host time a call and the bound from the
+   lane-iterations this data runs;
 4. reference: a small plan staged on the CPU, planned on the CPU and on
    the card — same goal, same verdict, trajectories within 2e-3;
 5. the standard plan at the full ``OMGConfig()`` width on three
@@ -79,7 +81,8 @@ Phases (any failure exits non-zero; no phase is skipped):
    collision query, the CHOMP terms and the learner); then the same
    scene's goal-set build, warm, its device operations by function (the
    prefilter, the chain, the rest of the IK, flip and filter, prune,
-   dedupe, sampling);
+   dedupe, sampling; fails unless the prefilter's and the chain's ranges
+   hold one operation each, the launch);
 7. the perception-mode plan (``python -m omg_planner_torch -p -f 0``) at
    full width, which must launch ``min_dist_grid``;
 8. the suite runner: ``SuiteRunner`` plans ``data/suite_v2`` scenes 0-7
@@ -192,6 +195,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -390,9 +394,14 @@ def phase_environment():
         raise AssertionError("TF32 must be off")
 
 
+#: the compiler's output of each library phase 2 built ({library: text})
+BUILD_LOGS = {}
+
+
 def phase_build():
     t0 = time.time()
     logs = kernels.build(extra_flags=("-Xptxas", "-v"))
+    BUILD_LOGS.update(logs)
     for src, out in logs.items():
         log(f"[build {src}]\n{out.strip()}")
     log(f"build: {time.time() - t0:.2f} s for {len(logs)} source(s)")
@@ -1259,10 +1268,18 @@ def phase_learner_kernels(dev):
 # (J J^T + lam I 279, the Cholesky 97, the two substitutions 72, J^T sol
 # 77, the update 7) and of one stage's acceptance (two norms of 3)
 IK_FLOPS = dict(eval=1462, newton=532, accept=12)
-# the IK kernels' lanes a block, and the floats of the tables and limits a
-# block reads
-IK_BLOCK = 32
+# the IK kernels' layout (csrc/ik_newton.cu: one warp a lane, 4 lanes a
+# block), and the floats of the tables and limits a block reads
+IK_LANES, IK_THREADS = 4, 128
 IK_TABLES = 7 * 48 + 8 * 16 + 14
+# the IK kernels' entry functions in ptxas' report
+IK_ENTRIES = {"ik_prefilter": "ik_prefilter_kernel",
+              "ik_chain": "ik_chain_kernel"}
+# the one stack frame the IK kernels may keep: libdevice's cosf and sinf
+# hold the 7 words of their Payne-Hanek reduction (arguments of 105615
+# and more, which no joint angle reaches) in a 28-byte local array that
+# ptxas does not keep in registers in these kernels
+IK_STACK_BYTES = 32
 
 
 def _ik_plain_args(args) -> list:
@@ -1296,9 +1313,16 @@ def _ik_work(args) -> tuple:
              + en * IK_FLOPS["accept"])
     active = args[2]
     reached = int(torch.clamp(ends[active] + 1, max=k).sum())
+    per_lane = 4 if torch.is_tensor(args[3]) else 0    # a budget tensor
     nbytes = (4 * 16 * reached + 4 * 7 * int(active.sum())
-              + b * (1 + 4 + 4 * 7 * (k - 1) + 1) + 4 * IK_TABLES)
+              + b * (1 + per_lane + 4 * 7 * (k - 1) + 1) + 4 * IK_TABLES)
     return flops, nbytes, ev
+
+
+def _copy_as_laid_out(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` with its strides (a strided view stays one)."""
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=t.device).copy_(t)
 
 
 def capture_ik_calls(dev) -> list:
@@ -1306,7 +1330,8 @@ def capture_ik_calls(dev) -> list:
     call that suite scenes 0-7's goal-set builds make (each scene's own
     build) and one batched build of scenes 0-3 (a wave of 4, as
     ``plan_pipelined(build_batch=4)`` builds it), captured as
-    ``ops/ik.py`` passes them."""
+    ``ops/ik.py`` passes them: the prefilter's targets a strided view,
+    the chain's budget an int where it is every lane's."""
     cfg = OMGConfig(silent=True)
     calls, at = [], ["?"]
 
@@ -1319,8 +1344,9 @@ def capture_ik_calls(dev) -> list:
 
     def recorder(kind):
         def rec(*args):
-            calls.append((kind, at[0], [a.clone() if torch.is_tensor(a)
-                                        else a for a in args]))
+            calls.append((kind, at[0], [_copy_as_laid_out(a)
+                                        if torch.is_tensor(a) else a
+                                        for a in args]))
             return getattr(kernels, kind)(*args)
         return rec
 
@@ -1453,7 +1479,8 @@ def _ik_rows_alone(args, what):
     b = args[1].shape[0]
     cuts = [slice(i, i + 1) for i in range(0, b, 8)] + [slice(3, 40)]
     for rows in cuts:
-        one = run(*[a[rows] for a in args[:n_lane]], *args[n_lane:])
+        one = run(*[a[rows] if torch.is_tensor(a) else a   # an int budget
+                    for a in args[:n_lane]], *args[n_lane:])
         if not all(torch.equal(x, y[rows]) for x, y in zip(one, full)):
             raise AssertionError(f"{run.__name__} {what}: rows {rows} alone "
                                  "differ from the launch")
@@ -1461,11 +1488,59 @@ def _ik_rows_alone(args, what):
         "their rows of the launch")
 
 
+def ptxas_report(text: str) -> dict:
+    """{entry function: {"registers", "stack", "spill stores"}} from
+    ``nvcc -Xptxas -v``'s output."""
+    out, entry, props = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            out.setdefault(entry, {})
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m and props is not None:
+            out.setdefault(props, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
+def ik_registers() -> dict:
+    """Each IK kernel's registers, stack and spill stores from ptxas (the
+    build of phase 2, or a build of ``ik_newton`` alone with ``-Xptxas
+    -v``); fails if either kernel spills or keeps a stack frame beyond
+    :data:`IK_STACK_BYTES`."""
+    text = BUILD_LOGS.get("ik_newton") or kernels.build(
+        extra_flags=("-Xptxas", "-v"), libs=["ik_newton"])["ik_newton"]
+    report = ptxas_report(text)
+    regs = {}
+    for name, entry in IK_ENTRIES.items():
+        found = [v for k, v in report.items() if entry in k]
+        if len(found) != 1 or "registers" not in found[0]:
+            raise AssertionError(f"ptxas reported no {entry}")
+        regs[name] = found[0]
+        log(f"{name} (ptxas): {found[0].get('registers')} registers, "
+            f"{found[0].get('stack', 0)} bytes stack frame, "
+            f"{found[0].get('spill_stores', 0)} bytes spill stores")
+        if (found[0].get("stack", 0) > IK_STACK_BYTES
+                or found[0].get("spill_stores", 0)):
+            raise AssertionError(f"{name} spills or keeps a stack frame")
+    return regs
+
+
 def phase_ik_kernels(dev):
     """``ik_prefilter`` and ``ik_chain`` against their plain versions on
     the card, on every call of suite scenes 0-7's goal-set builds and of a
-    wave of scenes 0-3; rows alone against the launch; timings beside the
-    floor; returns their two kernel entries."""
+    wave of scenes 0-3; rows alone against the launch; registers, stack
+    and spills from ptxas; timings beside the floor; returns their two
+    kernel entries."""
+    regs = ik_registers()
     calls = capture_ik_calls(dev)
     log(f"IK kernels: {len(calls)} calls captured "
         f"({[(k, w, tuple(a[1].shape)) for k, w, a in calls]})")
@@ -1499,8 +1574,8 @@ def phase_ik_kernels(dev):
             def plain(pa=_ik_plain_args(args)):
                 return plain_fn(*pa)
             ms = time_graph(run)
-            blocks = -(-args[1].shape[0] // IK_BLOCK)
-            floor = floor_ms(blocks, IK_BLOCK, args[1].device)
+            blocks = -(-args[1].shape[0] // IK_LANES)
+            floor = floor_ms(blocks, IK_THREADS, args[1].device)
             wrapped = time_launches(run)
             plain_ms = time_ms(plain, 3, 1)
             flops, nbytes, lane_its = _ik_work(args)
@@ -1508,7 +1583,7 @@ def phase_ik_kernels(dev):
             host = _host_us(run)
             timing[(kind, what)] = (ms, plain_ms, bound, by, floor, host)
             log(f"{kind} {what}: kernel {ms:.5f} ms (graph of 50), floor "
-                f"{floor:.5f} ms (an empty launch of {blocks} x {IK_BLOCK}), "
+                f"{floor:.5f} ms (an empty launch of {blocks} x {IK_THREADS}), "
                 f"through the wrapper {wrapped:.4f} ms a call, plain "
                 f"{plain_ms:.4f} ms, bound {bound:.7f} ms ({by}; "
                 f"{flops:.3e} flop, {nbytes} B, {lane_its} lane-iterations), "
@@ -1525,7 +1600,7 @@ def phase_ik_kernels(dev):
             launches=0, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
             bound_ms=bound, bound_by=by, library_ms=None,
             share_of_bound=bound / ms, floor_ms=floor, host_us=host,
-            sm_clock_mhz=sm))
+            sm_clock_mhz=sm, registers=regs[name]["registers"]))
     return entries
 
 
@@ -1777,6 +1852,11 @@ def phase_profile(dev):
         "that launched them:")
     for label, n in sorted(by_range.items(), key=lambda kv: -kv[1]):
         log(f"  {n:7d}  {100 * n / max(linked, 1):5.1f}%  {label}")
+    ik_ops = {label: by_range.get(label, 0)
+              for label in list(BUILD_ATTRIBUTION)[:2]}
+    if any(n != 1 for n in ik_ops.values()):
+        raise AssertionError(f"the build's IK ranges hold {ik_ops} device "
+                             "operations, not one each (the launch)")
 
 
 def phase_perception(dev) -> int:

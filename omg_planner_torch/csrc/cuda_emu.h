@@ -3,15 +3,19 @@
 // the host (tests/test_torch_rollout_emu.py,
 // tests/test_torch_plan_kernels_emu.py,
 // tests/test_torch_learner_kernels_emu.py,
-// tests/test_torch_ik_kernels_emu.py).  Never part of a build for the
-// card.
+// tests/test_torch_ik_kernels_emu.py, test_torch_ik_kernels_warp_emu.py,
+// test_torch_ik_kernels_layout.py).  Never part of a build for the card.
 //
 //   g++ -std=c++20 -O1 -shared -fPIC -DOMG_CUDA_EMU
 //       -x c++ rigid_rollout.cu -o librigid_rollout_emu.so
 //
 // A launch runs its blocks one after another, each on the calling thread:
-// every CUDA thread of the block is a fiber (ucontext) with its own stack,
-// and a small scheduler runs the fibers that are not waiting.
+// every CUDA thread of the block is a fiber with its own stack, and a small
+// scheduler runs the fibers that are not waiting.  On x86-64 a switch
+// saves what the SysV ABI asks a callee to keep (rbx, rbp, r12-r15, the
+// stack pointer, MXCSR and the x87 control word); elsewhere it is
+// ucontext's swapcontext, which also saves the signal mask, one system
+// call a switch.
 // __syncthreads waits for the whole block, __syncwarp for the warp; a
 // block's static __shared__ arrays are one instance that every fiber sees.
 // A warp shuffle (xor or broadcast, within the warp or a segment of it),
@@ -31,6 +35,7 @@
 #include <chrono>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
@@ -73,12 +78,51 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
 // the running fiber's coordinates (one block runs at a time)
 inline dim3 threadIdx, blockIdx, blockDim, gridDim;
 
+#if defined(__x86_64__)
+// omg_emu_switch(save, load): push the callee-saved state, store the stack
+// pointer in *save, continue on the stack `load` with the state it holds
+extern "C" void omg_emu_switch(void** save, void* load);
+__asm__(
+    ".text\n"
+    ".globl omg_emu_switch\n"
+    ".hidden omg_emu_switch\n"
+    ".type omg_emu_switch, @function\n"
+    "omg_emu_switch:\n"
+    "  pushq %rbp\n"
+    "  pushq %rbx\n"
+    "  pushq %r12\n"
+    "  pushq %r13\n"
+    "  pushq %r14\n"
+    "  pushq %r15\n"
+    "  subq $8, %rsp\n"
+    "  stmxcsr (%rsp)\n"
+    "  fnstcw 4(%rsp)\n"
+    "  movq %rsp, (%rdi)\n"
+    "  movq %rsi, %rsp\n"
+    "  ldmxcsr (%rsp)\n"
+    "  fldcw 4(%rsp)\n"
+    "  addq $8, %rsp\n"
+    "  popq %r15\n"
+    "  popq %r14\n"
+    "  popq %r13\n"
+    "  popq %r12\n"
+    "  popq %rbx\n"
+    "  popq %rbp\n"
+    "  ret\n"
+    ".size omg_emu_switch, .-omg_emu_switch\n");
+#define OMG_EMU_SWITCH 1
+#endif
+
 namespace emu {
 
 constexpr size_t kStack = 1 << 17;  // bytes of stack a fiber
 
 struct Fiber {
+#ifdef OMG_EMU_SWITCH
+  void* sp = nullptr;  // the saved state's place on the fiber's stack
+#else
   ucontext_t ctx;
+#endif
   unsigned tid = 0;
   int turn = 0;  // which slot buffer the fiber's next exchange uses
   bool done = false;
@@ -105,7 +149,11 @@ struct Block {
   std::vector<unsigned> uslots;  // [2][threads]: warp-wide min and max
   std::vector<float> smem;   // the block's dynamic shared memory
   std::deque<Fiber*> ready;
+#ifdef OMG_EMU_SWITCH
+  void* scheduler = nullptr;
+#else
   ucontext_t scheduler;
+#endif
   Fiber* current = nullptr;
   std::function<void()> body;
 };
@@ -113,6 +161,24 @@ struct Block {
 inline Block* block = nullptr;
 
 inline float* dynamic_smem() { return block->smem.data(); }
+
+// The running fiber gives the host thread back to the scheduler.
+inline void to_scheduler(Fiber* me) {
+#ifdef OMG_EMU_SWITCH
+  omg_emu_switch(&me->sp, block->scheduler);
+#else
+  swapcontext(&me->ctx, &block->scheduler);
+#endif
+}
+
+// The scheduler runs f until it waits or ends.
+inline void run_fiber(Block& blk, Fiber* f) {
+#ifdef OMG_EMU_SWITCH
+  omg_emu_switch(&blk.scheduler, f->sp);
+#else
+  swapcontext(&blk.scheduler, &f->ctx);
+#endif
+}
 
 // The current fiber arrives at b: the last arrival releases the others and
 // runs on; any other waits in the scheduler.
@@ -125,7 +191,7 @@ inline void wait_at(Barrier& b) {
     return;
   }
   b.waiting.push_back(me);
-  swapcontext(&me->ctx, &block->scheduler);
+  to_scheduler(me);
 }
 
 inline Barrier& my_warp() { return block->warps[threadIdx.x >> 5]; }
@@ -157,7 +223,11 @@ inline unsigned fold(unsigned v, F f) {
 inline void fiber_main() {
   block->body();
   block->current->done = true;
-}  // returning resumes the scheduler (uc_link)
+#ifdef OMG_EMU_SWITCH
+  to_scheduler(block->current);  // never resumed
+  __builtin_unreachable();
+#endif
+}  // with ucontext, returning resumes the scheduler (uc_link)
 
 }  // namespace emu
 
@@ -241,11 +311,27 @@ inline __attribute__((noinline)) void start_fiber(Block& blk, int t) {
   Fiber& f = blk.fibers[t];
   f.tid = static_cast<unsigned>(t);
   f.stack.reset(new char[kStack]);
+#ifdef OMG_EMU_SWITCH
+  // the state omg_emu_switch pops, below a 16-byte aligned top: MXCSR and
+  // the x87 control word at their defaults, six registers, then
+  // fiber_main as the return address, entered as if called
+  const uintptr_t top =
+      (reinterpret_cast<uintptr_t>(f.stack.get()) + kStack) & ~uintptr_t{15};
+  uint64_t* sp = reinterpret_cast<uint64_t*>(top - 72);
+  const uint32_t mxcsr = 0x1f80;
+  const uint16_t fpucw = 0x037f;
+  std::memset(sp, 0, 72);
+  std::memcpy(sp, &mxcsr, sizeof mxcsr);
+  std::memcpy(reinterpret_cast<char*>(sp) + 4, &fpucw, sizeof fpucw);
+  sp[7] = reinterpret_cast<uint64_t>(&fiber_main);
+  f.sp = sp;
+#else
   getcontext(&f.ctx);
   f.ctx.uc_stack.ss_sp = f.stack.get();
   f.ctx.uc_stack.ss_size = kStack;
   f.ctx.uc_link = &blk.scheduler;
   makecontext(&f.ctx, fiber_main, 0);
+#endif
   blk.ready.push_back(&f);
 }
 
@@ -267,7 +353,7 @@ void launch(void (*kernel)(A...), int blocks, int threads, size_t smem,
       blk.current = f;
       threadIdx.x = f->tid;
       // back here when f waits at a barrier or returns from the kernel
-      swapcontext(&blk.scheduler, &f->ctx);
+      run_fiber(blk, f);
     }
     int finished = 0;
     for (const Fiber& f : blk.fibers) finished += f.done;

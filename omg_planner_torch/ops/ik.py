@@ -158,7 +158,8 @@ def ik_batch(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
 def ik_batch_fixed(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
                    iters: int):
     """Fixed-iteration damped Newton sweep (the two-stage prefilter), one
-    launch of the ``ik_prefilter`` kernel on the card.
+    launch of the ``ik_prefilter`` kernel on the card, which reads
+    ``targets`` in place where it is a view of one standoff stage.
     Returns (q [B, 7], post-sweep twist norm [B])."""
     return kernels.ik_prefilter(targets, seeds, model.pose_0,
                                 model.chain_post, lower7, upper7,
@@ -207,14 +208,16 @@ def _solve_chain_fused(model, cfg: OMGConfig, chain_tgts, seeds, lower7,
     for every scene still running, so the lanes of S scenes advance as in
     S separate solves.  Returns (qs [B, K-1, 7] tail solutions, ok [B])."""
     b = chain_tgts.shape[0]
-    if scene_budgets is None:
-        budgets = torch.full((b,), cfg.ik_chain_total_budget,
-                             dtype=torch.int32)
+    if scene_budgets is None or len(set(scene_budgets)) == 1:
+        # one budget for every lane: an argument of the launch, no tensor
+        budgets = (cfg.ik_chain_total_budget if scene_budgets is None
+                   else scene_budgets[0])
     else:
         budgets = torch.tensor(scene_budgets, dtype=torch.int32
-                               ).repeat_interleave(b // len(scene_budgets))
+                               ).repeat_interleave(b // len(scene_budgets)
+                                                   ).to(seeds.device)
     return kernels.ik_chain(
-        chain_tgts, seeds, active, budgets.to(seeds.device), model.pose_0,
+        chain_tgts, seeds, active, budgets, model.pose_0,
         model.chain_post, lower7, upper7, cfg.ik_damping, cfg.ik_pos_tol,
         cfg.ik_rot_tol, cfg.ik_max_iters, cfg.ik_stall_window)
 

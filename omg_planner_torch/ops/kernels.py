@@ -41,7 +41,8 @@ Kernels:
   route here.  Its plain version is :func:`joint_limit_plain`.
 * :func:`ik_prefilter` and :func:`ik_chain` (``csrc/ik_newton.cu``) — the
   goal-set build's damped-Newton IK: the two-stage prefilter's fixed
-  sweep and the fused standoff chain, one thread a lane;
+  sweep and the fused standoff chain, one warp a lane, four lanes a
+  block;
   ``ops/ik.py::ik_batch_fixed`` and ``_solve_chain_fused`` route here.
   Their plain versions are :func:`ik_prefilter_plain` and
   :func:`ik_chain_plain`.
@@ -1191,14 +1192,17 @@ def ik_chain_plain(chain_tgts, seeds, active, budgets, pqr, pose_0, lower7,
     stage from the same q; a failed stage ends the lane.  Lanes not
     ``active`` start done.  ``budgets [...]`` int32 caps the iterations
     that a lane may run, counted globally (0: no cap); a lane stopped by
-    it is not ok.  The loop reads "any lane live" on the host once a
-    pass.  Returns (qs [..., K-1, 7] tail solutions, ok [...]), and with
-    ``passes`` each lane's twist evaluations and Newton steps [...]."""
+    it is not ok; an int is every lane's budget.  The loop reads "any
+    lane live" on the host once a pass.  Returns (qs [..., K-1, 7] tail
+    solutions, ok [...]), and with ``passes`` each lane's twist
+    evaluations and Newton steps [...]."""
     lead, k = seeds.shape[:-1], chain_tgts.shape[-3]
     chain_tgts = chain_tgts.reshape(-1, k, 4, 4)
     q = seeds.reshape(-1, 7)
-    active, budgets = active.reshape(-1), budgets.reshape(-1)
     b, dev = q.shape[0], q.device
+    active = active.reshape(-1)
+    budgets = (budgets.reshape(-1) if torch.is_tensor(budgets)
+               else torch.full((b,), budgets, dtype=torch.int32, device=dev))
     lanes = torch.arange(b, device=dev)
     s = torch.where(active, 0, k)                # inactive lanes: done
     it = torch.zeros(b, dtype=torch.int32, device=dev)
@@ -1273,14 +1277,33 @@ def _ik_shared(pqr, pose_0, lower7, upper7, dev) -> list:
             _input("upper7", upper7, dev, torch.float32, (7,))]
 
 
+def _pose_lanes(name: str, t: Tensor, device, lead) -> tuple:
+    """``t [*lead, 4, 4]`` as the prefilter reads it: (float32 [n, 4, 4]
+    whose 4 x 4s are each contiguous and lie one stride apart, that stride
+    in floats).  A view of that form, such as one stage of the standoff
+    targets, is read in place; anything else is copied once."""
+    if t.dtype != torch.float32 or t.device != device or t.shape != (
+            lead + (4, 4)):
+        _checked(name, t, device, torch.float32, lead + (4, 4))
+    if t.ndim == 3 and t.stride()[1:] == (4, 1) and t.stride(0) < 2**31:
+        return t, t.stride(0)
+    try:
+        lanes = t.view(-1, 4, 4)
+    except RuntimeError:     # its lanes lie at more than one stride
+        lanes = t.reshape(-1, 4, 4)
+    if lanes.stride()[1:] != (4, 1) or lanes.stride(0) >= 2**31:
+        lanes = lanes.contiguous()
+    return lanes, lanes.stride(0)
+
+
 def _ik_prefilter_pack(targets, seeds, pqr, pose_0, lower7, upper7, iters):
     """Check and lay out the C entry point's arguments: (tensors to keep
-    alive, (q, err), the 7 pointers, the 2 ints)."""
+    alive, (q, err), the 7 pointers, the 3 ints)."""
     dev = seeds.device
     lead = tuple(seeds.shape[:-1])
     f32 = torch.float32
-    ins = [_input("targets", targets, dev, f32, lead + (4, 4)),
-           _input("seeds", seeds, dev, f32, lead + (7,))]
+    tgt, stride = _pose_lanes("targets", targets, dev, lead)
+    ins = [tgt, _input("seeds", seeds, dev, f32, lead + (7,))]
     ins += _ik_shared(pqr, pose_0, lower7, upper7, dev)
     n = _row_count(lead)
     buf = torch.empty(n * 8, dtype=f32, device=dev)
@@ -1288,7 +1311,7 @@ def _ik_prefilter_pack(targets, seeds, pqr, pose_0, lower7, upper7, iters):
     outs = (q.view(lead + (7,)), err.view(lead))
     ptrs = (ctypes.c_void_p * 7)(*[t.data_ptr() for t in ins],
                                  q.data_ptr(), err.data_ptr())
-    return ins, outs, ptrs, (ctypes.c_int * 2)(n, iters)
+    return ins, outs, ptrs, (ctypes.c_int * 3)(n, iters, stride)
 
 
 def _ik_prefilter_cuda(targets, seeds, pqr, pose_0, lower7, upper7, damping,
@@ -1318,8 +1341,9 @@ def ik_prefilter(targets: Tensor, seeds: Tensor, pose_0: Tensor,
                  damping: float, iters: int):
     """The two-stage goal-set solve's prefilter (:func:`ik_prefilter_plain`
     on a ``PandaModel``'s ``pose_0`` and ``chain_post``): the kernel for
-    CUDA tensors (one launch, one thread a lane), the plain version for
-    CPU tensors.  Returns (q [..., 7], twist norm [...])."""
+    CUDA tensors (one launch, one warp a lane; ``targets`` may be a view
+    whose lanes lie one stride apart, read in place), the plain version
+    for CPU tensors.  Returns (q [..., 7], twist norm [...])."""
     return _ik_prefilter_op(targets, seeds,
                             panda.pqr_table(pose_0, chain_post), pose_0,
                             lower7, upper7, damping, iters)
@@ -1331,7 +1355,9 @@ ik_prefilter.launches = 0
 def _ik_chain_pack(chain_tgts, seeds, active, budgets, pqr, pose_0, lower7,
                    upper7, max_iters, stall_window):
     """Check and lay out the C entry point's arguments: (tensors to keep
-    alive, (qs, ok), the 9 pointers, the 4 ints)."""
+    alive, (qs, ok), the 9 pointers, the 5 ints).  ``budgets`` is a
+    tensor of each lane's or an int, every lane's (passed as the fifth
+    int, with no budgets pointer)."""
     dev = seeds.device
     lead = tuple(seeds.shape[:-1])
     k = chain_tgts.shape[-3] if chain_tgts.ndim >= 3 else 0
@@ -1339,26 +1365,38 @@ def _ik_chain_pack(chain_tgts, seeds, active, budgets, pqr, pose_0, lower7,
         raise ValueError("ik_chain: chain_tgts must be [..., K, 4, 4] with "
                          f"K >= 1, got {tuple(chain_tgts.shape)}")
     f32 = torch.float32
+    per_lane = torch.is_tensor(budgets)
     ins = [_input("chain_tgts", chain_tgts, dev, f32, lead + (k, 4, 4)),
            _input("seeds", seeds, dev, f32, lead + (7,)),
            _input("active", active, dev, torch.bool, lead),
-           _input("budgets", budgets, dev, torch.int32, lead)]
+           _input("budgets", budgets, dev, torch.int32, lead)
+           if per_lane else None]
     ins += _ik_shared(pqr, pose_0, lower7, upper7, dev)
     n = _row_count(lead)
     qs = torch.empty(lead + (k - 1, 7), dtype=f32, device=dev)
     ok = torch.empty(lead, dtype=torch.bool, device=dev)
-    ptrs = (ctypes.c_void_p * 9)(*[t.data_ptr() for t in ins],
-                                 qs.data_ptr(), ok.data_ptr())
-    return ins, (qs, ok), ptrs, (ctypes.c_int * 4)(n, k, max_iters,
-                                                   stall_window)
+    ptrs = (ctypes.c_void_p * 9)(*[None if t is None else t.data_ptr()
+                                   for t in ins], qs.data_ptr(),
+                                 ok.data_ptr())
+    return ins, (qs, ok), ptrs, (ctypes.c_int * 5)(
+        n, k, max_iters, stall_window, 0 if per_lane else budgets)
+
+
+def _ik_chain_cpu(chain_tgts, seeds, active, budgets, pqr, pose_0, lower7,
+                  upper7, damping, pos_tol, rot_tol, max_iters, stall_window,
+                  budget):
+    return ik_chain_plain(chain_tgts, seeds, active,
+                          budget if budgets is None else budgets, pqr,
+                          pose_0, lower7, upper7, damping, pos_tol, rot_tol,
+                          max_iters, stall_window)
 
 
 def _ik_chain_cuda(chain_tgts, seeds, active, budgets, pqr, pose_0, lower7,
                    upper7, damping, pos_tol, rot_tol, max_iters,
-                   stall_window):
+                   stall_window, budget):
     keep, outs, ptrs, dims = _ik_chain_pack(
-        chain_tgts, seeds, active, budgets, pqr, pose_0, lower7, upper7,
-        max_iters, stall_window)
+        chain_tgts, seeds, active, budget if budgets is None else budgets,
+        pqr, pose_0, lower7, upper7, max_iters, stall_window)
     if dims[0] == 0:
         return outs
     status = _entry("ik_newton", "omg_ik_chain")(
@@ -1373,24 +1411,28 @@ def _ik_chain_cuda(chain_tgts, seeds, active, budgets, pqr, pose_0, lower7,
 
 _ik_chain_op = _define(
     "ik_chain(Tensor chain_tgts, Tensor seeds, Tensor active, "
-    "Tensor budgets, Tensor pqr, Tensor pose_0, Tensor lower7, "
+    "Tensor? budgets, Tensor pqr, Tensor pose_0, Tensor lower7, "
     "Tensor upper7, float damping, float pos_tol, float rot_tol, "
-    "int max_iters, int stall_window) -> (Tensor, Tensor)",
-    ik_chain_plain, _ik_chain_cuda, _rows_vmap(2, (4, 5, 6, 7)))
+    "int max_iters, int stall_window, int budget) -> (Tensor, Tensor)",
+    _ik_chain_cpu, _ik_chain_cuda, _rows_vmap(2, (4, 5, 6, 7)))
 
 
 def ik_chain(chain_tgts: Tensor, seeds: Tensor, active: Tensor,
-             budgets: Tensor, pose_0: Tensor, chain_post: Tensor,
+             budgets: Tensor | int, pose_0: Tensor, chain_post: Tensor,
              lower7: Tensor, upper7: Tensor, damping: float, pos_tol: float,
              rot_tol: float, max_iters: int, stall_window: int):
     """The fused standoff chain (:func:`ik_chain_plain` on a
     ``PandaModel``'s ``pose_0`` and ``chain_post``): the kernel for CUDA
-    tensors (one launch, one thread a lane, no host read), the plain
-    version for CPU tensors.  Returns (qs [..., K-1, 7], ok [...])."""
-    return _ik_chain_op(chain_tgts, seeds, active, budgets,
+    tensors (one launch, one warp a lane, no host read), the plain version
+    for CPU tensors.  ``budgets`` is each lane's (a tensor) or one for
+    every lane (an int, which reaches the kernel as an argument and makes
+    no tensor).  Returns (qs [..., K-1, 7], ok [...])."""
+    per_lane = torch.is_tensor(budgets)
+    return _ik_chain_op(chain_tgts, seeds, active,
+                        budgets if per_lane else None,
                         panda.pqr_table(pose_0, chain_post), pose_0, lower7,
                         upper7, damping, pos_tol, rot_tol, max_iters,
-                        stall_window)
+                        stall_window, 0 if per_lane else budgets)
 
 
 ik_chain.launches = 0

@@ -3,7 +3,7 @@
 directory that ``.gitignore`` lists).
 
     python3 scripts/plan_kernels_ab.py OTHER_CHECKOUT [OUT_DIR] [PAIRS]
-        [--phases 3b|3c|5-6|build]
+        [--phases 3b|3c|3d|5-6|build]
 
 Runs each checkout's own ``chip_smoke.py`` phases in a fresh process, in
 the order other, this, this, other, ... (PAIRS pairs, default 2):
@@ -24,6 +24,13 @@ the order other, this, this, other, ... (PAIRS pairs, default 2):
   what a checkout's phase does not print is left out.  Each side times
   its own phase's inputs: suite scene 1's calls are the same on both
   sides, seeded rows only where both checkouts draw them alike.
+* ``3d``: ``phase_ik_kernels``, the IK kernels (``ik_prefilter``,
+  ``ik_chain``) built from the checkout's own sources, its wrappers, its
+  checks, on the calls of suite scenes 0-7's goal-set builds and a wave
+  of scenes 0-3 as that checkout's ``ops/ik.py`` makes them.  Reads, for
+  each kernel at suite scene 1 and the wave, its time (50 launches in one
+  CUDA graph), the floor (an empty kernel at its grid), the time through
+  the wrapper, the bound and the wrapper's host time a call.
 * ``5-6``: ``phase_standard`` and ``phase_profile``, three full-width suite
   plans, then suite scene 1's plan under ``torch.profiler``.  Reads each
   staging's and plan's wall and host syncs, and the profiled plan's wall,
@@ -64,6 +71,11 @@ LOOP_LINE = re.compile(
     r"([\d.]+) ms .* wrapper host ([\d.]+) us a call"
     r"(?: \(dispatch ([-\d.]+), checks ([\d.]+), allocation ([\d.]+), "
     r"launch ([\d.]+)\))?")
+IK_LINE = re.compile(
+    r"^((?:ik_prefilter|ik_chain) (?:suite scene 1|wave of 4)): kernel "
+    r"([\d.]+) ms \(graph of 50\), floor ([\d.]+) ms \([^)]*\), through "
+    r"the wrapper ([\d.]+) ms a call, plain [\d.]+ ms, bound ([\d.]+) ms "
+    r".* wrapper host ([\d.]+) us a call")
 PLAN_LINE = re.compile(r"^standard plan suite scene (\d+): .* \| stage "
                        r"([\d.]+) ms, (\d+) host syncs \| plan ([\d.]+) "
                        r"ms, (\d+) host syncs")
@@ -125,6 +137,18 @@ def read_loop_kernels(line: str) -> dict:
     return out
 
 
+def read_ik_kernels(line: str) -> dict:
+    m = IK_LINE.match(line)
+    if not m:
+        return {}
+    shape = m.group(1)
+    names = ("graph ms", "floor ms", "wrapper ms", "bound ms", "host us")
+    out = {f"{shape} {k}": float(v) for k, v in zip(names, m.groups()[1:])}
+    out[f"{shape} share of bound"] = (out[f"{shape} bound ms"]
+                                      / out[f"{shape} graph ms"])
+    return out
+
+
 def read_plan(line: str) -> dict:
     m = PLAN_LINE.match(line)
     if m:
@@ -152,6 +176,7 @@ def read_build(line: str) -> dict:
 PHASES = {
     "3b": ("cs.phase_plan_kernels('cuda')", read_kernels, True),
     "3c": ("cs.phase_learner_kernels('cuda')", read_loop_kernels, False),
+    "3d": ("cs.phase_ik_kernels('cuda')", read_ik_kernels, False),
     "5-6": ("cs.phase_standard('cuda'); cs.phase_profile('cuda')", read_plan,
             False),
     "build": (f"exec({BUILD_PROBE!r})", read_build, False),
