@@ -66,11 +66,29 @@ Phases (any failure exits non-zero; no phase is skipped):
    in one CUDA graph) beside the floor, its time through the wrapper, the
    plain version's, the wrapper's host time a call and the bound from the
    lane-iterations this data runs;
+3e. CHOMP kernels, the plan step after FK and the query:
+   ``chomp_obstacle`` (the obstacle cost and gradient, the top-k mask)
+   and ``chomp_step`` (smoothness, the total loss, the flags and the
+   update) against their plain versions on the card, on every call suite
+   scene 1's plan makes (captured as ``ops/chomp.py`` passes them) and on
+   seeded rows at S = 1 and 8 (trajectories of suite scene 1, two pushed
+   past the joint limits); bars: the kernel's k-th value and selection
+   mask (read through the packer) equal to the plain version's, the
+   collision counts equal, every other output (each ``CostInfo`` field
+   and ``cost_traj`` on its own) no farther from the float64 plain
+   version than max(1e-5 of its own size, 2 x the float32 plain version's
+   own distance), the flags equal; rows of a batch bit for bit their
+   single launches; each kernel's registers, stack and spill stores from
+   ptxas; each kernel's device time (50 launches in one CUDA graph)
+   beside the floor, its time through the wrapper, the plain version's,
+   the wrapper's host time a call and the bound from this data's points,
+   the non-zero entries of its matrices and its dofs;
 4. reference: a small plan staged on the CPU, planned on the CPU and on
    the card — same goal, same verdict, trajectories within 2e-3;
 5. the standard plan at the full ``OMGConfig()`` width on three
    ``data/suite_v2`` scenes (each must launch ``panda_fk``, ``sdf_query``,
-   ``md_update``, ``joint_limit`` and, once each in its goal-set build,
+   ``md_update``, ``joint_limit``, ``chomp_obstacle`` and ``chomp_step``
+   (once a plan step each) and, once each in its goal-set build,
    ``ik_prefilter`` and ``ik_chain``, and no other kernel; their counts
    go into the kernels line), with wall time and host syncs per staging
    (at most 9) and per plan;
@@ -78,7 +96,9 @@ Phases (any failure exits non-zero; no phase is skipped):
    share, its operations per plan and per plan step (fails if it records
    none), and the operations by the port's function that launched them
    (``record_function`` ranges this script puts around the FK, the
-   collision query, the CHOMP terms and the learner); then the same
+   collision query, the CHOMP kernels and the rest of the step, and the
+   learner; fails unless each CHOMP kernel's range holds one operation a
+   step), and the plan's sort kernels; then the same
    scene's goal-set build, warm, its device operations by function (the
    prefilter, the chain, the rest of the IK, flip and filter, prune,
    dedupe, sampling; fails unless the prefilter's and the chain's ranges
@@ -177,16 +197,18 @@ Phases (any failure exits non-zero; no phase is skipped):
 
 Phases 5, 7, 8 and each phase from 10 on run with the launch counts set
 to 0 and check them after: ``panda_fk``, ``sdf_query``, ``md_update``,
-``joint_limit``, ``ik_prefilter`` and ``ik_chain`` must launch on every
-phase that builds a Panda goal set from the grasp database and plans (the
-chain phase, which plans without a goal set and so without the learner:
-``sdf_query`` and ``joint_limit``; the physics phase, which plans before
+``joint_limit``, ``chomp_obstacle``, ``chomp_step``, ``ik_prefilter``
+and ``ik_chain`` must launch on every phase that builds a Panda goal set
+from the grasp database and plans (the chain phase, which plans without
+a goal set and so without the learner: ``sdf_query``, ``joint_limit``,
+``chomp_obstacle`` and ``chomp_step``; the physics phase, which plans before
 its counts start: ``rigid_rollout`` and ``panda_fk``), ``rigid_rollout``
 on the physics, service and viz and apps phases, ``min_dist_grid`` in
 phase 7, and no kernel elsewhere.
 The line before the last is a JSON object listing every kernel with its
 launches on its path (phase 7 for ``min_dist_grid``, 13 for
-``rigid_rollout``, 5 for the plan, loop and IK kernels), error, times and
+``rigid_rollout``, 5 for the plan, loop, CHOMP and IK kernels), error,
+times and
 bound; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -636,13 +658,16 @@ def _query_vs_plain(sc, inv, x, rest, what):
 #: of every fresh process); the plan kernels' operators must import none
 HEAVY_MODULES = ("torch._dynamo", "torch.distributed.tensor", "sympy")
 # a fresh process's first panda_fk and sdf_query calls on the card (the
-# libraries built beforehand, untimed), then a second call of each
+# libraries built beforehand, untimed), then a second call of each; and,
+# where the package has them, the first chomp_obstacle and chomp_step
+# calls (one wall for the two)
 COLD_PROBE = """
 import json, sys, time
 import torch
 from omg_planner_torch.models import panda
-from omg_planner_torch.ops import kernels, sdf
-kernels.build(libs=["panda_fk", "sdf_query"])
+from omg_planner_torch.ops import chomp, kernels, sdf
+chomp_ops = "chomp_cost" in kernels._LIBS
+kernels.build(libs=["panda_fk", "sdf_query"] + ["chomp_cost"] * chomp_ops)
 model = panda.load_panda(15, "cuda")
 q = ((model.joint_lower + model.joint_upper) / 2)[None].repeat(30, 1)
 scene = sdf.AnalyticScene(
@@ -655,13 +680,31 @@ torch.cuda.synchronize()
 out = {}
 for call in ("first", "second"):
     t0 = time.perf_counter()
-    x = kernels.panda_fk(q, model.pose_0, model.chain_post,
-                         model.center_offset, model.collision_points)[3]
+    _, og, ax, x = kernels.panda_fk(q, model.pose_0, model.chain_post,
+                                    model.center_offset,
+                                    model.collision_points)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     kernels.sdf_query(scene, inv, x.reshape(-1, 3), *rest)
     torch.cuda.synchronize()
     out[call] = [t1 - t0, time.perf_counter() - t1]
+    if chomp_ops:
+        from omg_planner_torch.config import OMGConfig, schedule_weights
+        from omg_planner_torch.models import api
+        cfg = OMGConfig()
+        hp = cfg.horizon().on("cuda")
+        z = torch.zeros(x.shape[:3], device="cuda")
+        t2 = time.perf_counter()
+        obs = kernels.chomp_obstacle(
+            x, og, ax, x[0], x[-1], z, torch.zeros_like(x), z,
+            hp.diff_matrices, api.jacobian_tables(model), hp.time_interval,
+            cfg.top_k_collision, False, False, False)
+        w = schedule_weights(cfg, 1)
+        chomp.chomp_step(model, cfg, hp, q, q[0], q[-1], q[-5:], obs,
+                         (w[0], w[1], w[3]), model.joint_lower,
+                         model.joint_upper)
+        torch.cuda.synchronize()
+        out[call].append(time.perf_counter() - t2)
 out["heavy"] = sorted(m for m in %r if m in sys.modules)
 print(json.dumps(out))
 """ % (HEAVY_MODULES,)
@@ -669,8 +712,9 @@ print(json.dumps(out))
 
 def cold_start(root: str = ROOT) -> dict:
     """:data:`COLD_PROBE` in a fresh interpreter on the checkout ``root``:
-    {"first": [panda_fk s, sdf_query s], "second": [...], "heavy": [the
-    modules of :data:`HEAVY_MODULES` it imported]}."""
+    {"first": [panda_fk s, sdf_query s, chomp_obstacle and chomp_step s
+    (where the checkout has them)], "second": [...], "heavy": [the modules
+    of :data:`HEAVY_MODULES` it imported]}."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     out = subprocess.run([sys.executable, "-c", COLD_PROBE], cwd=root,
@@ -894,8 +938,10 @@ def phase_plan_kernels(dev):
     cold = cold_start()
     log(f"plan kernels cold start (a fresh process): first panda_fk "
         f"{cold['first'][0]:.4f} s, first sdf_query {cold['first'][1]:.4f} "
-        f"s, second {cold['second'][0]:.4f} s and {cold['second'][1]:.4f} "
-        f"s; imported {cold['heavy'] or 'none'} of {list(HEAVY_MODULES)}")
+        f"s, first chomp_obstacle and chomp_step {cold['first'][2]:.4f} s, "
+        f"second {cold['second'][0]:.4f}, {cold['second'][1]:.4f} and "
+        f"{cold['second'][2]:.4f} s; imported {cold['heavy'] or 'none'} of "
+        f"{list(HEAVY_MODULES)}")
     if cold["heavy"]:
         raise AssertionError(f"the plan kernels' first calls import "
                              f"{cold['heavy']}")
@@ -1604,6 +1650,380 @@ def phase_ik_kernels(dev):
     return entries
 
 
+# flops of chomp_obstacle, counted from csrc/chomp_cost.cu: a point's
+# velocity and acceleration (3 coordinates x 2 flops per non-zero entry of
+# the two difference matrices' row of its timestep), its direction and cost
+# (the norm, v^, the two projections, the division: 40), one Jacobian
+# column and its dot with the direction per dof (16), the selection's key
+# and compare per radix pass (4 passes x 4), the finger softening (8);
+# under the quirks each (t, link)'s gradient point formed again
+CHOMP_FLOPS = dict(band=6, point=40, dof=16, select=16, soften=8)
+CHOMP_ENTRIES = {"chomp_obstacle": "chomp_obstacle_kernel",
+                 "chomp_step": "chomp_step_kernel"}
+
+
+def _nonzero(m) -> int:
+    return 0 if m is None else int(torch.count_nonzero(m))
+
+
+def _chomp_obstacle_work(args) -> tuple:
+    """(flops, bytes) of one ``chomp_obstacle`` call on ``args`` (its
+    operator's arguments): each input read once (of the two difference
+    matrices only the non-zero entries of the T rows that the derivative
+    keeps, of the joint frames only the D dof joints'), each output
+    written once."""
+    x, pot, dmats, tables = args[0], args[5], args[8], args[9]
+    k, soften, quirks = args[11], args[13], args[14]
+    t, n_links, p = pot.shape[-3:]
+    rows = pot.numel() // (t * n_links * p)
+    d = (tables.shape[0] - n_links) // (n_links + 2)
+    nz = _nonzero(dmats[:2, :t])
+    n = t * n_links * p
+    per_row = (CHOMP_FLOPS["band"] * nz * n_links * p
+               + n * (CHOMP_FLOPS["point"] + CHOMP_FLOPS["dof"] * d)
+               + (CHOMP_FLOPS["select"] * n if 0 < k < n else 0)
+               + (CHOMP_FLOPS["soften"] * n if soften else 0))
+    if quirks and k:
+        per_row += (CHOMP_FLOPS["band"] * nz * n_links + t * n_links * (
+            CHOMP_FLOPS["point"] + CHOMP_FLOPS["dof"] * d))
+    nbytes = 4 * (rows * (n * 3 + 2 * t * d * 3 + 2 * n_links * p * 3 + n
+                          + n * 3 + n + t * n_links + t * d + 1)
+                  + nz + tables.numel())
+    return rows * per_row, nbytes
+
+
+def _chomp_step_work(args) -> tuple:
+    """(flops, bytes) of one ``chomp_step`` call on ``args``: d1 xi, A xi,
+    P grad and M b (2 flops a non-zero matrix entry and dof), the
+    weighting, norms and update (12 an element); each input read once (of
+    d1, A, P and M only their non-zero entries), each output written
+    once."""
+    xi, obs_cost, d1, a, pmat, mmat = (args[0], args[4], args[12], args[13],
+                                       args[14], args[15])
+    t, d = xi.shape[-2:]
+    rows = xi.numel() // (t * d)
+    k = 0 if mmat is None else mmat.shape[1]
+    nz = _nonzero(d1) + _nonzero(a) + _nonzero(pmat) + _nonzero(mmat)
+    per_row = 2 * nz * d + k * d + 12 * t * d + 4 * t
+    row_vals = (3 * t * d + 2 * d + (k or 1) * d + obs_cost.shape[-1] * t
+                + 1 + 3 + 2 * d + 10 + t)
+    nbytes = 4 * (rows * row_vals + nz + 2 * d) + rows * 4
+    return rows * per_row, nbytes
+
+
+def chomp_registers() -> dict:
+    """Each CHOMP kernel's registers, stack and spill stores from ptxas
+    (phase 2's build, or a build of ``chomp_cost`` alone with
+    ``-Xptxas -v``)."""
+    text = BUILD_LOGS.get("chomp_cost") or kernels.build(
+        extra_flags=("-Xptxas", "-v"), libs=["chomp_cost"])["chomp_cost"]
+    report = ptxas_report(text)
+    regs = {}
+    for name, entry in CHOMP_ENTRIES.items():
+        found = [v for k, v in report.items() if entry in k]
+        if len(found) != 1 or "registers" not in found[0]:
+            raise AssertionError(f"ptxas reported no {entry}")
+        regs[name] = found[0]
+        log(f"{name} (ptxas): {found[0].get('registers')} registers, "
+            f"{found[0].get('stack', 0)} bytes stack frame, "
+            f"{found[0].get('spill_stores', 0)} bytes spill stores")
+    return regs
+
+
+def capture_chomp_calls(dev) -> tuple:
+    """Suite scene 1's plan at full width: (its steps, {"obs": [...],
+    "step": [...]}), the arguments of every ``chomp_obstacle`` and
+    ``chomp_step`` call it makes, captured as ``ops/chomp.py`` passes
+    them."""
+    cfg = OMGConfig(silent=True)
+    scene = PlanningScene.from_npz(cfg, os.path.join(SUITE, "scene_1.npz"),
+                                   device=dev)
+    calls = {"obs": [], "step": []}
+    # the operators the wrappers call (their arguments are the wrappers')
+    obs, step = kernels._chomp_obstacle_op, kernels._chomp_step_op
+
+    def keep(args):
+        return [a.clone() if torch.is_tensor(a) else a for a in args]
+
+    def rec_obs(*args):
+        calls["obs"].append(keep(args))
+        return obs(*args)
+
+    def rec_step(*args):
+        calls["step"].append(keep(args))
+        return step(*args)
+
+    kernels._chomp_obstacle_op, kernels._chomp_step_op = rec_obs, rec_step
+    try:
+        res = scene.step(fast=True)
+    finally:
+        kernels._chomp_obstacle_op, kernels._chomp_step_op = obs, step
+    _sync(dev)
+    return int(res.steps_used), calls
+
+
+def seeded_chomp_inputs(dev, calls) -> tuple:
+    """Phase 3e's seeded rows on ``dev``: 8 trajectories of suite scene 1
+    (its start-to-end line plus noise from a generator seeded 17; the
+    last two pushed past the joint limits), their FK and query as the
+    plan's calls pass them (``chomp_obstacle``'s operator arguments,
+    stacked), and ``chomp_step``'s arguments on the kernel's obstacle
+    terms with seeded goals and tails, the weights a row each."""
+    cfg = OMGConfig(silent=True)
+    scene = PlanningScene.from_npz(cfg, os.path.join(SUITE, "scene_1.npz"),
+                                   device=dev)
+    model, env = scene.model, scene.env
+    gen = torch.Generator().manual_seed(17)
+    start = torch.as_tensor(np.asarray(scene.start, np.float32))
+    end = torch.as_tensor(np.asarray(scene.end, np.float32))
+    line = start + torch.linspace(0, 1, 30)[:, None] * (end - start)
+    xi8 = line[None] + 0.1 * torch.randn(8, 30, 9, generator=gen)
+    xi8[:, :, 7:] = 0.04
+    lo, hi = model.joint_lower.cpu(), model.joint_upper.cpu()
+    xi8 = torch.minimum(torch.maximum(xi8, lo + 0.01), hi - 0.01)
+    xi8[6, 4, 1], xi8[7, 9, 2] = hi[1] + 0.2, lo[2] - 0.2
+    xi8[7, 3, 1] = hi[1] + 0.1
+    xi8 = xi8.to(dev)
+    rows = []
+    for xi in xi8:
+        x, og, ax, pot, grad, col = chomp_mod._fk_query(
+            model, env.scene_sdf(), env.cost_params(), xi, None)
+        xs, xe = model_api.end_points(model, start.to(dev), end.to(dev))
+        rows.append((x, og, ax, xs, xe, pot, grad, col))
+    obs8 = [torch.stack(a) for a in zip(*rows)] + list(calls["obs"][0][8:])
+    o = kernels.chomp_obstacle(*obs8)
+    tmpl = calls["step"][0]
+    goal = end.to(dev)[None].repeat(8, 1) + 0.01 * torch.randn(
+        8, 9, generator=gen).to(dev)
+    k = tmpl[3].shape[0]
+    tail = goal[:, None].repeat(1, k, 1) + 0.01 * torch.randn(
+        8, k, 9, generator=gen).to(dev)
+    w = torch.linspace(0.5, 2.0, 8, device=dev)
+    step8 = ([xi8, start.to(dev)[None].repeat(8, 1), goal, tail, *o]
+             + [float(v) * w for v in tmpl[7:10]]
+             + [model.joint_lower[None].repeat(8, 1),
+                model.joint_upper[None].repeat(8, 1)] + list(tmpl[12:]))
+    return obs8, step8
+
+
+def _rows_of(args, r: int, n_rows: int, lead: int):
+    """Row ``r`` of a call's stacked row arguments (the first ``n_rows``),
+    kept as one row (``lead`` leading dims)."""
+    return [a[r:r + 1] if i < n_rows and torch.is_tensor(a) and a.ndim
+            and a.shape[0] == lead else a for i, a in enumerate(args)]
+
+
+def _same_bits(a, b) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _f64_args(args):
+    return [_f64(a) if torch.is_tensor(a) else a for a in args]
+
+
+OBSTACLE_OUTPUTS = ("obs_cost", "obs_grad", "collide")
+STEP_OUTPUTS = ("xi",) + kernels.INFO_SCALARS + ("cost_traj",)
+
+
+def _step_outputs(out) -> list:
+    """``chomp_step``'s trajectory and its packed floats split into their
+    fields (:data:`STEP_OUTPUTS`)."""
+    n = len(kernels.INFO_SCALARS)
+    return [out[0], *out[1][..., :n].unbind(-1), out[1][..., n:]]
+
+
+def _near_f64(got, f32, f64, names, what) -> float:
+    """Bar of phase 3e: each output (one of ``names``) no farther from the
+    float64 plain version than max(1e-5 of its own size, 2 x the float32
+    plain version's own distance), NaN where float64 is; a collision count
+    equal to the float32 plain version's.  Returns max|kernel - plain|."""
+    worst = 0.0
+    for name, g, p, q in zip(names, got, f32, f64):
+        if name == "collide":
+            if not torch.equal(g, p):
+                raise AssertionError(f"{what} collide: {g.tolist()} against "
+                                     f"{p.tolist()}")
+            continue
+        g, p, q = g.double(), p.double(), q.double()
+        nan = torch.isnan(q)
+        if not torch.equal(torch.isnan(g), nan):
+            raise AssertionError(f"{what} {name}: NaN where float64 has "
+                                 "none, or the reverse")
+        g, p, q = g[~nan], p[~nan], q[~nan]
+        if not q.numel():
+            continue
+        mine = float((g - q).abs().max())
+        own = float((p - q).abs().max())
+        size = float(q.abs().max())
+        worst = max(worst, float((g - p).abs().max()))
+        if not mine <= max(1e-5 * size, 2 * own):
+            raise AssertionError(f"{what} {name}: {mine:.3e} from float64 "
+                                 f"(plain {own:.3e}, size {size:.3e})")
+    return worst
+
+
+def _obstacle_vs_plain(args, what) -> float:
+    """``chomp_obstacle`` against its plain version: the kernel's k-th
+    value and mask (read through the packer, an uncounted launch) equal to
+    the plain version's, its outputs near float64 (:func:`_near_f64`),
+    the wrapper's launch bit for bit that launch.  Returns max|kernel -
+    plain|."""
+    dev = args[5].device
+    keep, outs, ptrs, dims, consts = kernels._chomp_obstacle_pack(
+        *args, selection=True)
+    status = kernels._entry("chomp_cost", "omg_chomp_obstacle")(
+        ptrs, dims, consts, kernels._raw_stream(dev))
+    if status != 0:
+        raise RuntimeError(f"chomp_obstacle launch failed: {status}")
+    wrapped = kernels.chomp_obstacle(*args)
+    plain = kernels.chomp_obstacle_plain(*args)
+    err = _near_f64(outs[:3], plain,
+                    kernels.chomp_obstacle_plain(*_f64_args(args)),
+                    OBSTACLE_OUTPUTS, f"chomp_obstacle {what}")
+    if not all(_same_bits(a, b) for a, b in zip(wrapped, outs[:3])):
+        raise AssertionError(f"chomp_obstacle {what}: the wrapper's launch "
+                             "differs from the packer's")
+    pot, lead = args[5], args[5].shape[:-3]
+    dmats, tables, dt, k, finger, soften = args[8:14]
+    flat = [a.reshape((-1,) + a.shape[len(lead):]) for a in args[:8]]
+    kth_k, sel_k = outs[3].reshape(-1), outs[4].reshape(flat[5].shape)
+    n_sel = 0
+    for r in range(flat[0].shape[0]):
+        soft = kernels.obstacle_point_terms(*(a[r] for a in flat), dmats,
+                                            tables, dt, soften)[3]
+        kth, sel = kernels.obstacle_selection(soft, tables, k, finger)
+        same_k = (bool(torch.isnan(kth_k[r])) if kth is None
+                  or bool(torch.isnan(kth)) else bool(kth_k[r] == kth))
+        if not same_k or not torch.equal(sel_k[r], sel):
+            raise AssertionError(f"chomp_obstacle {what} row {r}: k-th "
+                                 f"{float(kth_k[r])} against "
+                                 f"{None if kth is None else float(kth)}, "
+                                 "or the mask differs")
+        n_sel += int(sel.sum())
+    del keep
+    log(f"chomp_obstacle {what}: k-th value and mask equal ({n_sel} points "
+        f"selected), max|kernel-plain| {err:.3e}")
+    return err
+
+
+def _step_vs_plain(args, what) -> float:
+    """``chomp_step`` against its plain version: trajectory and each
+    packed field near float64 (:func:`_near_f64`), flags equal.  Returns
+    max|kernel - plain|."""
+    got = kernels.chomp_step(*args)
+    plain = kernels.chomp_step_plain(*args)
+    err = _near_f64(_step_outputs(got), _step_outputs(plain),
+                    _step_outputs(kernels.chomp_step_plain(*_f64_args(args))),
+                    STEP_OUTPUTS, f"chomp_step {what}")
+    if not torch.equal(got[2], plain[2]):
+        raise AssertionError(f"chomp_step {what}: flags {got[2].tolist()} "
+                             f"against {plain[2].tolist()}")
+    log(f"chomp_step {what}: flags equal {got[2].reshape(-1, 4).tolist()}, "
+        f"max|kernel-plain| {err:.3e}")
+    return err
+
+
+def phase_chomp_kernels(dev):
+    """``chomp_obstacle`` and ``chomp_step`` against their plain versions
+    on the card, on every call of suite scene 1's plan and on seeded rows
+    at S = 1 and 8; rows of a batch against single launches; registers,
+    stack and spills from ptxas; timings beside the floor; returns their
+    two kernel entries."""
+    regs = chomp_registers()
+    steps, calls = capture_chomp_calls(dev)
+    log(f"CHOMP kernels: suite scene 1's plan ({steps} steps) made "
+        f"{len(calls['obs'])} chomp_obstacle and {len(calls['step'])} "
+        "chomp_step calls")
+    if not calls["obs"] or len(calls["obs"]) != len(calls["step"]):
+        raise AssertionError("suite scene 1's plan missed a CHOMP kernel")
+    errs = {"chomp_obstacle": 0.0, "chomp_step": 0.0}
+    for i, args in enumerate(calls["obs"]):
+        errs["chomp_obstacle"] = max(errs["chomp_obstacle"], _obstacle_vs_plain(
+            args, f"suite scene 1 call {i}"))
+    for i, args in enumerate(calls["step"]):
+        errs["chomp_step"] = max(errs["chomp_step"], _step_vs_plain(
+            args, f"suite scene 1 call {i}"))
+    obs8, step8 = seeded_chomp_inputs(dev, calls)
+    obs1, step1 = _rows_of(obs8, 0, 8, 8), _rows_of(step8, 0, 12, 8)
+    for what, o, st in (("seeded S=1", obs1, step1),
+                        ("seeded S=8", obs8, step8)):
+        errs["chomp_obstacle"] = max(errs["chomp_obstacle"],
+                                     _obstacle_vs_plain(o, what))
+        errs["chomp_step"] = max(errs["chomp_step"], _step_vs_plain(st, what))
+    for name, args, n_rows in (("chomp_obstacle", obs8, 8),
+                               ("chomp_step", step8, 12)):
+        fn = getattr(kernels, name)
+        full = fn(*args)
+        same = all(_same_bits(a[0], b[r]) for r in range(8)
+                   for a, b in zip(fn(*_rows_of(args, r, n_rows, 8)), full))
+        log(f"{name} S=8: rows against their single launches "
+            f"{'bit-equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"{name} rows depend on the batch")
+
+    # timings: 50 launches in one CUDA graph (median of 5 replays) beside
+    # an empty kernel's at the same grid, the time through the wrapper,
+    # the plain version, the wrapper's host time a call, the bound
+    main = {"chomp_obstacle": calls["obs"][len(calls["obs"]) // 2],
+            "chomp_step": calls["step"][len(calls["step"]) // 2]}
+    cases = {(n, "suite scene 1 (S=1)"): a for n, a in main.items()}
+    cases.update({("chomp_obstacle", "seeded S=8"): obs8,
+                  ("chomp_step", "seeded S=8"): step8})
+    smi = clocks_under_load(lambda: kernels.chomp_obstacle(*obs8))
+    log(f"CHOMP kernels under load: clocks.sm, power.draw, power.limit = "
+        f"{smi}")
+    timing = {}
+    for (name, what), args in cases.items():
+        wrapper = getattr(kernels, name)
+        plain_fn = getattr(kernels, f"{name}_plain")
+
+        def run(args=args, wrapper=wrapper):
+            return wrapper(*args)
+
+        def plain(args=args, plain_fn=plain_fn):
+            return plain_fn(*args)
+        ms = time_graph(run)
+        if name == "chomp_obstacle":
+            t = args[5].shape[-3]
+            blocks = args[5].numel() // (t * args[5].shape[-2]
+                                         * args[5].shape[-1])
+            threads = 32 * min(t, 32)
+            flops, nbytes = _chomp_obstacle_work(args)
+        else:
+            t, d = args[0].shape[-2:]
+            blocks = args[0].numel() // (t * d)
+            threads = min(1024, ((t + 1) * d + 31) // 32 * 32)
+            flops, nbytes = _chomp_step_work(args)
+        floor = floor_ms(blocks, threads, args[0].device)
+        wrapped = time_launches(run)
+        plain_ms = time_ms(plain, 5, 1)
+        bound, by = _bound(flops, nbytes)
+        host = _host_us(run)
+        timing[(name, what)] = (ms, plain_ms, bound, by, floor, host)
+        log(f"{name} {what}: kernel {ms:.5f} ms (graph of 50), floor "
+            f"{floor:.5f} ms (an empty launch of {blocks} x {threads}), "
+            f"through the wrapper {wrapped:.4f} ms a call, plain "
+            f"{plain_ms:.4f} ms, bound {bound:.7f} ms ({by}; {flops:.3e} "
+            f"flop, {nbytes} B), share of bound {bound / ms:.5f}, wrapper "
+            f"host {host:.1f} us a call")
+    sm = float(smi.split()[0])
+    entries = []
+    for name, rep in (("chomp_obstacle", "omg_planner_tpu/ops/chomp.py:197"),
+                      ("chomp_step", "omg_planner_tpu/ops/chomp.py:269")):
+        ms, plain_ms, bound, by, floor, host = timing[
+            (name, "suite scene 1 (S=1)")]
+        entries.append(dict(
+            name=name, route="cuda",
+            source="omg_planner_torch/csrc/chomp_cost.cu", replaces=rep,
+            launches=0, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None,
+            share_of_bound=bound / ms, floor_ms=floor, host_us=host,
+            sm_clock_mhz=sm, registers=regs[name]["registers"]))
+    return entries
+
+
 def phase_reference(dev):
     """The plan loop on one CPU-staged problem, on the CPU and on ``dev``."""
     scene = PlanningScene.synthetic(SMALL_CFG, scene_id=5, n_obstacles=2,
@@ -1658,8 +2078,8 @@ def _timed_plan(scene, dev, what):
 BUILD_KERNELS = ("ik_prefilter", "ik_chain")
 #: the kernels every Panda plan with the MD learner launches, its goal-set
 #: build included, and none other outside their phases
-PLAN_KERNELS = ("panda_fk", "sdf_query", "md_update",
-                "joint_limit") + BUILD_KERNELS
+PLAN_KERNELS = ("panda_fk", "sdf_query", "md_update", "joint_limit",
+                "chomp_obstacle", "chomp_step") + BUILD_KERNELS
 #: the most host syncs that a suite scene's staging (its goal-set build
 #: and ``build_problem``) may take
 STAGE_SYNC_CAP = 9
@@ -1687,8 +2107,15 @@ def phase_standard(dev) -> dict:
         scene = PlanningScene.from_npz(cfg, path, device=dev)
         reset_counts()
         what = f"standard plan suite scene {i}"
-        _timed_plan(scene, dev, what)
+        res = _timed_plan(scene, dev, what)
         counts = _check_launches(f"standard suite scene {i}", PLAN_KERNELS)
+        # one CHOMP step a plan step, and the final evaluation of a plan
+        # that ran out of steps
+        steps = int(res.steps_used) + (not bool(res.flag))
+        if any(counts[k] != steps for k in CHOMP_ENTRIES):
+            raise AssertionError(f"{what}: {steps} CHOMP steps launched "
+                                 f"{[counts[k] for k in CHOMP_ENTRIES]} CHOMP "
+                                 "kernels")
         if (any(counts[k] != 1 for k in BUILD_KERNELS)
                 or STAGE_SYNCS[what] > STAGE_SYNC_CAP):
             raise AssertionError(f"{what}: the build launched "
@@ -1745,25 +2172,25 @@ def _profiled(fn, dev, what, cpu: bool = True):
 
 # phase 6's attribution: the port's functions whose device operations it
 # counts, each under its label (the first two are the functions of the two
-# plan kernels, "joint-limit loop" and "MD expert update" those of the two
-# loop kernels); a function called inside another counts under its own
-# label.  The ranges are put around each name in the module that calls it,
-# by this script only.
+# plan kernels, the labels with a kernel's name in brackets those of the
+# CHOMP and loop kernels); a function called inside another counts under
+# its own label.  The ranges are put around each name in the module that
+# calls it, by this script only.
 ATTRIBUTION = {
     "FK + body points": [(model_api, n) for n in (
         "fk_points", "end_points", "fk_batch", "fk_one",
         "fk_with_joint_info_batch", "point_positions")],
     "collision query": [(m, "sdf_potentials") for m in (
         chomp_mod, learner_mod, goal_set_mod)],
-    "derivatives, Jacobians, gradient terms, top-k": [
-        (model_api, "point_jacobians"), (chomp_mod, "get_derivative"),
-        (chomp_mod, "_functional_grad_terms"), (chomp_mod, "top_k"),
+    "CHOMP obstacle terms (chomp_obstacle)": [
+        (kernels, "_chomp_obstacle_op")],
+    "CHOMP cost, the rest": [(chomp_mod, "compute_collision_loss")],
+    "CHOMP step (chomp_step)": [(kernels, "_chomp_step_op")],
+    "CHOMP step, the rest": [(chomp_mod, "chomp_step")],
+    "plan step, the rest (goal and tail gathers)": [
+        (plan_mod, "_chomp_update")],
+    "learner derivatives (get_derivative)": [
         (learner_mod, "get_derivative")],
-    "smoothness": [(chomp_mod, "smooth_loss")],
-    "CHOMP cost, the rest": [(chomp_mod, "compute_total_loss")],
-    "CHOMP update and limit check": [(chomp_mod, n) for n in (
-        "goal_set_projection_update", "unconstrained_update",
-        "apply_update", "check_joint_limit")],
     "joint-limit loop (joint_limit)": [(chomp_mod, "handle_joint_limit")],
     "learner sweep, the rest": [(learner_mod, "cost_vector_raw")],
     "MD expert update (md_update)": [(learner_mod, "update_goal_dist")],
@@ -1838,6 +2265,15 @@ def phase_profile(dev):
     for label, n in sorted(by_range.items(), key=lambda kv: -kv[1]):
         log(f"  {n:7d}  {n / steps:8.1f} a step  {100 * n / linked:5.1f}%  "
             f"{label}")
+    sorts = {n: us for n, us in by_name.items() if "sort" in n.lower()}
+    log(f"  sort kernels of the plan: {len(sorts)} names, "
+        f"{sum(sorts.values()) / 1e3:.3f} ms")
+    chomp_ops = {label: by_range.get(label, 0) for label in (
+        "CHOMP obstacle terms (chomp_obstacle)", "CHOMP step (chomp_step)")}
+    calls = steps + (not bool(res.flag))
+    if any(n != calls for n in chomp_ops.values()):
+        raise AssertionError(f"the CHOMP kernels' ranges hold {chomp_ops} "
+                             f"device operations, not one a step ({calls})")
 
     # the same scene's goal-set build, warm (the staging rebuilt)
     scene._staged = None
@@ -3082,6 +3518,7 @@ def main() -> int:
     plan_entries = timed("plan kernels", phase_plan_kernels, "cuda")
     plan_entries += timed("learner kernels", phase_learner_kernels, "cuda")
     plan_entries += timed("IK kernels", phase_ik_kernels, "cuda")
+    plan_entries += timed("CHOMP kernels", phase_chomp_kernels, "cuda")
     timed("reference", phase_reference, "cuda")
     standard = timed("standard", phase_standard, "cuda")
     for e in plan_entries:
@@ -3092,7 +3529,9 @@ def main() -> int:
     timed("bench", phase_bench)
     # phases from here on: the kernels each path must launch
     rollout = ("rigid_rollout",) + PLAN_KERNELS
-    expect = {"fused": PLAN_KERNELS, "chain": ("sdf_query", "joint_limit"),
+    expect = {"fused": PLAN_KERNELS,
+              "chain": ("sdf_query", "joint_limit", "chomp_obstacle",
+                        "chomp_step"),
               "tasks": PLAN_KERNELS,
               "physics": ("rigid_rollout", "panda_fk"), "serve": rollout,
               "scale-out": PLAN_KERNELS, "viz and apps": rollout,

@@ -4,7 +4,7 @@
 // tests/test_torch_plan_kernels_emu.py,
 // tests/test_torch_learner_kernels_emu.py,
 // tests/test_torch_ik_kernels_emu.py, test_torch_ik_kernels_warp_emu.py,
-// test_torch_ik_kernels_layout.py).  Never part of a build for the card.
+// test_torch_ik_kernels_layout.py, test_torch_chomp_kernels_emu.py).  Never part of a build for the card.
 //
 //   g++ -std=c++20 -O1 -shared -fPIC -DOMG_CUDA_EMU
 //       -x c++ rigid_rollout.cu -o librigid_rollout_emu.so
@@ -257,6 +257,25 @@ inline int __any_sync(unsigned, int pred) {
   return any;
 }
 
+// lane l's bit set where pred is true in lane l
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const unsigned bit = (pred ? 1u : 0u) << (threadIdx.x & 31);
+  return emu::fold(bit, [](unsigned a, unsigned b) { return a | b; });
+}
+
+// the value of lane (lane - delta), or the caller's own below lane delta
+inline int __shfl_up_sync(unsigned, int v, unsigned delta) {
+  emu::Fiber* me = emu::block->current;
+  const unsigned t = me->tid;
+  unsigned* buf = emu::block->uslots.data() +
+                  (me->turn ^= 1) * emu::block->fibers.size();
+  buf[t] = static_cast<unsigned>(v);
+  emu::wait_at(emu::my_warp());
+  const unsigned lane = t & 31u;
+  return lane < delta ? v : static_cast<int>(buf[t - delta]);
+}
+
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 inline unsigned __reduce_max_sync(unsigned, unsigned v) {
   return emu::fold(v, [](unsigned a, unsigned b) { return a > b ? a : b; });
 }

@@ -22,6 +22,8 @@ gradient); ``physics/dynamics.py`` and the IK call ``panda`` directly.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -44,7 +46,11 @@ def dof(model) -> int:
 
 def _chain_tables(model: ChainModel):
     """(dof -> joint-row index, affect [L, D], prismatic [D]) on the host."""
-    jt = np.asarray(model.jtype)
+    return _chain_tables_of(model.jtype)
+
+
+def _chain_tables_of(jtype: tuple):
+    jt = np.asarray(jtype)
     moving = np.where(jt != FIXED)[0]
     links = np.arange(len(jt))
     affect = (links[:, None] >= moving[None, :]).astype(np.float32)
@@ -112,17 +118,47 @@ def point_jacobians(model, origins_w, axes_w, x):
         return panda_mod.point_jacobians(model, origins_w, axes_w, x)
     d2j, affect, prismatic = _chain_tables(model)
     dev, dt = x.device, x.dtype
-    d2j = torch.as_tensor(d2j, device=dev)
-    ax = axes_w[:, d2j, :]
-    og = origins_w[:, d2j, :]
-    rel = x[:, :, :, None, :] - og[:, None, None, :, :]   # [n, L, P, D, 3]
-    axb = ax[:, None, None].expand(rel.shape)
-    rev = torch.linalg.cross(axb, rel, dim=-1)
-    p_mask = torch.as_tensor(prismatic, dtype=dt,
-                             device=dev)[None, None, None, :, None]
-    jac = rev * (1.0 - p_mask) + axb * p_mask
-    return jac * torch.as_tensor(affect, dtype=dt,
-                                 device=dev)[None, :, None, :, None]
+    return panda_mod.point_jacobians_tables(
+        origins_w, axes_w, x, torch.as_tensor(d2j, device=dev),
+        torch.as_tensor(prismatic, dtype=dt, device=dev),
+        torch.as_tensor(affect, dtype=dt, device=dev))
+
+
+def jacobian_tables(model) -> torch.Tensor:
+    """The model's point-Jacobian and finger tables as the
+    ``chomp_obstacle`` kernel reads them, one float32 buffer on the model's
+    device (cached per model kind, as ``kernels._fk_tables`` caches the
+    FK's): the joint row of each dof [D], prismatic [D], affect [L, D],
+    the finger links [L] (:func:`finger_link_mask`)."""
+    jtype = None if isinstance(model, PandaModel) else model.jtype
+    return _jacobian_tables(jtype, tuple(finger_link_mask(model)),
+                            str(model.device))
+
+
+@functools.lru_cache(maxsize=32)
+def _jacobian_tables(jtype, finger: tuple, device: str) -> torch.Tensor:
+    if jtype is None:
+        d2j, affect, prismatic = (panda_mod._DOF_TO_AXIS, panda_mod._AFFECT,
+                                  panda_mod._PRISMATIC)
+    else:
+        d2j, affect, prismatic = _chain_tables_of(jtype)
+    flat = np.concatenate([np.asarray(d2j, np.float32), prismatic,
+                           affect.reshape(-1), finger]).astype(np.float32)
+    return torch.as_tensor(flat, device=device)
+
+
+def dof_tables(model) -> torch.Tensor:
+    """[2, D] float32 on the model's device (cached per model kind), as the
+    ``chomp_step`` kernel reads them: the arm dofs (:func:`arm_dof_mask`)
+    and the others, the gripper dofs that :func:`gripper_clamp` clamps to
+    [0, 0.04]."""
+    return _dof_tables(tuple(arm_dof_mask(model)), str(model.device))
+
+
+@functools.lru_cache(maxsize=32)
+def _dof_tables(arm: tuple, device: str) -> torch.Tensor:
+    arm = np.asarray(arm, np.float32)
+    return torch.as_tensor(np.stack([arm, 1.0 - arm]), device=device)
 
 
 def tip_pose(model, q: torch.Tensor):

@@ -304,14 +304,24 @@ def point_jacobians(model: PandaModel, origins_w: torch.Tensor,
     Revolute columns are ``axis x (x - origin)``; the two prismatic finger
     columns are the axis itself; link/dof gating as ``_AFFECT``."""
     dev, dt = x.device, x.dtype
-    d2a = torch.as_tensor(_DOF_TO_AXIS, device=dev)
-    ax = axes_w[:, d2a, :]                                 # [n, 9, 3]
-    og = origins_w[:, d2a, :]
-    rel = x[:, :, :, None, :] - og[:, None, None, :, :]    # [n,10,P,9,3]
+    return point_jacobians_tables(
+        origins_w, axes_w, x, torch.as_tensor(_DOF_TO_AXIS, device=dev),
+        torch.as_tensor(_PRISMATIC, dtype=dt, device=dev),
+        torch.as_tensor(_AFFECT, dtype=dt, device=dev))
+
+
+def point_jacobians_tables(origins_w: torch.Tensor, axes_w: torch.Tensor,
+                           x: torch.Tensor, dof_rows: torch.Tensor,
+                           prismatic: torch.Tensor,
+                           affect: torch.Tensor) -> torch.Tensor:
+    """:func:`point_jacobians` of any serial model from its tables: the
+    joint row of each dof ``dof_rows [D]`` (int64), ``prismatic [D]`` and
+    ``affect [L, D]`` (x's dtype): [n, L, P, D, 3]."""
+    ax = axes_w[:, dof_rows, :]                            # [n, D, 3]
+    og = origins_w[:, dof_rows, :]
+    rel = x[:, :, :, None, :] - og[:, None, None, :, :]    # [n,L,P,D,3]
     axb = ax[:, None, None].expand(rel.shape)
     rev = torch.linalg.cross(axb, rel, dim=-1)
-    p_mask = torch.as_tensor(_PRISMATIC, dtype=dt,
-                             device=dev)[None, None, None, :, None]
+    p_mask = prismatic[None, None, None, :, None]
     jac = rev * (1.0 - p_mask) + axb * p_mask
-    return jac * torch.as_tensor(_AFFECT, dtype=dt,
-                                 device=dev)[None, :, None, :, None]
+    return jac * affect[None, :, None, :, None]

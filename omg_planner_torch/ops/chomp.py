@@ -8,6 +8,14 @@
 The deviations from the reference's numerics that the JAX package
 documents (top-k scatter accumulates; per-(timestep, link) cost report)
 are kept, so both packages compute the same function.
+
+A plan step is FK and the query, then two kernels (``ops/kernels.py``):
+``chomp_obstacle`` (:func:`compute_collision_loss`) and ``chomp_step``
+(:func:`chomp_step`), before the ``joint_limit`` projection.  The other
+functions here (:func:`forward_kinematics_obstacle`,
+:func:`smooth_loss`, :func:`compute_total_loss`, the update pieces) are
+the plain versions' pieces, which the tests hold against the JAX
+package.
 """
 
 from __future__ import annotations
@@ -16,10 +24,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..config import DIFF_RULES, DIFF_RULE_LENGTH, DeviceHorizon, OMGConfig
+from ..config import DeviceHorizon, OMGConfig
 from ..models import api as model_api
-from ..utils.diff import get_derivative
-from ..utils.linalg import top_k
 from . import kernels
 from .sdf import WorldField, sdf_potentials, world_field_query
 
@@ -74,33 +80,26 @@ class CostInfo(NamedTuple):
     cost_traj: torch.Tensor
 
 
+def info_from(floats, flags) -> CostInfo:
+    """The :class:`CostInfo` of ``chomp_step``'s packed outputs: views of
+    ``floats [..., 10 + T]`` and ``flags [..., 4]``."""
+    n = len(kernels.INFO_SCALARS)
+    return CostInfo(*floats[..., :n].unbind(-1), *flags.unbind(-1),
+                    floats[..., n:])
+
+
 def smooth_loss(hp: DeviceHorizon, cfg: OMGConfig, xi, start, end):
     """Finite-difference velocity-norm smoothness (``omg/cost.py:425-449``).
     Returns (loss [T+1], grad [T, dof])."""
-    d1 = hp.diff_matrices[0]
-    mid = DIFF_RULE_LENGTH // 2
-    # built out of place, so torch.func.vmap can batch it over scenes
-    first = float(DIFF_RULES[0][mid - 1]) * start / hp.time_interval
-    last = (torch.zeros_like(end) if cfg.goal_set_proj
-            else float(DIFF_RULES[0][mid]) * end / hp.time_interval)
-    ed = torch.cat([first[None], xi.new_zeros((xi.shape[0] - 1,
-                                               xi.shape[1])), last[None]])
-    velocity = d1 @ xi
-    vel_norm = torch.linalg.norm(velocity + ed, dim=1)
-    loss = 0.5 * vel_norm**2
-    grad = hp.A @ xi + d1.T @ ed
-    return loss, grad
+    return kernels.smooth_terms(hp.diff_matrices[0], hp.A, hp.time_interval,
+                                xi, start, end, cfg.goal_set_proj)
 
 
-def forward_kinematics_obstacle(model, scene, params: CostParams,
-                                cfg: OMGConfig, hp: DeviceHorizon, xi,
-                                start, end,
-                                world_field: WorldField | None = None):
-    """FK + SDF + derivatives for the whole trajectory
-    (``omg/cost.py:112-190``).  With ``world_field`` (``cfg.sdf_fused``)
-    one 5-channel read of the fused field replaces the per-object query.
-    Returns (x, v, a_ws, jac, potentials, grads, collide_count) with
-    x/v/a_ws [T, L, P, 3], jac [T, L, P, D, 3], potentials [T, L, P]."""
+def _fk_query(model, scene, params: CostParams, xi,
+              world_field: WorldField | None):
+    """FK of the trajectory and the collision query of its body points:
+    (x [T, L, P, 3], joint origins and axes [T, J, 3], pot [T, L, P], grad
+    [T, L, P, 3], collide [T, L, P])."""
     t_dim = xi.shape[0]
     _, origins_w, axes_w, x = model_api.fk_points(model, xi,
                                                   joint_info=True)
@@ -112,45 +111,28 @@ def forward_kinematics_obstacle(model, scene, params: CostParams,
             scene, params.inv_poses, x.reshape(-1, 3), params.epsilons,
             params.padding_scales, params.clearances, params.disables)
     n_links = model_api.num_links(model)
-    pot = pot.reshape(t_dim, n_links, p)
-    grad = grad.reshape(t_dim, n_links, p, 3)
-    collide = collide.reshape(t_dim, n_links, p)
+    return (x, origins_w, axes_w, pot.reshape(t_dim, n_links, p),
+            grad.reshape(t_dim, n_links, p, 3),
+            collide.reshape(t_dim, n_links, p))
 
-    if cfg.uncheck_finger_collision == -1:
-        # soften finger potentials (omg/cost.py:350-353)
-        fmask = torch.as_tensor(model_api.finger_link_mask(model),
-                                dtype=pot.dtype, device=pot.device)
-        scale = 1.0 - 0.9 * fmask
-        pot = pot * scale[None, :, None]
-        grad = grad * scale[None, :, None, None]
-        collide = collide * (1.0 - fmask)[None, :, None]
 
-    jac = model_api.point_jacobians(model, origins_w, axes_w, x)
+def forward_kinematics_obstacle(model, scene, params: CostParams,
+                                cfg: OMGConfig, hp: DeviceHorizon, xi,
+                                start, end,
+                                world_field: WorldField | None = None):
+    """FK + SDF + derivatives for the whole trajectory
+    (``omg/cost.py:112-190``): the per-point terms of the plain
+    ``chomp_obstacle``.  With ``world_field`` (``cfg.sdf_fused``) one
+    5-channel read of the fused field replaces the per-object query.
+    Returns (x, v, a_ws, jac, potentials, grads, collide_count) with
+    x/v/a_ws [T, L, P, 3], jac [T, L, P, D, 3], potentials [T, L, P]."""
+    x, og, ax, pot, grad, collide = _fk_query(model, scene, params, xi,
+                                              world_field)
     x_start, x_end = model_api.end_points(model, start, end)
-    xs = torch.movedim(x, 0, 2)  # [10, P, T, 3]
-    v = get_derivative(hp, xs, x_start, x_end, 1)
-    a_ws = get_derivative(hp, xs, x_start, x_end, 2)
-    v = torch.movedim(v, 2, 0)
-    a_ws = torch.movedim(a_ws, 2, 0)
-    return x, v, a_ws, jac, pot, grad, collide.sum()
-
-
-def _functional_grad_terms(v, a_ws, pot, grad):
-    """CHOMP workspace functional gradient terms (``omg/cost.py:24-43``)::
-
-        cost = pot * |v|
-        dir  = |v| P g - pot P a / |v|^2,   P = I - v_hat v_hat^T
-    """
-    vel_norm = torch.linalg.norm(v, dim=-1, keepdim=True)
-    cost = pot * vel_norm[..., 0]
-    v_hat = v / (vel_norm + 1e-8)
-
-    def proj(w):
-        return w - v_hat * torch.sum(v_hat * w, dim=-1, keepdim=True)
-
-    curv = pot[..., None] * proj(a_ws) / (vel_norm**2 + 1e-8)
-    direction = vel_norm * proj(grad) - curv
-    return cost, direction
+    return (x,) + kernels.obstacle_point_terms(
+        x, og, ax, x_start, x_end, pot, grad, collide, hp.diff_matrices,
+        model_api.jacobian_tables(model), hp.time_interval,
+        cfg.uncheck_finger_collision == -1)
 
 
 def compute_collision_loss(model, scene, params: CostParams, cfg: OMGConfig,
@@ -158,104 +140,72 @@ def compute_collision_loss(model, scene, params: CostParams, cfg: OMGConfig,
                            world_field: WorldField | None = None):
     """Obstacle loss + config-space gradient (``omg/cost.py:362-423``),
     top-k sparsified as a mask: points at or above the k-th largest
-    potential contribute.  Returns (obs_cost [T, L], obs_grad [T, D],
-    collide_count)."""
-    t_dim = xi.shape[0]
-    x, v, a_ws, jac, pot, grad, collide = forward_kinematics_obstacle(
-        model, scene, params, cfg, hp, xi, start, end, world_field)
-    p = pot.shape[-1]
-    cost_pt, direction = _functional_grad_terms(v, a_ws, pot, grad)
-
-    total = t_dim * model_api.num_links(model) * p
-    k = cfg.top_k_collision
-    if k and k < total:
-        kth = top_k(pot.reshape(-1), k)[0][-1]
-        sel = (pot >= kth).to(pot.dtype)
-    else:
-        sel = torch.ones_like(pot)
-
-    if not cfg.consider_finger and k:
-        # finger links are excluded in the top-k branch (omg/cost.py:401-402)
-        link_mask = 1.0 - torch.as_tensor(
-            model_api.finger_link_mask(model), dtype=pot.dtype,
-            device=pot.device)
-        sel = sel * link_mask[None, :, None]
-
-    if cfg.ref_topk_quirks and k:
-        # the reference's top-k quirks (omg/cost.py:404-421): one gradient
-        # point per (timestep, link), per-link cost broadcast over time
-        score = torch.where(sel > 0, pot, torch.full_like(pot, -torch.inf))
-        best = torch.argmax(score, dim=-1)
-        onehot = torch.nn.functional.one_hot(best, p).to(pot.dtype)
-        any_sel = (sel.sum(-1, keepdim=True) > 0).to(pot.dtype)
-        gsel = onehot * any_sel
-        obs_cost = (cost_pt * sel).sum((0, -1))[None, :].expand(
-            cost_pt.shape[:2])
-        obs_grad = torch.einsum("tjpdc,tjpc->td", jac,
-                                direction * gsel[..., None])
-        return obs_cost, obs_grad, collide
-
-    obs_cost = (cost_pt * sel).sum(-1)  # [T, 10]
-    obs_grad = torch.einsum("tjpdc,tjpc->td", jac, direction * sel[..., None])
-    return obs_cost, obs_grad, collide
+    potential contribute.  FK and the query, then one ``chomp_obstacle``
+    call.  Returns (obs_cost [T, L], obs_grad [T, D], collide_count)."""
+    x, og, ax, pot, grad, collide = _fk_query(model, scene, params, xi,
+                                              world_field)
+    x_start, x_end = model_api.end_points(model, start, end)
+    return kernels.chomp_obstacle(
+        x, og, ax, x_start, x_end, pot, grad, collide, hp.diff_matrices,
+        model_api.jacobian_tables(model), hp.time_interval,
+        cfg.top_k_collision, cfg.consider_finger,
+        cfg.uncheck_finger_collision == -1, cfg.ref_topk_quirks)
 
 
 def compute_total_loss(model, scene, params: CostParams, cfg: OMGConfig,
                        hp: DeviceHorizon, xi, start, end, goal,
                        obstacle_weight, smoothness_weight,
                        world_field: WorldField | None = None):
-    """Total cost/gradient/termination info (``omg/cost.py:451-532``)."""
+    """Total cost/gradient/termination info (``omg/cost.py:451-532``), on
+    the plain ``chomp_step``'s terms (``violate_limit`` false)."""
     s_loss, s_grad = smooth_loss(hp, cfg, xi, start, end)
     o_cost, o_grad, collide = compute_collision_loss(
         model, scene, params, cfg, hp, xi, start, end, world_field)
+    grad, floats, flags = kernels.loss_terms(
+        s_loss, s_grad, o_cost, o_grad, collide, xi, goal, obstacle_weight,
+        smoothness_weight, cfg.clip_grad_scale,
+        float(cfg.allow_collision_point), cfg.terminate_smooth_loss,
+        cfg.goal_set_proj, cfg.pre_terminate)
+    info = info_from(floats, torch.stack(
+        flags + (torch.zeros((), dtype=torch.bool, device=xi.device),)))
+    return info.cost, grad, info
 
-    s_sum = s_loss.sum()
-    o_sum = o_cost.sum()
-    w_obs = obstacle_weight * o_sum
-    w_smooth = smoothness_weight * s_sum
-    w_obs_grad = torch.clamp(obstacle_weight * o_grad,
-                             -cfg.clip_grad_scale, cfg.clip_grad_scale)
-    w_smooth_grad = smoothness_weight * s_grad
-    cost = w_obs + w_smooth
-    grad = w_obs_grad + w_smooth_grad
-    cost_traj = (obstacle_weight * o_cost.sum(-1)
-                 + smoothness_weight * s_loss[:-1])
 
-    goal_dist = (torch.linalg.norm(xi[-1] - goal) if cfg.goal_set_proj
-                 else torch.zeros((), dtype=xi.dtype, device=xi.device))
-    if cfg.pre_terminate:
-        terminate = ((collide <= cfg.allow_collision_point)
-                     & (goal_dist < 0.01)
-                     & (s_sum < cfg.terminate_smooth_loss))
-    else:
-        terminate = torch.zeros((), dtype=torch.bool, device=xi.device)
-    failure = ((collide >= cfg.allow_collision_point * 10)
-               | (s_sum >= cfg.terminate_smooth_loss * 2.5))
-    execute = ((collide <= cfg.allow_collision_point)
-               & (s_sum < cfg.terminate_smooth_loss))
+def _update_operators(hp: DeviceHorizon, cfg: OMGConfig):
+    """(P, M) of the CHOMP update: ``P_k`` and ``M_k`` of the goal-set
+    projection, or Ainv and None."""
+    if not cfg.goal_set_proj:
+        return hp.Ainv, None
+    k = cfg.reach_tail_length if cfg.use_standoff else 1
+    m_k, p_k = hp.proj[k]
+    return p_k, m_k
 
-    info = CostInfo(
-        cost=cost, obs=o_sum, smooth=s_sum,
-        weighted_obs=w_obs, weighted_smooth=w_smooth,
-        grad_norm=torch.linalg.norm(grad),
-        smooth_grad_norm=torch.linalg.norm(w_smooth_grad),
-        obs_grad_norm=torch.linalg.norm(w_obs_grad),
-        collide=collide, reach=goal_dist,
-        terminate=terminate, failure_terminate=failure, execute=execute,
-        violate_limit=torch.zeros((), dtype=torch.bool, device=xi.device),
-        cost_traj=cost_traj,
-    )
-    return cost, grad, info
+
+def chomp_step(model, cfg: OMGConfig, hp: DeviceHorizon, xi, start, goal,
+               tail, obs, weights, lower, upper):
+    """One CHOMP step after the obstacle terms ``obs`` = (obs_cost,
+    obs_grad, collide) of :func:`compute_collision_loss`: smoothness, the
+    weighted cost and gradient, the termination flags, the joint-limit
+    check and the update (``omg/optimizer.py:88-135``), before the
+    joint-limit projection; ``weights`` = (obstacle, smoothness, step
+    size).  One ``chomp_step`` call.  Returns (trajectory, info)."""
+    pmat, mmat = _update_operators(hp, cfg)
+    new_xi, floats, flags = kernels.chomp_step(
+        xi, start, goal, tail, *obs, *weights, lower, upper,
+        hp.diff_matrices[0], hp.A, pmat, mmat, model_api.dof_tables(model),
+        hp.time_interval, cfg.clip_grad_scale,
+        float(cfg.allow_collision_point), cfg.terminate_smooth_loss,
+        cfg.goal_set_proj, cfg.pre_terminate, cfg.consider_finger)
+    return new_xi, info_from(floats, flags)
 
 
 def goal_set_projection_update(hp: DeviceHorizon, cfg: OMGConfig, xi, grad,
                                chosen_tail, step_size):
     """Projected CHOMP step (``omg/optimizer.py:88-113``) with the
     precomputed ``P_k``/``M_k`` operators."""
-    k = cfg.reach_tail_length if cfg.use_standoff else 1
-    m_k, p_k = hp.proj[k]
-    b = xi[-k:] - chosen_tail
-    return -step_size * (p_k @ grad) - m_k @ b
+    p_k, m_k = _update_operators(hp, cfg)
+    return kernels.projected_update(p_k, m_k, xi, grad, chosen_tail,
+                                    step_size)
 
 
 def unconstrained_update(hp: DeviceHorizon, grad, step_size):
@@ -266,13 +216,8 @@ def unconstrained_update(hp: DeviceHorizon, grad, step_size):
 def apply_update(model, cfg: OMGConfig, xi, update):
     """Trajectory update + gripper clamp (``omg/core.py:43-51``); gripper
     dofs are frozen unless ``cfg.consider_finger``."""
-    if cfg.consider_finger:
-        xi = xi + update
-    else:
-        arm = torch.as_tensor(model_api.arm_dof_mask(model), dtype=xi.dtype,
-                              device=xi.device)
-        xi = xi + update * arm[None, :]
-    return model_api.gripper_clamp(model, xi)
+    return kernels.dof_update(model_api.dof_tables(model),
+                              cfg.consider_finger, xi, update)
 
 
 def handle_joint_limit(hp: DeviceHorizon, cfg: OMGConfig, xi, lower, upper):
@@ -300,6 +245,4 @@ def handle_joint_limit_batch(hp: DeviceHorizon, cfg: OMGConfig, xi, lower,
 def check_joint_limit(xi, lower, upper):
     """Reference ``check_joint_limit`` (``omg/optimizer.py:166-174``) —
     including its quirk of ANDing the low/high masks elementwise."""
-    low = (xi < lower - 5e-3).any()
-    high = xi > upper + 5e-3
-    return (low * high).any()
+    return kernels.limit_violated(xi, lower, upper)

@@ -46,17 +46,24 @@ Kernels:
   ``ops/ik.py::ik_batch_fixed`` and ``_solve_chain_fused`` route here.
   Their plain versions are :func:`ik_prefilter_plain` and
   :func:`ik_chain_plain`.
+* :func:`chomp_obstacle` and :func:`chomp_step` (``csrc/chomp_cost.cu``)
+  — the CHOMP plan step after FK and the collision query: the obstacle
+  cost and its configuration-space gradient with the exact top-k mask,
+  then smoothness, the total loss, the termination flags and the update,
+  one block a scene row each; ``ops/chomp.py::compute_collision_loss``
+  and ``chomp_step`` route here.  Their plain versions are
+  :func:`chomp_obstacle_plain` and :func:`chomp_step_plain`.
 
-None of the last six has a Pallas counterpart: the JAX package leaves
+None of the last eight has a Pallas counterpart: the JAX package leaves
 them to XLA (``md_update``, ``joint_limit`` and ``ik_chain`` replace its
-``lax.while_loop``s, which in eager PyTorch read the host on every pass).
-All six are operators of the ``omg_torch`` namespace of a
-``torch.library.Library``, so the scene batches' ``torch.func.vmap``
-reaches them: their CPU kernel is the plain version, their CUDA kernel
-the launch, and a vmap rule folds the mapped axis into the kernel's own
-batch axis (configurations for ``panda_fk``, IK lanes for the IK, scene
-rows for the others).  None has a gradient: a call on an input that
-requires grad raises.
+``lax.while_loop``s, which in eager PyTorch read the host on every pass;
+the CHOMP kernels ~150 eager operations a plan step).  All eight are
+operators of the ``omg_torch`` namespace of a ``torch.library.Library``,
+so the scene batches' ``torch.func.vmap`` reaches them: their CPU kernel
+is the plain version, their CUDA kernel the launch, and a vmap rule
+folds the mapped axis into the kernel's own batch axis (configurations
+for ``panda_fk``, IK lanes for the IK, scene rows for the others).  None
+has a gradient: a call on an input that requires grad raises.
 """
 
 from __future__ import annotations
@@ -72,8 +79,10 @@ import subprocess
 import torch
 from torch import Tensor
 
+from ..config import DIFF_RULE_LENGTH, DIFF_RULES
 from ..models import panda
-from ..utils.linalg import solve_spd_unrolled
+from ..utils.diff import derivative
+from ..utils.linalg import solve_spd_unrolled, top_k
 from ..utils.pose import so3_log
 from ..utils.sync import host_bool
 
@@ -121,6 +130,10 @@ _LIBS = {
         "omg_ik_chain": [ctypes.POINTER(ctypes.c_void_p),
                          ctypes.POINTER(ctypes.c_int)]
         + [ctypes.c_float] * 4 + [ctypes.c_void_p]}),
+    "chomp_cost": ("chomp_cost.cu", (), {
+        name: [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+               ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+        for name in ("omg_chomp_obstacle", "omg_chomp_step")}),
 }
 _ENTRIES: dict = {}
 
@@ -1437,8 +1450,513 @@ def ik_chain(chain_tgts: Tensor, seeds: Tensor, active: Tensor,
 
 ik_chain.launches = 0
 
+# -- the CHOMP step: chomp_obstacle and chomp_step ---------------------------
+
+#: the most dofs ``chomp_obstacle``'s kernel takes (a lane's partial sums)
+CHOMP_MAX_DOF = 16
+#: ``CostInfo``'s scalar fields in the order ``chomp_step`` packs them (its
+#: float output is these, then ``cost_traj [T]``; its flags are terminate,
+#: failure_terminate, execute and violate_limit)
+INFO_SCALARS = ("cost", "obs", "smooth", "weighted_obs", "weighted_smooth",
+                "grad_norm", "smooth_grad_norm", "obs_grad_norm", "collide",
+                "reach")
+
+
+def _plain_rows(fn, rows, ndims, shared, lead):
+    """``fn(*row, *shared)`` on each scene row of ``rows`` (leading dims
+    ``lead``; ``ndims`` each argument's dims in a row, an argument without
+    the leading dims shared by every row); its outputs stacked."""
+    s = _row_count(lead)
+    if s == 0:
+        raise ValueError("no scene rows")
+    flat = [a.expand(lead + a.shape[a.ndim - d:]).reshape(
+        (s,) + a.shape[a.ndim - d:]) for a, d in zip(rows, ndims)]
+    outs = [fn(*(a[r] for a in flat), *shared) for r in range(s)]
+    return tuple(torch.stack(o).reshape(lead + o[0].shape)
+                 for o in zip(*outs))
+
+
+def _jacobian_parts(tables, n_links: int):
+    """(joint row of each dof [D] int64, prismatic [D], affect [L, D],
+    finger links [L]) of ``models/api.py::jacobian_tables``' buffer."""
+    d = (tables.shape[0] - n_links) // (n_links + 2)
+    if 2 * d + n_links * d + n_links != tables.shape[0] or d <= 0:
+        raise ValueError(f"the Jacobian tables ({tables.shape[0]} values) "
+                         f"do not fit {n_links} links")
+    rows, prismatic, affect, finger = tables.split(
+        (d, d, n_links * d, n_links))
+    return rows.long(), prismatic, affect.reshape(n_links, d), finger
+
+
+def obstacle_point_terms(x, origins, axes, x_start, x_end, pot, grad,
+                         collide, dmats, tables, dt: float, soften: bool):
+    """The per-point terms of the plain ``chomp_obstacle`` for one row:
+    the finger softening (``soften``: ``omg/cost.py:350-353``), the point
+    Jacobians, the endpoint-corrected velocity and acceleration.  Returns
+    (v, a_ws [T, L, P, 3], jac [T, L, P, D, 3], pot, grad, collide
+    count)."""
+    dof_rows, prismatic, affect, finger = _jacobian_parts(tables,
+                                                          pot.shape[1])
+    if soften:
+        scale = 1.0 - 0.9 * finger
+        pot = pot * scale[None, :, None]
+        grad = grad * scale[None, :, None, None]
+        collide = collide * (1.0 - finger)[None, :, None]
+    jac = panda.point_jacobians_tables(origins, axes, x, dof_rows,
+                                       prismatic, affect)
+    xs = torch.movedim(x, 0, 2)  # [L, P, T, 3]
+    v = derivative(dmats, dt, xs, x_start, x_end, 1)
+    a_ws = derivative(dmats, dt, xs, x_start, x_end, 2)
+    return (torch.movedim(v, 2, 0), torch.movedim(a_ws, 2, 0), jac, pot,
+            grad, collide.sum())
+
+
+def functional_grad_terms(v, a_ws, pot, grad):
+    """CHOMP workspace functional gradient terms (``omg/cost.py:24-43``)::
+
+        cost = pot * |v|
+        dir  = |v| P g - pot P a / |v|^2,   P = I - v_hat v_hat^T
+    """
+    vel_norm = torch.linalg.norm(v, dim=-1, keepdim=True)
+    cost = pot * vel_norm[..., 0]
+    v_hat = v / (vel_norm + 1e-8)
+
+    def proj(w):
+        return w - v_hat * torch.sum(v_hat * w, dim=-1, keepdim=True)
+
+    curv = pot[..., None] * proj(a_ws) / (vel_norm**2 + 1e-8)
+    direction = vel_norm * proj(grad) - curv
+    return cost, direction
+
+
+def obstacle_selection(pot, tables, k: int, consider_finger: bool):
+    """The plain ``chomp_obstacle``'s selection of the (softened)
+    potentials ``pot [T, L, P]``: (the k-th largest potential, or None
+    when every point takes part (``k`` 0 or at least T L P), the mask [T,
+    L, P] of the points at or above it, the finger links dropped unless
+    ``consider_finger``)."""
+    t_dim, n_links, p = pot.shape
+    total = t_dim * n_links * p
+    kth = None
+    if k and k < total:
+        kth = top_k(pot.reshape(-1), k)[0][-1]
+        sel = (pot >= kth).to(pot.dtype)
+    else:
+        sel = torch.ones_like(pot)
+
+    if not consider_finger and k:
+        # finger links are excluded in the top-k branch (omg/cost.py:401-402)
+        link_mask = 1.0 - _jacobian_parts(tables, n_links)[3]
+        sel = sel * link_mask[None, :, None]
+    return kth, sel
+
+
+def chomp_obstacle_plain(x, origins, axes, x_start, x_end, pot, grad,
+                         collide, dmats, tables, dt: float, k: int,
+                         consider_finger: bool, soften: bool, quirks: bool):
+    """Plain version of the ``chomp_obstacle`` kernel, on the arguments of
+    its operator: the obstacle loss and its configuration-space gradient
+    (``omg/cost.py:362-423``) of a trajectory's body points ``x [T, L, P,
+    3]`` with its joints' world ``origins``/``axes [T, J, 3]``, the start's
+    and end's body points ``x_start``/``x_end [L, P, 3]`` and the query's
+    ``pot``/``collide [T, L, P]`` and ``grad [T, L, P, 3]``; ``dmats [3, T
+    + 1, T]`` and ``dt`` the horizon's difference matrices and time
+    interval, ``tables`` the model's (``models/api.py::jacobian_tables``).
+    Top-k sparsified as a mask: points at or above the ``k``-th largest
+    potential contribute (every point when ``k`` is 0 or at least T L P),
+    the finger links only with ``consider_finger``; ``quirks`` takes the
+    reference's (one gradient point per (t, link), the per-link cost
+    broadcast over t).  Leading dims are scene rows.  Returns (obs_cost
+    [T, L], obs_grad [T, D], collide count [])."""
+    if pot.ndim > 3:
+        return _plain_rows(
+            chomp_obstacle_plain,
+            (x, origins, axes, x_start, x_end, pot, grad, collide),
+            (4, 3, 3, 3, 3, 3, 4, 3),
+            (dmats, tables, dt, k, consider_finger, soften, quirks),
+            pot.shape[:-3])
+    v, a_ws, jac, pot, grad, collide = obstacle_point_terms(
+        x, origins, axes, x_start, x_end, pot, grad, collide, dmats, tables,
+        dt, soften)
+    p = pot.shape[-1]
+    cost_pt, direction = functional_grad_terms(v, a_ws, pot, grad)
+    sel = obstacle_selection(pot, tables, k, consider_finger)[1]
+
+    if quirks and k:
+        # the reference's top-k quirks (omg/cost.py:404-421): one gradient
+        # point per (timestep, link), per-link cost broadcast over time
+        score = torch.where(sel > 0, pot, torch.full_like(pot, -torch.inf))
+        best = torch.argmax(score, dim=-1)
+        onehot = torch.nn.functional.one_hot(best, p).to(pot.dtype)
+        any_sel = (sel.sum(-1, keepdim=True) > 0).to(pot.dtype)
+        gsel = onehot * any_sel
+        obs_cost = (cost_pt * sel).sum((0, -1))[None, :].expand(
+            cost_pt.shape[:2])
+        obs_grad = torch.einsum("tjpdc,tjpc->td", jac,
+                                direction * gsel[..., None])
+        return obs_cost, obs_grad, collide
+
+    obs_cost = (cost_pt * sel).sum(-1)  # [T, 10]
+    obs_grad = torch.einsum("tjpdc,tjpc->td", jac, direction * sel[..., None])
+    return obs_cost, obs_grad, collide
+
+
+def _chomp_obstacle_smem(t: int, n_links: int, p: int, d: int) -> int:
+    """Bytes of shared memory a block of the kernel takes
+    (``chomp_cost.cu::chomp_obstacle_smem``)."""
+    n = t * n_links * p
+    return 4 * (2 * n + 6 * t * d + n_links * d + d + n_links + t * n_links
+                + 32 + 256 + 2)
+
+
+def _chomp_obstacle_pack(x, origins, axes, x_start, x_end, pot, grad,
+                         collide, dmats, tables, dt, k, consider_finger,
+                         soften, quirks, selection: bool = False):
+    """Check and lay out the C entry point's arguments: (tensors to keep
+    alive, (obs_cost, obs_grad, collide), the 15 pointers, the 9 ints, the
+    4 floats).  With ``selection`` (a check of the kernel, never the
+    operator) the outputs also hold the k-th largest potential [...] (NaN
+    where every point takes part) and the selection mask [..., T, L, P]
+    that the kernel writes."""
+    dev = pot.device
+    if pot.ndim < 3:
+        raise ValueError(f"pot must be [..., T, L, P], got "
+                         f"{tuple(pot.shape)}")
+    lead, (t, n_links, p) = tuple(pot.shape[:-3]), tuple(pot.shape[-3:])
+    f32 = torch.float32
+    if origins.ndim < 2:
+        raise ValueError("origins must be [..., T, J, 3]")
+    j = origins.shape[-2]
+    d = (tables.shape[0] - n_links) // (n_links + 2) if tables.ndim else 0
+    if (tables.ndim != 1 or 2 * d + n_links * d + n_links != tables.shape[0]
+            or not 0 < d <= CHOMP_MAX_DOF):
+        raise ValueError(f"chomp_obstacle: tables of {tuple(tables.shape)} "
+                         f"do not fit {n_links} links and 1 to "
+                         f"{CHOMP_MAX_DOF} dofs")
+    if _chomp_obstacle_smem(t, n_links, p, d) > _MAX_SMEM:
+        raise ValueError(f"chomp_obstacle: T L P = {t * n_links * p} points "
+                         "exceed a block's shared memory")
+    if dmats.ndim != 3 or dmats.shape[0] < 2:
+        raise ValueError("dmats must be [>= 2, T + 1, T]")
+    ins = (_input("x", x, dev, f32, lead + (t, n_links, p, 3)),
+           _input("origins", origins, dev, f32, lead + (t, j, 3)),
+           _input("axes", axes, dev, f32, lead + (t, j, 3)),
+           _input("x_start", x_start, dev, f32, lead + (n_links, p, 3)),
+           _input("x_end", x_end, dev, f32, lead + (n_links, p, 3)),
+           _input("pot", pot, dev, f32, lead + (t, n_links, p)),
+           _input("grad", grad, dev, f32, lead + (t, n_links, p, 3)),
+           _input("collide", collide, dev, f32, lead + (t, n_links, p)),
+           _input("dmats", dmats, dev, f32, (dmats.shape[0], t + 1, t)),
+           _input("tables", tables, dev, f32, tables.shape))
+    s = _row_count(lead)
+    buf = torch.empty(s * (t * n_links + t * d + 1), dtype=f32, device=dev)
+    oc, og, cs = buf.unsafe_split_with_sizes((s * t * n_links, s * t * d, s))
+    outs = (oc.view(lead + (t, n_links)), og.view(lead + (t, d)),
+            cs.view(lead))
+    extra = [None, None]
+    if selection:
+        outs += (torch.empty(lead, dtype=f32, device=dev),
+                 torch.empty(lead + (t, n_links, p), dtype=f32, device=dev))
+        extra = [outs[3].data_ptr(), outs[4].data_ptr()]
+    ptrs = (ctypes.c_void_p * 15)(*[a.data_ptr() for a in ins],
+                                  oc.data_ptr(), og.data_ptr(), cs.data_ptr(),
+                                  *extra)
+    mid = DIFF_RULE_LENGTH // 2
+    flags = int(soften) | 2 * int(consider_finger) | 4 * int(quirks)
+    dims = (ctypes.c_int * 9)(s if t else 0, t, n_links, p, j, d, k, mid,
+                              flags)
+    consts = (ctypes.c_float * 4)(
+        DIFF_RULES[0][mid - 1] / dt, DIFF_RULES[0][mid + 1] / dt,
+        DIFF_RULES[1][mid - 1] / dt ** 2, DIFF_RULES[1][mid + 1] / dt ** 2)
+    return ins, outs, ptrs, dims, consts
+
+
+def _chomp_obstacle_cuda(*args):
+    keep, outs, ptrs, dims, consts = _chomp_obstacle_pack(*args)
+    if dims[0] == 0:
+        return outs
+    status = _entry("chomp_cost", "omg_chomp_obstacle")(
+        ptrs, dims, consts, _raw_stream(outs[0].device))
+    del keep  # the stream orders any reuse of these blocks after the launch
+    if status != 0:
+        raise RuntimeError(f"chomp_obstacle launch failed: CUDA error "
+                           f"{status}")
+    chomp_obstacle.launches += 1
+    return outs
+
+
+_chomp_obstacle_op = _define(
+    "chomp_obstacle(Tensor x, Tensor origins, Tensor axes, Tensor x_start, "
+    "Tensor x_end, Tensor pot, Tensor grad, Tensor collide, Tensor dmats, "
+    "Tensor tables, float dt, int k, bool consider_finger, bool soften, "
+    "bool quirks) -> (Tensor, Tensor, Tensor)",
+    chomp_obstacle_plain, _chomp_obstacle_cuda, _rows_vmap(3, (8, 9)))
+
+
+def chomp_obstacle(x: Tensor, origins: Tensor, axes: Tensor,
+                   x_start: Tensor, x_end: Tensor, pot: Tensor, grad: Tensor,
+                   collide: Tensor, dmats: Tensor, tables: Tensor, dt: float,
+                   k: int, consider_finger: bool, soften: bool,
+                   quirks: bool):
+    """The obstacle loss and gradient of :func:`chomp_obstacle_plain`'s
+    arguments (any leading scene dims): the kernel for CUDA tensors (one
+    launch, one block a row), the plain version for CPU tensors; under
+    ``torch.func.vmap`` one call for every mapped row (the difference
+    matrices and the tables shared).  Returns (obs_cost [..., T, L],
+    obs_grad [..., T, D], collide count [...])."""
+    return _chomp_obstacle_op(x, origins, axes, x_start, x_end, pot, grad,
+                              collide, dmats, tables, dt, k, consider_finger,
+                              soften, quirks)
+
+
+chomp_obstacle.launches = 0
+
+
+def smooth_terms(d1, a, dt: float, xi, start, end, goal_set_proj: bool):
+    """Finite-difference velocity-norm smoothness (``omg/cost.py:425-449``)
+    of ``xi [T, D]`` on the horizon's ``d1 [T + 1, T]``, ``A [T, T]`` and
+    time interval; under ``goal_set_proj`` the end row is free.  Returns
+    (loss [T+1], grad [T, D])."""
+    mid = DIFF_RULE_LENGTH // 2
+    # built out of place, so torch.func.vmap can batch it over scenes
+    first = float(DIFF_RULES[0][mid - 1]) * start / dt
+    last = (torch.zeros_like(end) if goal_set_proj
+            else float(DIFF_RULES[0][mid]) * end / dt)
+    ed = torch.cat([first[None], xi.new_zeros((xi.shape[0] - 1,
+                                               xi.shape[1])), last[None]])
+    velocity = d1 @ xi
+    vel_norm = torch.linalg.norm(velocity + ed, dim=1)
+    loss = 0.5 * vel_norm**2
+    grad = a @ xi + d1.T @ ed
+    return loss, grad
+
+
+def loss_terms(s_loss, s_grad, o_cost, o_grad, collide, xi, goal,
+               obstacle_w, smooth_w, clip: float, allow: float,
+               terminate_smooth: float, goal_set_proj: bool,
+               pre_terminate: bool):
+    """The total cost, gradient and diagnostics (``omg/cost.py:451-532``)
+    from the smoothness and obstacle terms.  Returns (grad [T, D], the
+    packed floats [10 + T] (:data:`INFO_SCALARS`, then ``cost_traj``),
+    (terminate, failure_terminate, execute))."""
+    s_sum = s_loss.sum()
+    o_sum = o_cost.sum()
+    w_obs = obstacle_w * o_sum
+    w_smooth = smooth_w * s_sum
+    w_obs_grad = torch.clamp(obstacle_w * o_grad, -clip, clip)
+    w_smooth_grad = smooth_w * s_grad
+    cost = w_obs + w_smooth
+    grad = w_obs_grad + w_smooth_grad
+    cost_traj = obstacle_w * o_cost.sum(-1) + smooth_w * s_loss[:-1]
+
+    goal_dist = (torch.linalg.norm(xi[-1] - goal) if goal_set_proj
+                 else torch.zeros((), dtype=xi.dtype, device=xi.device))
+    if pre_terminate:
+        terminate = ((collide <= allow) & (goal_dist < 0.01)
+                     & (s_sum < terminate_smooth))
+    else:
+        terminate = torch.zeros((), dtype=torch.bool, device=xi.device)
+    failure = ((collide >= allow * 10)
+               | (s_sum >= terminate_smooth * 2.5))
+    execute = (collide <= allow) & (s_sum < terminate_smooth)
+    floats = torch.stack([
+        cost, o_sum, s_sum, w_obs, w_smooth, torch.linalg.norm(grad),
+        torch.linalg.norm(w_smooth_grad), torch.linalg.norm(w_obs_grad),
+        collide, goal_dist])
+    return grad, torch.cat([floats, cost_traj]), (terminate, failure,
+                                                  execute)
+
+
+def limit_violated(xi, lower, upper):
+    """Reference ``check_joint_limit`` (``omg/optimizer.py:166-174``) —
+    including its quirk of ANDing the low/high masks elementwise."""
+    low = (xi < lower - 5e-3).any()
+    high = xi > upper + 5e-3
+    return (low * high).any()
+
+
+def projected_update(pmat, mmat, xi, grad, tail, step_size):
+    """Projected CHOMP step (``omg/optimizer.py:88-113``):
+    ``-step_size P_k grad - M_k (xi[-k:] - tail)``, k = ``tail``'s rows."""
+    b = xi[-mmat.shape[1]:] - tail
+    return -step_size * (pmat @ grad) - mmat @ b
+
+
+def dof_update(masks, consider_finger: bool, xi, update):
+    """Trajectory update + gripper clamp (``omg/core.py:43-51``) on the
+    model's ``masks [2, D]`` (``models/api.py::dof_tables``): only the
+    arm dofs move unless ``consider_finger``; the clamped dofs stay in
+    [0, 0.04]."""
+    if consider_finger:
+        xi = xi + update
+    else:
+        xi = xi + update * masks[0][None, :]
+    return torch.where(masks[1] > 0, torch.clamp(xi, 0.0, 0.04), xi)
+
+
+def chomp_step_plain(xi, start, goal, tail, obs_cost, obs_grad, collide,
+                     obstacle_w, smooth_w, step_size, lower, upper, d1, a,
+                     pmat, mmat, masks, dt: float, clip: float, allow: float,
+                     terminate_smooth: float, goal_set_proj: bool,
+                     pre_terminate: bool, consider_finger: bool):
+    """Plain version of the ``chomp_step`` kernel, on the arguments of its
+    operator: one CHOMP step of ``xi [T, D]`` from ``start``, the chosen
+    ``goal [D]`` and its projection tail ``tail [k, D]`` and the obstacle
+    terms (``obs_cost [T, L]``, ``obs_grad [T, D]``, ``collide []``):
+    smoothness, the weighted total cost and gradient and the termination
+    flags (``omg/cost.py:451-532``), the joint-limit check, and the update
+    (``omg/optimizer.py:88-135``, ``omg/core.py:43-51``): projected on
+    ``pmat`` = P_k and ``mmat`` = M_k under ``goal_set_proj``, else
+    ``-step_size pmat grad`` (``pmat`` = Ainv, ``mmat`` unused).  The
+    weights are 0-d (or scene rows); leading dims are scene rows.  Returns
+    (the updated trajectory before the joint-limit projection, the packed
+    floats [10 + T] (:data:`INFO_SCALARS`, then ``cost_traj``), the flags
+    [4] (terminate, false where the limits are violated,
+    failure_terminate, execute, violate_limit))."""
+    if xi.ndim > 2:
+        return _plain_rows(
+            chomp_step_plain,
+            (xi, start, goal, tail, obs_cost, obs_grad, collide, obstacle_w,
+             smooth_w, step_size, lower, upper),
+            (2, 1, 1, 2, 2, 2, 0, 0, 0, 0, 1, 1),
+            (d1, a, pmat, mmat, masks, dt, clip, allow, terminate_smooth,
+             goal_set_proj, pre_terminate, consider_finger), xi.shape[:-2])
+    s_loss, s_grad = smooth_terms(d1, a, dt, xi, start, goal, goal_set_proj)
+    grad, floats, (terminate, failure, execute) = loss_terms(
+        s_loss, s_grad, obs_cost, obs_grad, collide, xi, goal, obstacle_w,
+        smooth_w, clip, allow, terminate_smooth, goal_set_proj,
+        pre_terminate)
+    over = limit_violated(xi, lower, upper)
+    flags = torch.stack([terminate & ~over, failure, execute, over])
+    if goal_set_proj:
+        update = projected_update(pmat, mmat, xi, grad, tail, step_size)
+    else:
+        update = -step_size * (pmat @ grad)
+    return dof_update(masks, consider_finger, xi, update), floats, flags
+
+
+def _chomp_step_weights(lead, dev, weights):
+    """The three weights as the kernel reads them: (pointers, constants).
+    0-d CPU tensors (the plan loop's schedule) become constants; tensors
+    on the card are read a row each."""
+    if all(w.device.type == "cpu" and w.ndim == 0 for w in weights):
+        return (), [None] * 3, [float(w) for w in weights]
+    names = ("obstacle_w", "smooth_w", "step_size")
+    ins = tuple(_input(n, w.expand(lead) if w.ndim == 0 else w, dev,
+                       torch.float32, lead) for n, w in zip(names, weights))
+    return ins, [w.data_ptr() for w in ins], [0.0] * 3
+
+
+def _chomp_step_pack(xi, start, goal, tail, obs_cost, obs_grad, collide,
+                     obstacle_w, smooth_w, step_size, lower, upper, d1, a,
+                     pmat, mmat, masks, dt, clip, allow, terminate_smooth,
+                     goal_set_proj, pre_terminate, consider_finger):
+    """Check and lay out the C entry point's arguments: (tensors to keep
+    alive, (xi, floats, flags), the 20 pointers, the 7 ints, the 10
+    floats)."""
+    dev = xi.device
+    if xi.ndim < 2:
+        raise ValueError(f"xi must be [..., T, D], got {tuple(xi.shape)}")
+    lead, (t, d) = tuple(xi.shape[:-2]), tuple(xi.shape[-2:])
+    if obs_cost.ndim < 2 or tail.ndim < 2:
+        raise ValueError("obs_cost must be [..., T, L] and tail [..., k, D]")
+    n_links, kt = obs_cost.shape[-1], tail.shape[-2]
+    k = mmat.shape[-1] if goal_set_proj and mmat is not None else 0
+    if goal_set_proj and (mmat is None or k != kt):
+        raise ValueError("chomp_step: goal_set_proj takes M_k [T, k] with "
+                         "the tail's k rows")
+    if 4 * (5 * t * d + 3 * d + 2 * t + 1) > _MAX_SMEM:
+        raise ValueError(f"chomp_step: T = {t}, D = {d} exceed a block's "
+                         "shared memory")
+    f32 = torch.float32
+    ins = (_input("xi", xi, dev, f32, lead + (t, d)),
+           _input("start", start, dev, f32, lead + (d,)),
+           _input("goal", goal, dev, f32, lead + (d,)),
+           _input("tail", tail, dev, f32, lead + (kt, d)),
+           _input("obs_cost", obs_cost, dev, f32, lead + (t, n_links)),
+           _input("obs_grad", obs_grad, dev, f32, lead + (t, d)),
+           _input("collide", collide, dev, f32, lead))
+    w_ins, w_ptrs, w_consts = _chomp_step_weights(
+        lead, dev, (obstacle_w, smooth_w, step_size))
+    tabs = (_input("lower", lower, dev, f32, lead + (d,)),
+            _input("upper", upper, dev, f32, lead + (d,)),
+            _input("d1", d1, dev, f32, (t + 1, t)),
+            _input("a", a, dev, f32, (t, t)),
+            _input("pmat", pmat, dev, f32, (t, t)),
+            None if not k else _input("mmat", mmat, dev, f32, (t, k)),
+            _input("masks", masks, dev, f32, (2, d)))
+    s = _row_count(lead)
+    buf = torch.empty(s * (t * d + 10 + t + 1), dtype=f32, device=dev)
+    xo, fo, bo = buf.unsafe_split_with_sizes((s * t * d, s * (10 + t), s))
+    outs = (xo.view(lead + (t, d)), fo.view(lead + (10 + t,)),
+            bo.view(torch.bool).view(lead + (4,)))
+    ptrs = (ctypes.c_void_p * 20)(
+        *[x.data_ptr() for x in ins], *w_ptrs,
+        *[None if x is None else x.data_ptr() for x in tabs],
+        xo.data_ptr(), fo.data_ptr(), bo.data_ptr())
+    mid = DIFF_RULE_LENGTH // 2
+    flags = (int(goal_set_proj) | 2 * int(pre_terminate)
+             | 4 * int(consider_finger))
+    dims = (ctypes.c_int * 7)(s if t * d else 0, t, d, n_links, k, mid,
+                              flags)
+    consts = (ctypes.c_float * 10)(
+        DIFF_RULES[0][mid - 1] / dt, DIFF_RULES[0][mid] / dt, clip, allow,
+        allow * 10, terminate_smooth, terminate_smooth * 2.5, *w_consts)
+    return ins + w_ins + tabs, outs, ptrs, dims, consts
+
+
+def _chomp_step_cuda(*args):
+    keep, outs, ptrs, dims, consts = _chomp_step_pack(*args)
+    if dims[0] == 0:
+        return outs
+    status = _entry("chomp_cost", "omg_chomp_step")(
+        ptrs, dims, consts, _raw_stream(outs[0].device))
+    del keep  # the stream orders any reuse of these blocks after the launch
+    if status != 0:
+        raise RuntimeError(f"chomp_step launch failed: CUDA error {status}")
+    chomp_step.launches += 1
+    return outs
+
+
+_chomp_step_op = _define(
+    "chomp_step(Tensor xi, Tensor start, Tensor goal, Tensor tail, "
+    "Tensor obs_cost, Tensor obs_grad, Tensor collide, Tensor obstacle_w, "
+    "Tensor smooth_w, Tensor step_size, Tensor lower, Tensor upper, "
+    "Tensor d1, Tensor a, Tensor pmat, Tensor? mmat, Tensor masks, "
+    "float dt, float clip, float allow, float terminate_smooth, "
+    "bool goal_set_proj, bool pre_terminate, bool consider_finger) "
+    "-> (Tensor, Tensor, Tensor)",
+    chomp_step_plain, _chomp_step_cuda,
+    _rows_vmap(3, (12, 13, 14, 15, 16)))
+
+
+def chomp_step(xi: Tensor, start: Tensor, goal: Tensor, tail: Tensor,
+               obs_cost: Tensor, obs_grad: Tensor, collide: Tensor,
+               obstacle_w: Tensor, smooth_w: Tensor, step_size: Tensor,
+               lower: Tensor, upper: Tensor, d1: Tensor, a: Tensor,
+               pmat: Tensor, mmat, masks: Tensor, dt: float, clip: float,
+               allow: float, terminate_smooth: float, goal_set_proj: bool,
+               pre_terminate: bool, consider_finger: bool):
+    """One CHOMP step of :func:`chomp_step_plain`'s arguments (any leading
+    scene dims): the kernel for CUDA tensors (one launch, one block a row;
+    0-d CPU weights reach it as arguments), the plain version for CPU
+    tensors; under ``torch.func.vmap`` one call for every mapped row (the
+    horizon's matrices and the model's masks shared).  ``d1`` and ``a``
+    are the horizon's (``config.py::get_diff_matrix`` and d1^T d1): the
+    kernel reads them only on their bands.  Returns (the updated
+    trajectory, the packed floats, the flags)."""
+    return _chomp_step_op(xi, start, goal, tail, obs_cost, obs_grad,
+                          collide, obstacle_w, smooth_w, step_size, lower,
+                          upper, d1, a, pmat, mmat, masks, dt, clip, allow,
+                          terminate_smooth, goal_set_proj, pre_terminate,
+                          consider_finger)
+
+
+chomp_step.launches = 0
+
 # every kernel wrapper of the package, for launch accounting
 KERNELS = {"min_dist_grid": min_dist_grid, "rigid_rollout": rigid_rollout,
            "panda_fk": panda_fk, "sdf_query": sdf_query,
            "md_update": md_update, "joint_limit": joint_limit,
-           "ik_prefilter": ik_prefilter, "ik_chain": ik_chain}
+           "ik_prefilter": ik_prefilter, "ik_chain": ik_chain,
+           "chomp_obstacle": chomp_obstacle, "chomp_step": chomp_step}

@@ -98,35 +98,27 @@ def _evaluate_w(model, cfg, hp, problem: PlanProblem, traj, goal_idx,
                 weights):
     """:func:`_evaluate` with the schedule's weights given (a pure tensor
     function, which ``torch.func.vmap`` batches over scenes)."""
+    return _chomp_update(model, cfg, hp, problem, traj, goal_idx, weights)[1]
+
+
+def _chomp_update(model, cfg, hp, problem: PlanProblem, traj, goal_idx,
+                  weights):
+    """One CHOMP step before the joint-limit smoothing: (trajectory, info),
+    the info's ``terminate`` false where the limits are violated (a pure
+    tensor function, which ``torch.func.vmap`` batches).  FK, the query,
+    then the ``chomp_obstacle`` and ``chomp_step`` kernels."""
     obstacle_w, smooth_w, _, step_size = weights
     if cfg.goal_set_proj:
         goal, tail = _chosen_goal(cfg, problem.goal_set, goal_idx)
     else:
         goal, tail = problem.end, problem.end[None]
-    _, grad, info = chomp.compute_total_loss(
+    obs = chomp.compute_collision_loss(
         model, problem.scene, problem.cost_params, cfg, hp, traj,
-        problem.start, goal if cfg.goal_set_proj else problem.end,
-        goal, obstacle_w, smooth_w,
+        problem.start, goal,
         world_field=problem.world_field if cfg.sdf_fused else None)
-    over_limit = chomp.check_joint_limit(
-        traj, problem.joint_lower, problem.joint_upper)
-    info = info._replace(violate_limit=over_limit,
-                         terminate=info.terminate & ~over_limit)
-    return info, grad, tail, step_size
-
-
-def _chomp_update(model, cfg, hp, problem: PlanProblem, traj, goal_idx,
-                  weights):
-    """One CHOMP step before the joint-limit smoothing: (trajectory, info)
-    (a pure tensor function, which ``torch.func.vmap`` batches)."""
-    info, grad, tail, step_size = _evaluate_w(
-        model, cfg, hp, problem, traj, goal_idx, weights)
-    if cfg.goal_set_proj:
-        update = chomp.goal_set_projection_update(
-            hp, cfg, traj, grad, tail, step_size)
-    else:
-        update = chomp.unconstrained_update(hp, grad, step_size)
-    return chomp.apply_update(model, cfg, traj, update), info
+    return chomp.chomp_step(model, cfg, hp, traj, problem.start, goal, tail,
+                            obs, (obstacle_w, smooth_w, step_size),
+                            problem.joint_lower, problem.joint_upper)
 
 
 def _optimize_once(model, cfg, hp, problem: PlanProblem, traj, goal_idx,
@@ -312,7 +304,7 @@ def _finish(model, cfg, hp, problem, carry: _Carry):
     info = carry.last_info
     if not carry.done:
         info = _evaluate(model, cfg, hp, problem, carry.traj, carry.goal_idx,
-                         carry.step - carry.sched0)[0]
+                         carry.step - carry.sched0)
     if not cfg.exec_snapshot:
         return carry.traj, info
     use = carry.exec_ok & ~info.execute
@@ -476,7 +468,7 @@ def plan_fast_batch(model, cfg: OMGConfig,
     info = last_info
     if any(live_host):
         final = vmap_scenes(lambda pr, tr, gi, wt: _evaluate_w(
-            model, cfg, hp, pr, tr, gi, wt)[0],
+            model, cfg, hp, pr, tr, gi, wt),
             problems, traj, goal_idx, weights(steps, sched0))
         info = _where_rows(live, final, info)
     traj_out = traj

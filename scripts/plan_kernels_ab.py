@@ -3,7 +3,7 @@
 directory that ``.gitignore`` lists).
 
     python3 scripts/plan_kernels_ab.py OTHER_CHECKOUT [OUT_DIR] [PAIRS]
-        [--phases 3b|3c|3d|5-6|build]
+        [--phases 3b|3c|3d|3e|5-6|build]
 
 Runs each checkout's own ``chip_smoke.py`` phases in a fresh process, in
 the order other, this, this, other, ... (PAIRS pairs, default 2):
@@ -31,6 +31,13 @@ the order other, this, this, other, ... (PAIRS pairs, default 2):
   each kernel at suite scene 1 and the wave, its time (50 launches in one
   CUDA graph), the floor (an empty kernel at its grid), the time through
   the wrapper, the bound and the wrapper's host time a call.
+* ``3e``: ``phase_chomp_kernels``, the CHOMP kernels (``chomp_obstacle``,
+  ``chomp_step``) built from the checkout's own sources, its wrappers, its
+  checks, on the calls of suite scene 1's plan and seeded rows at S = 8.
+  Reads, for each kernel at suite scene 1 and S = 8, its time (50
+  launches in one CUDA graph), the floor, the time through the wrapper,
+  the bound and the wrapper's host time a call.  Both checkouts must have
+  the phase (from this commit on).
 * ``5-6``: ``phase_standard`` and ``phase_profile``, three full-width suite
   plans, then suite scene 1's plan under ``torch.profiler``.  Reads each
   staging's and plan's wall and host syncs, and the profiled plan's wall,
@@ -72,7 +79,9 @@ LOOP_LINE = re.compile(
     r"(?: \(dispatch ([-\d.]+), checks ([\d.]+), allocation ([\d.]+), "
     r"launch ([\d.]+)\))?")
 IK_LINE = re.compile(
-    r"^((?:ik_prefilter|ik_chain) (?:suite scene 1|wave of 4)): kernel "
+    r"^((?:ik_prefilter|ik_chain) (?:suite scene 1|wave of 4)"
+    r"|(?:chomp_obstacle|chomp_step) (?:suite scene 1 \(S=1\)|seeded S=8)"
+    r"): kernel "
     r"([\d.]+) ms \(graph of 50\), floor ([\d.]+) ms \([^)]*\), through "
     r"the wrapper ([\d.]+) ms a call, plain [\d.]+ ms, bound ([\d.]+) ms "
     r".* wrapper host ([\d.]+) us a call")
@@ -177,6 +186,7 @@ PHASES = {
     "3b": ("cs.phase_plan_kernels('cuda')", read_kernels, True),
     "3c": ("cs.phase_learner_kernels('cuda')", read_loop_kernels, False),
     "3d": ("cs.phase_ik_kernels('cuda')", read_ik_kernels, False),
+    "3e": ("cs.phase_chomp_kernels('cuda')", read_ik_kernels, False),
     "5-6": ("cs.phase_standard('cuda'); cs.phase_profile('cuda')", read_plan,
             False),
     "build": (f"exec({BUILD_PROBE!r})", read_build, False),
