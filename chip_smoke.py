@@ -79,10 +79,13 @@ Phases (any failure exits non-zero; no phase is skipped):
    version than max(1e-5 of its own size, 2 x the float32 plain version's
    own distance), the flags equal; rows of a batch bit for bit their
    single launches; each kernel's registers, stack and spill stores from
-   ptxas; each kernel's device time (50 launches in one CUDA graph)
-   beside the floor, its time through the wrapper, the plain version's,
-   the wrapper's host time a call and the bound from this data's points,
-   the non-zero entries of its matrices and its dofs;
+   ptxas (fails on a spill); each kernel's device time (50 launches in
+   one CUDA graph) beside the floor (an empty kernel at the launch shape
+   of ``ops/kernels.py``'s ``chomp_obstacle_threads`` and
+   ``chomp_step_threads``), its time through the wrapper, the plain
+   version's, the wrapper's host time a call split into dispatch, checks,
+   allocation and launch, and the bound from this data's points, the
+   non-zero entries of its matrices and its dofs;
 4. reference: a small plan staged on the CPU, planned on the CPU and on
    the card — same goal, same verdict, trajectories within 2e-3;
 5. the standard plan at the full ``OMGConfig()`` width on three
@@ -1714,7 +1717,7 @@ def _chomp_step_work(args) -> tuple:
 def chomp_registers() -> dict:
     """Each CHOMP kernel's registers, stack and spill stores from ptxas
     (phase 2's build, or a build of ``chomp_cost`` alone with
-    ``-Xptxas -v``)."""
+    ``-Xptxas -v``); fails if either kernel spills."""
     text = BUILD_LOGS.get("chomp_cost") or kernels.build(
         extra_flags=("-Xptxas", "-v"), libs=["chomp_cost"])["chomp_cost"]
     report = ptxas_report(text)
@@ -1727,7 +1730,45 @@ def chomp_registers() -> dict:
         log(f"{name} (ptxas): {found[0].get('registers')} registers, "
             f"{found[0].get('stack', 0)} bytes stack frame, "
             f"{found[0].get('spill_stores', 0)} bytes spill stores")
+        if found[0].get("spill_stores", 0):
+            raise AssertionError(f"{name} spills")
     return regs
+
+
+def chomp_block(name: str, args) -> tuple:
+    """(blocks, threads a block) of one launch of CHOMP kernel ``name`` on
+    its operator's arguments, from the packer's own launch-shape
+    helpers."""
+    if name == "chomp_obstacle":
+        t, n_links, p = args[5].shape[-3:]
+        return (args[5].numel() // (t * n_links * p),
+                kernels.chomp_obstacle_threads(t, n_links, p))
+    t, d = args[0].shape[-2:]
+    return args[0].numel() // (t * d), kernels.chomp_step_threads(t, d)
+
+
+def chomp_host_split(name: str, args) -> dict:
+    """The CHOMP wrapper's host time a call (us, 200 calls each), split as
+    :func:`host_split` splits the loop kernels': the whole call, the
+    packer's input checks (its time less the allocation), its output
+    allocation (one ``torch.empty`` of the packed outputs), the launch (the
+    C entry point's call on packed arguments) and the dispatch, what is
+    left (the operator's dispatch and the wrapper's own frames)."""
+    dev = args[0].device
+    pack = getattr(kernels, f"_{name}_pack")
+    entry = kernels._entry("chomp_cost", f"omg_{name}")
+    keep, outs, ptrs, dims, consts = pack(*args)
+    size = sum(o.numel() for o in outs)
+    split = dict(
+        pack=_host_us(lambda: pack(*args)),
+        allocation=_host_us(lambda: torch.empty(size, device=dev)),
+        launch=_host_us(lambda: entry(ptrs, dims, consts,
+                                      kernels._raw_stream(dev))),
+        total=_host_us(lambda: getattr(kernels, name)(*args)))
+    del keep
+    split["checks"] = split["pack"] - split["allocation"]
+    split["dispatch"] = split["total"] - split["pack"] - split["launch"]
+    return split
 
 
 def capture_chomp_calls(dev) -> tuple:
@@ -1985,29 +2026,24 @@ def phase_chomp_kernels(dev):
         def plain(args=args, plain_fn=plain_fn):
             return plain_fn(*args)
         ms = time_graph(run)
-        if name == "chomp_obstacle":
-            t = args[5].shape[-3]
-            blocks = args[5].numel() // (t * args[5].shape[-2]
-                                         * args[5].shape[-1])
-            threads = 32 * min(t, 32)
-            flops, nbytes = _chomp_obstacle_work(args)
-        else:
-            t, d = args[0].shape[-2:]
-            blocks = args[0].numel() // (t * d)
-            threads = min(1024, ((t + 1) * d + 31) // 32 * 32)
-            flops, nbytes = _chomp_step_work(args)
+        blocks, threads = chomp_block(name, args)
+        flops, nbytes = (_chomp_obstacle_work if name == "chomp_obstacle"
+                         else _chomp_step_work)(args)
         floor = floor_ms(blocks, threads, args[0].device)
         wrapped = time_launches(run)
         plain_ms = time_ms(plain, 5, 1)
         bound, by = _bound(flops, nbytes)
-        host = _host_us(run)
+        split = chomp_host_split(name, args)
+        host = split["total"]
         timing[(name, what)] = (ms, plain_ms, bound, by, floor, host)
         log(f"{name} {what}: kernel {ms:.5f} ms (graph of 50), floor "
             f"{floor:.5f} ms (an empty launch of {blocks} x {threads}), "
             f"through the wrapper {wrapped:.4f} ms a call, plain "
             f"{plain_ms:.4f} ms, bound {bound:.7f} ms ({by}; {flops:.3e} "
             f"flop, {nbytes} B), share of bound {bound / ms:.5f}, wrapper "
-            f"host {host:.1f} us a call")
+            f"host {host:.1f} us a call (dispatch {split['dispatch']:.1f}, "
+            f"checks {split['checks']:.1f}, allocation "
+            f"{split['allocation']:.1f}, launch {split['launch']:.1f})")
     sm = float(smi.split()[0])
     entries = []
     for name, rep in (("chomp_obstacle", "omg_planner_tpu/ops/chomp.py:197"),

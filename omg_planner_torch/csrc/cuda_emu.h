@@ -4,7 +4,9 @@
 // tests/test_torch_plan_kernels_emu.py,
 // tests/test_torch_learner_kernels_emu.py,
 // tests/test_torch_ik_kernels_emu.py, test_torch_ik_kernels_warp_emu.py,
-// test_torch_ik_kernels_layout.py, test_torch_chomp_kernels_emu.py).  Never part of a build for the card.
+// test_torch_ik_kernels_layout.py, test_torch_chomp_kernels_emu.py,
+// test_torch_chomp_kernels_sparse_emu.py).  Never part of a build for the
+// card.
 //
 //   g++ -std=c++20 -O1 -shared -fPIC -DOMG_CUDA_EMU
 //       -x c++ rigid_rollout.cu -o librigid_rollout_emu.so
@@ -19,7 +21,7 @@
 // __syncthreads waits for the whole block, __syncwarp for the warp; a
 // block's static __shared__ arrays are one instance that every fiber sees.
 // A warp shuffle (xor or broadcast, within the warp or a segment of it),
-// vote or warp-wide min or max writes the fiber's value to a per-warp
+// vote or warp-wide sum, min or max writes the fiber's value to a per-warp
 // slot, waits for the warp and reads its partner's slot (or all 32).
 // Two slot buffers alternate, so one wait a shuffle is enough: a fiber
 // writes a buffer again only after the whole warp passed the wait of the
@@ -245,6 +247,13 @@ inline float __shfl_sync(unsigned, float v, int src, int width = 32) {
   return emu::exchange(v, (lane & ~(width - 1)) | (src & (width - 1)));
 }
 
+inline int __shfl_sync(unsigned, int v, int src, int width = 32) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const float got = emu::exchange(
+      __builtin_bit_cast(float, v), (lane & ~(width - 1)) | (src & (width - 1)));
+  return __builtin_bit_cast(int, got);
+}
+
 inline int __any_sync(unsigned, int pred) {
   emu::Fiber* me = emu::block->current;
   const unsigned t = me->tid;
@@ -276,6 +285,10 @@ inline int __shfl_up_sync(unsigned, int v, unsigned delta) {
 }
 
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  return emu::fold(v, [](unsigned a, unsigned b) { return a + b; });
+}
 inline unsigned __reduce_max_sync(unsigned, unsigned v) {
   return emu::fold(v, [](unsigned a, unsigned b) { return a > b ? a : b; });
 }

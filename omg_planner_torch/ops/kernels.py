@@ -1601,12 +1601,26 @@ def chomp_obstacle_plain(x, origins, axes, x_start, x_end, pot, grad,
     return obs_cost, obs_grad, collide
 
 
+def chomp_obstacle_threads(t: int, n_links: int, p: int) -> int:
+    """Threads a block of the ``chomp_obstacle`` kernel takes (one block a
+    row; ``chomp_cost.cu::chomp_obstacle_threads``): 1,024, or the row's
+    points in whole warps where they are fewer."""
+    return min(1024, (t * n_links * p + 31) // 32 * 32)
+
+
 def _chomp_obstacle_smem(t: int, n_links: int, p: int, d: int) -> int:
     """Bytes of shared memory a block of the kernel takes
-    (``chomp_cost.cu::chomp_obstacle_smem``)."""
+    (``chomp_cost.cu::chomp_obstacle_smem``): the potentials, the selected
+    costs and the list of selected points (3 words a point), a round's
+    contributions (D a thread, or D a (t, link) under the quirks), the
+    gradient's sums, the dof frames and the tables, the band, the select's
+    bins.  Where 6 words a point more fit a block, the kernel also copies
+    the positions and gradients in."""
     n = t * n_links * p
-    return 4 * (2 * n + 6 * t * d + n_links * d + d + n_links + t * n_links
-                + 32 + 256 + 2)
+    nc = max(chomp_obstacle_threads(t, n_links, p), t * n_links)
+    return 4 * (3 * n + nc * d + t * d + 6 * t * d + n_links * d + d
+                + n_links + t * n_links + 32 + 2 * t * 8 + (t + 1) + 32
+                + 256 + 2 + 1)
 
 
 def _chomp_obstacle_pack(x, origins, axes, x_start, x_end, pot, grad,
@@ -1847,6 +1861,25 @@ def _chomp_step_weights(lead, dev, weights):
     return ins, [w.data_ptr() for w in ins], [0.0] * 3
 
 
+def chomp_step_threads(t: int, d: int) -> int:
+    """Threads a block of the ``chomp_step`` kernel takes (one block a row;
+    ``chomp_cost.cu::chomp_step_threads``): one a velocity element ((T +
+    1) D) in whole warps, at most 1,024."""
+    return min(1024, ((t + 1) * d + 31) // 32 * 32)
+
+
+def _chomp_step_smem(t: int, d: int, n_links: int, k: int) -> int:
+    """Bytes of shared memory a block of the ``chomp_step`` kernel takes
+    (``chomp_cost.cu::chomp_step_smem``): the row's staged inputs (the
+    trajectory, the obstacle terms, six rows of D, the tail, P, M, the
+    bands of d1 and A and d1's rows 0 and T), what the block forms and the
+    warps' partials."""
+    h = DIFF_RULE_LENGTH // 2
+    staged = (2 * t * d + t * n_links + 6 * d + k * d + t * t + t * k
+              + (t + 1) * 2 * h + 2 * t + t * (4 * h - 1))
+    return 4 * (staged + 4 * t * d + d + 2 * t + 1 + 32 * 8)
+
+
 def _chomp_step_pack(xi, start, goal, tail, obs_cost, obs_grad, collide,
                      obstacle_w, smooth_w, step_size, lower, upper, d1, a,
                      pmat, mmat, masks, dt, clip, allow, terminate_smooth,
@@ -1865,7 +1898,7 @@ def _chomp_step_pack(xi, start, goal, tail, obs_cost, obs_grad, collide,
     if goal_set_proj and (mmat is None or k != kt):
         raise ValueError("chomp_step: goal_set_proj takes M_k [T, k] with "
                          "the tail's k rows")
-    if 4 * (5 * t * d + 3 * d + 2 * t + 1) > _MAX_SMEM:
+    if _chomp_step_smem(t, d, n_links, k) > _MAX_SMEM:
         raise ValueError(f"chomp_step: T = {t}, D = {d} exceed a block's "
                          "shared memory")
     f32 = torch.float32

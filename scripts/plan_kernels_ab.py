@@ -36,8 +36,9 @@ the order other, this, this, other, ... (PAIRS pairs, default 2):
   checks, on the calls of suite scene 1's plan and seeded rows at S = 8.
   Reads, for each kernel at suite scene 1 and S = 8, its time (50
   launches in one CUDA graph), the floor, the time through the wrapper,
-  the bound and the wrapper's host time a call.  Both checkouts must have
-  the phase (from this commit on).
+  the bound and the wrapper's host time a call (with its split into
+  dispatch, checks, allocation and launch where the checkout's phase
+  prints it).  Both checkouts must have the phase.
 * ``5-6``: ``phase_standard`` and ``phase_profile``, three full-width suite
   plans, then suite scene 1's plan under ``torch.profiler``.  Reads each
   staging's and plan's wall and host syncs, and the profiled plan's wall,
@@ -84,7 +85,9 @@ IK_LINE = re.compile(
     r"): kernel "
     r"([\d.]+) ms \(graph of 50\), floor ([\d.]+) ms \([^)]*\), through "
     r"the wrapper ([\d.]+) ms a call, plain [\d.]+ ms, bound ([\d.]+) ms "
-    r".* wrapper host ([\d.]+) us a call")
+    r".* wrapper host ([\d.]+) us a call"
+    r"(?: \(dispatch ([-\d.]+), checks ([-\d.]+), allocation ([\d.]+), "
+    r"launch ([\d.]+)\))?")
 PLAN_LINE = re.compile(r"^standard plan suite scene (\d+): .* \| stage "
                        r"([\d.]+) ms, (\d+) host syncs \| plan ([\d.]+) "
                        r"ms, (\d+) host syncs")
@@ -151,8 +154,11 @@ def read_ik_kernels(line: str) -> dict:
     if not m:
         return {}
     shape = m.group(1)
-    names = ("graph ms", "floor ms", "wrapper ms", "bound ms", "host us")
-    out = {f"{shape} {k}": float(v) for k, v in zip(names, m.groups()[1:])}
+    names = ("graph ms", "floor ms", "wrapper ms", "bound ms", "host us",
+             "host dispatch us", "host checks us", "host allocation us",
+             "host launch us")
+    out = {f"{shape} {k}": float(v) for k, v in zip(names, m.groups()[1:])
+           if v is not None}
     out[f"{shape} share of bound"] = (out[f"{shape} bound ms"]
                                       / out[f"{shape} graph ms"])
     return out
