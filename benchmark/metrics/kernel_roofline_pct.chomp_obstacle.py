@@ -1,0 +1,17 @@
+"""``chomp_obstacle``'s share of its roofline over the profiled requests:
+the least time of each launch's work (counted from its arguments,
+``work.chomp_obstacle_work``) summed, over the launches' device time."""
+
+import stats
+import work
+
+
+def read(run):
+    t, launches = run.trace, run.kernel_work.get("chomp_obstacle", [])
+    if t is None or not launches:
+        return None
+    n, seconds = t.kernel_seconds("chomp_obstacle")
+    if n != len(launches) or seconds <= 0:
+        return None
+    return stats.share_pct(sum(work.bound_s(f, b) for f, b in launches),
+                           seconds)

@@ -1,0 +1,17 @@
+"""``sdf_query``'s share of its roofline over the profiled requests:
+the least time of each launch's work (counted from its arguments,
+``work.sdf_work``) summed, over the launches' device time."""
+
+import stats
+import work
+
+
+def read(run):
+    t, launches = run.trace, run.kernel_work.get("sdf_query", [])
+    if t is None or not launches:
+        return None
+    n, seconds = t.kernel_seconds("sdf_query")
+    if n != len(launches) or seconds <= 0:
+        return None
+    return stats.share_pct(sum(work.bound_s(f, b) for f, b in launches),
+                           seconds)
