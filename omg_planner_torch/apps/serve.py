@@ -25,10 +25,10 @@ plans anyway); response keys and status codes are the JAX service's:
   "timings": {stage_s, plan_s}}``; 400 for a malformed body, 422 when the
   goal set is empty (the reference's IK-FAIL "planning not run" path,
   ``omg/planner.py:651-652``), 500 for any other error.  A fresh scene
-  stages and plans in one call (``PlanningScene.plan_fresh``): in eager
-  PyTorch that call returns after the plan loop, so a fresh request's
-  ``stage_s`` holds its plan and its ``plan_s`` only the harvest; a warm
-  request's ``plan_s`` holds the plan.  The result comes back through the
+  stages and plans in one call (``PlanningScene.plan_fresh``); ``stage_s``
+  runs to the plan loop's start (the host mark ``plan_fresh`` keeps, no
+  device synchronise) and ``plan_s`` from there through the harvest, on
+  the fresh path as on the warm one.  The result comes back through the
   runner's flat pack: one copy into pinned host memory behind one CUDA
   event, not one read per field.
 * ``POST /plan_batch`` -> ``{"scenes": [<plan body>, ...],
@@ -43,6 +43,10 @@ plans anyway); response keys and status codes are the JAX service's:
   (``planner/exec_verify.py``): the response then carries the verified
   (possibly re-planned) trajectory and ``execution.verified`` /
   ``execution.exec_attempts``.
+
+Each handler's work is a ``request`` span of ``utils/timing.py`` (on while
+tracing is), with the scene build (``scene_build``), the goal-set build and
+the plan loop (in ``planner/``) and the harvest inside it.
 """
 
 from __future__ import annotations
@@ -62,26 +66,31 @@ from ..io.assets import make_primitive
 from ..planner.plan import plan_fast
 from ..planner.runner import PackedResult, plan_pipelined
 from ..planner.scene import PlanningScene
+from ..utils import timing
 
 def _build_scene(cfg: OMGConfig, spec: dict, device) -> PlanningScene:
-    objs = []
-    target = None
-    for o in spec["objects"]:
-        pose = np.asarray(o["pose"], np.float64).reshape(4, 4)
-        obj = make_primitive(
-            o["name"], o.get("kind", "box"), o.get("extents", [0.06]),
-            pose, target=bool(o.get("target", False)),
-            compute_grasp=bool(o.get("target", False))
-            or o.get("compute_grasp", False))
-        objs.append(obj)
-        if o.get("target"):
-            target = o["name"]
-    if target is None:
-        raise ValueError("no object marked target=true")
-    scene = PlanningScene._from_objects(cfg, objs, target, device)
-    if "start" in spec:
-        scene.start = np.asarray(spec["start"], np.float64)
-    return scene
+    with timing.span("scene_build"):
+        objs = []
+        target = None
+        with timing.span("scene_build.objects"):
+            for o in spec["objects"]:
+                pose = np.asarray(o["pose"], np.float64).reshape(4, 4)
+                obj = make_primitive(
+                    o["name"], o.get("kind", "box"),
+                    o.get("extents", [0.06]), pose,
+                    target=bool(o.get("target", False)),
+                    compute_grasp=bool(o.get("target", False))
+                    or o.get("compute_grasp", False))
+                objs.append(obj)
+                if o.get("target"):
+                    target = o["name"]
+        if target is None:
+            raise ValueError("no object marked target=true")
+        with timing.span("scene_build.scene"):
+            scene = PlanningScene._from_objects(cfg, objs, target, device)
+        if "start" in spec:
+            scene.start = np.asarray(spec["start"], np.float64)
+        return scene
 
 
 _CFG_FIELDS = {f.name for f in dataclasses.fields(OMGConfig)}
@@ -117,30 +126,34 @@ def _request_cfg(body: dict, base_cfg: OMGConfig):
 def plan_request(body: dict, base_cfg: OMGConfig,
                  device=None) -> tuple[int, dict]:
     """Handle one /plan body; returns (http_status, response_dict)."""
+    with timing.request():
+        return _plan(body, base_cfg, device)
+
+
+def _plan(body: dict, base_cfg: OMGConfig, device) -> tuple[int, dict]:
     cfg, err = _request_cfg(body, base_cfg)
     if err is not None:
         return err
     device = resolve_device(device)
     try:
-        t0 = time.time()
+        t0 = time.perf_counter_ns()
         scene = _cached_scene(cfg, body, device)
         fused = None if scene.has_staged() else scene.plan_fresh()
         if fused is not None:
             res, goal_mask = fused
-            stage_s = time.time() - t0
-            t0 = time.time()
+            t_plan = timing.marked("plan_fresh.plan")
         else:
             # staged repeat (or a scene the fresh path does not cover):
             # assume_goals leaves the empty-goal-set check to the harvest
             problem = scene.build_problem(assume_goals=True)
-            stage_s = time.time() - t0
-            t0 = time.time()
+            t_plan = time.perf_counter_ns()
             res = plan_fast(scene.model, scene.cfg, problem)
             goal_mask = problem.goal_set.mask
     except (KeyError, ValueError) as e:
         return 400, {"error": str(e)}
     res, n_goals = PackedResult(res, goal_mask).result()
-    plan_s = time.time() - t0
+    stage_s = (t_plan - t0) * 1e-9
+    plan_s = (time.perf_counter_ns() - t_plan) * 1e-9
     if n_goals == 0 and cfg.goal_set_proj:
         return 422, {"error": "IK FAIL: empty goal set (planning not run)"}
     return 200, {
@@ -167,8 +180,13 @@ def execute_request(body: dict, base_cfg: OMGConfig,
     stepper (:mod:`omg_planner_torch.physics`) and attach the lift-reward
     scorecard, so a client can gate on the simulated grasp.  Body knob
     ``"exec_retries"`` (default 0) enables execution-verified planning."""
+    with timing.request():
+        return _execute(body, base_cfg, device)
+
+
+def _execute(body: dict, base_cfg: OMGConfig, device) -> tuple[int, dict]:
     retries = int(body.get("exec_retries", 0))
-    code, payload = plan_request(body, base_cfg, device)
+    code, payload = _plan(body, base_cfg, device)
     if code != 200:
         return code, payload
     if not payload["flag"]:
@@ -213,6 +231,12 @@ def plan_batch_request(body: dict, base_cfg: OMGConfig,
                        device=None) -> tuple[int, dict]:
     """Handle /plan_batch: ``{"scenes": [<plan body>, ...],
     "pipeline_depth": int}`` through the pipelined runner."""
+    with timing.request():
+        return _plan_batch(body, base_cfg, device)
+
+
+def _plan_batch(body: dict, base_cfg: OMGConfig,
+                device) -> tuple[int, dict]:
     specs = body.get("scenes")
     if not isinstance(specs, list) or not specs:
         return 400, {"error": "scenes: non-empty list required"}

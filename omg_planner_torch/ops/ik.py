@@ -67,7 +67,8 @@ def ik_single(model, target, seed, cfg: OMGConfig, lower7, upper7) -> IKResult:
 
     q, it = seed, 0
     err = torch.tensor(torch.inf, device=seed.device)
-    while it < cfg.ik_max_iters and host_bool(err > cfg.ik_pos_tol):
+    while it < cfg.ik_max_iters and host_bool(err > cfg.ik_pos_tol,
+                                              "ik.single"):
         e, jac = error_and_jac(q)
         jjt = jac @ jac.T + lam * eye6
         dq = jac.T @ solve_spd_unrolled(jjt, e)
@@ -120,7 +121,7 @@ def ik_batch(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
         running = torch.ones(num_scenes, dtype=torch.bool,
                              device=seeds.device)
     it = 0
-    while it < cfg.ik_max_iters and host_bool(gate_open):
+    while it < cfg.ik_max_iters and host_bool(gate_open, "ik.batch"):
         e, jac = _batch_error_and_jac(model, q, targets)
         q_new = kernels.ik_newton_step(jac, e, q, cfg.ik_damping, lower7,
                                         upper7)

@@ -1049,7 +1049,8 @@ def joint_limit_plain(xi, lower, upper, ainv, live, max_steps: int):
     if xi.ndim == 2 and live is None:
         tv = _limit_violation(xi, lower, upper)
         cnt = 0
-        while cnt < max_steps and host_bool(torch.linalg.norm(tv) > 1e-2):
+        while cnt < max_steps and host_bool(torch.linalg.norm(tv) > 1e-2,
+                                            "joint_limit.pass"):
             xi = _limit_step(ainv, xi, tv)
             cnt += 1
             tv = _limit_violation(xi, lower, upper)
@@ -1068,7 +1069,7 @@ def joint_limit_plain(xi, lower, upper, ainv, live, max_steps: int):
     if live is not None:
         run = live.reshape(-1) & run
     cnt = 0
-    while cnt < max_steps and host_bool(run.any()):
+    while cnt < max_steps and host_bool(run.any(), "joint_limit.pass"):
         step = vmap(lambda x, t: _limit_step(ainv, x, t))(xi, tv)
         xi = torch.where(run[:, None, None], step, xi)
         cnt += 1
@@ -1228,7 +1229,7 @@ def ik_chain_plain(chain_tgts, seeds, active, budgets, pqr, pose_0, lower7,
     steps = torch.zeros(b, dtype=torch.int32, device=dev)
     glob = 0
     live = s < k
-    while host_bool(torch.any(live)):
+    while host_bool(torch.any(live), "ik.chain"):
         if passes:
             evals += live
         stage = torch.clamp(s, max=k - 1)

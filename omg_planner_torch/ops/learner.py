@@ -132,7 +132,7 @@ def bregman_projection(x, v, delta, w, mask, max_iters: int = 20,
     log_ratio = w * torch.log(delta / torch.clamp(shiftx, min=1e-20))
     while True:
         active = (diff > tol) & (it < max_iters)
-        if not host_bool(active.any()):
+        if not host_bool(active.any(), "learner.bregman"):
             break
         el = solve_el(alpha)
         alpha_prime = torch.clamp(v - el[..., None] + log_ratio,

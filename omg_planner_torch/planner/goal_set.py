@@ -32,6 +32,7 @@ from ..models import panda
 from ..ops import ik as ik_ops
 from ..ops.chomp import CostParams, GoalSet
 from ..ops.sdf import sdf_potentials
+from ..utils import timing
 from ..utils.linalg import take_rows, top_k
 from ..utils.pose import rot_y, rot_z
 from ..utils.spline import multi_linear_interpolate
@@ -180,7 +181,7 @@ def diversity_dedupe(configs, valid, min_dist: float = 0.5,
         lower_close = close & (ar[None, :] < ar[:, None])
         kept = torch.zeros_like(valid)
         rejected = ~valid
-        while host_bool(torch.any(~kept & ~rejected)):
+        while host_bool(torch.any(~kept & ~rejected), "goal_set.dedupe"):
             unknown = ~kept & ~rejected
             blocked = torch.any(lower_close & kept[..., None, :], dim=-1)
             ready = ~torch.any(lower_close & ~rejected[..., None, :], dim=-1)
@@ -346,102 +347,111 @@ def _build_goal_sets(model, cfg: OMGConfig, per_scene, grasp_poses_world,
         return torch.full_like(x, -torch.inf)
 
     lo, hi = model.soft_limits(cfg.soft_joint_limit_padding)
-    anchors = torch.as_tensor(ANCHOR_SEEDS[: cfg.ik_seed_num, :7],
-                              dtype=start.dtype, device=dev)
-    seeds = torch.cat([start[:, None, :7],
-                       anchors[None].expand(n_scenes, -1, -1)], dim=1)
-    reach, standoff, valid, _, sizes = solve(
-        model, cfg, grasp_poses_world, seeds, lo[:7], hi[:7], n_grasps,
-        attached, grasp_valid=grasp_valid)
+    with timing.span("goal_set.ik"):
+        anchors = torch.as_tensor(ANCHOR_SEEDS[: cfg.ik_seed_num, :7],
+                                  dtype=start.dtype, device=dev)
+        seeds = torch.cat([start[:, None, :7],
+                           anchors[None].expand(n_scenes, -1, -1)], dim=1)
+        reach, standoff, valid, _, sizes = solve(
+            model, cfg, grasp_poses_world, seeds, lo[:7], hi[:7], n_grasps,
+            attached, grasp_valid=grasp_valid)
 
-    if cfg.increment_iks:
-        g = draw("increment", sizes, valid.shape[1])
-        vals, top = top_k(torch.where(valid, g, neg_inf(g)), 10)
-        extra = torch.where(torch.isfinite(vals)[..., None],
-                            _take_lanes(standoff, top)[..., :7],
-                            seeds[:, :1])
-        need = valid.sum(1) < cfg.goal_set_max_num
-        sizes2 = [ik_ops.solve_lanes(cfg, n, 10) for n in n_grasps]
-        if host_bool(need.any()):
-            reach2, standoff2, valid2, _, _ = solve(
-                model, cfg, grasp_poses_world, extra, lo[:7], hi[:7],
-                n_grasps, attached, grasp_valid=grasp_valid & need[:, None])
-            zero = torch.zeros((), device=dev)
-            reach2 = torch.where(need[:, None, None, None], reach2, zero)
-            standoff2 = torch.where(need[:, None, None], standoff2, zero)
-            valid2 = valid2 & need[:, None]
-        else:
-            k = ik_ops.solve_lanes(cfg, grasp_poses_world.shape[1], 10)
-            reach2 = reach.new_zeros((n_scenes, k) + reach.shape[2:])
-            standoff2 = standoff.new_zeros((n_scenes, k) + standoff.shape[2:])
-            valid2 = valid.new_zeros((n_scenes, k))
-        reach = _ragged_cat(reach, sizes, reach2, sizes2)
-        standoff = _ragged_cat(standoff, sizes, standoff2, sizes2)
-        valid = _ragged_cat(valid, sizes, valid2, sizes2)
-        sizes = [a + b for a, b in zip(sizes, sizes2)]
+        if cfg.increment_iks:
+            g = draw("increment", sizes, valid.shape[1])
+            vals, top = top_k(torch.where(valid, g, neg_inf(g)), 10)
+            extra = torch.where(torch.isfinite(vals)[..., None],
+                                _take_lanes(standoff, top)[..., :7],
+                                seeds[:, :1])
+            need = valid.sum(1) < cfg.goal_set_max_num
+            sizes2 = [ik_ops.solve_lanes(cfg, n, 10) for n in n_grasps]
+            if host_bool(need.any(), "goal_set.increment"):
+                reach2, standoff2, valid2, _, _ = solve(
+                    model, cfg, grasp_poses_world, extra, lo[:7], hi[:7],
+                    n_grasps, attached,
+                    grasp_valid=grasp_valid & need[:, None])
+                zero = torch.zeros((), device=dev)
+                reach2 = torch.where(need[:, None, None, None], reach2, zero)
+                standoff2 = torch.where(need[:, None, None], standoff2, zero)
+                valid2 = valid2 & need[:, None]
+            else:
+                k = ik_ops.solve_lanes(cfg, grasp_poses_world.shape[1], 10)
+                reach2 = reach.new_zeros((n_scenes, k) + reach.shape[2:])
+                standoff2 = standoff.new_zeros(
+                    (n_scenes, k) + standoff.shape[2:])
+                valid2 = valid.new_zeros((n_scenes, k))
+            reach = _ragged_cat(reach, sizes, reach2, sizes2)
+            standoff = _ragged_cat(standoff, sizes, standoff2, sizes2)
+            valid = _ragged_cat(valid, sizes, valid2, sizes2)
+            sizes = [a + b for a, b in zip(sizes, sizes2)]
 
-    if cfg.augment_flip_grasp and not attached:
-        flip_standoff, ok1 = flip_wrist(standoff, cfg)
-        flip_reach, _ = flip_wrist(reach, cfg)
-        reach = _ragged_cat(reach, sizes, flip_reach, sizes)
-        standoff = _ragged_cat(standoff, sizes, flip_standoff, sizes)
-        valid = _ragged_cat(valid, sizes, valid & ok1, sizes)
-        sizes = [2 * n for n in sizes]
+    with timing.span("goal_set.filter"):
+        if cfg.augment_flip_grasp and not attached:
+            flip_standoff, ok1 = flip_wrist(standoff, cfg)
+            flip_reach, _ = flip_wrist(reach, cfg)
+            reach = _ragged_cat(reach, sizes, flip_reach, sizes)
+            standoff = _ragged_cat(standoff, sizes, flip_standoff, sizes)
+            valid = _ragged_cat(valid, sizes, valid & ok1, sizes)
+            sizes = [2 * n for n in sizes]
 
-    if cfg.remove_flip_grasp and not attached:
-        valid = per_scene(
-            lambda sc, pa, st, r, v: task_space_filter(model, cfg, st, r, v),
-            start, reach, valid)
+        if cfg.remove_flip_grasp and not attached:
+            valid = per_scene(
+                lambda sc, pa, st, r, v: task_space_filter(model, cfg, st, r,
+                                                           v),
+                start, reach, valid)
 
-    cap = cfg.goal_prune_cap
-    if cap and cap < reach.shape[1]:
-        # scene i compacts only when its own lanes exceed the cap; the
-        # others keep their lanes (and padding) in order
-        compact = [cap < n for n in sizes]
-        g = draw("prune", sizes, valid.shape[1], compact)
-        sel = torch.sort(top_k(torch.where(valid, g, neg_inf(g)),
-                               cap)[1]).values
-        if not all(compact):
-            keep = torch.arange(cap, device=dev).expand(n_scenes, cap)
-            sel = torch.where(torch.as_tensor(compact, device=dev)[:, None],
-                              sel, keep)
-        reach = _take_lanes(reach, sel)
-        standoff = _take_lanes(standoff, sel)
-        valid = torch.gather(valid, 1, sel)
-        sizes = [cap if c else n for c, n in zip(compact, sizes)]
+    with timing.span("goal_set.prune"):
+        cap = cfg.goal_prune_cap
+        if cap and cap < reach.shape[1]:
+            # scene i compacts only when its own lanes exceed the cap; the
+            # others keep their lanes (and padding) in order
+            compact = [cap < n for n in sizes]
+            g = draw("prune", sizes, valid.shape[1], compact)
+            sel = torch.sort(top_k(torch.where(valid, g, neg_inf(g)),
+                                   cap)[1]).values
+            if not all(compact):
+                keep = torch.arange(cap, device=dev).expand(n_scenes, cap)
+                sel = torch.where(
+                    torch.as_tensor(compact, device=dev)[:, None], sel, keep)
+            reach = _take_lanes(reach, sel)
+            standoff = _take_lanes(standoff, sel)
+            valid = torch.gather(valid, 1, sel)
+            sizes = [cap if c else n for c, n in zip(compact, sizes)]
 
-    valid, potentials = per_scene(
-        lambda sc, pa, st, v: collision_prune(model, sc, pa, cfg, st, v),
-        standoff, valid)
-    kept = diversity_dedupe(standoff, valid, mode=cfg.dedupe_mode)
-    idx, mask = sample_goals(draw("sample", sizes, kept.shape[1]), kept,
-                             cfg.goal_set_max_num)
+        valid, potentials = per_scene(
+            lambda sc, pa, st, v: collision_prune(model, sc, pa, cfg, st, v),
+            standoff, valid)
+    with timing.span("goal_set.dedupe"):
+        kept = diversity_dedupe(standoff, valid, mode=cfg.dedupe_mode)
+    with timing.span("goal_set.sample"):
+        idx, mask = sample_goals(draw("sample", sizes, kept.shape[1]), kept,
+                                 cfg.goal_set_max_num)
 
-    reach_sel = _take_lanes(reach, idx)
-    standoff_sel = _take_lanes(standoff, idx)
-    pot_sel = torch.gather(potentials, 1, idx)
-    grasps_sel = reach_sel[:, :, -1] if cfg.use_standoff else standoff_sel
-    flat = grasps_sel.reshape(-1, grasps_sel.shape[-1])
+        reach_sel = _take_lanes(reach, idx)
+        standoff_sel = _take_lanes(standoff, idx)
+        pot_sel = torch.gather(potentials, 1, idx)
+        grasps_sel = reach_sel[:, :, -1] if cfg.use_standoff else standoff_sel
+        flat = grasps_sel.reshape(-1, grasps_sel.shape[-1])
 
-    if cfg.grasp_optimize:
-        hands = panda.hand_pose_batch(model, flat).reshape(
-            grasps_sel.shape[:2] + (4, 4))
-        downness = -hands[..., 2, 2]  # world z of the approach axis
-        pot_sel = pot_sel + cfg.base_grasp_weight * (0.5 * (1.0 - downness))
+        if cfg.grasp_optimize:
+            hands = panda.hand_pose_batch(model, flat).reshape(
+                grasps_sel.shape[:2] + (4, 4))
+            downness = -hands[..., 2, 2]  # world z of the approach axis
+            pot_sel = pot_sel + cfg.base_grasp_weight * (
+                0.5 * (1.0 - downness))
 
-    if cfg.grip_quality_weight and obj_pos is not None:
-        com_dist = torch.linalg.norm(
-            pinch_centers(model, flat).reshape(grasps_sel.shape[:2] + (3,))
-            - obj_pos[:, None], dim=-1)
-        pot_sel = pot_sel + cfg.grip_quality_weight * com_dist
+        if cfg.grip_quality_weight and obj_pos is not None:
+            com_dist = torch.linalg.norm(
+                pinch_centers(model, flat).reshape(grasps_sel.shape[:2] + (3,))
+                - obj_pos[:, None], dim=-1)
+            pot_sel = pot_sel + cfg.grip_quality_weight * com_dist
 
-    zero = torch.zeros((), device=dev)
-    return GoalSet(
-        grasps=torch.where(mask[..., None], grasps_sel, zero),
-        reach_grasps=torch.where(mask[..., None, None], reach_sel, zero),
-        mask=mask,
-        potentials=torch.where(mask, pot_sel, zero),
-    )
+        zero = torch.zeros((), device=dev)
+        return GoalSet(
+            grasps=torch.where(mask[..., None], grasps_sel, zero),
+            reach_grasps=torch.where(mask[..., None, None], reach_sel, zero),
+            mask=mask,
+            potentials=torch.where(mask, pot_sel, zero),
+        )
 
 
 def goal_idx_policy(cfg: OMGConfig, goal_set: GoalSet, start):

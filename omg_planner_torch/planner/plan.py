@@ -24,6 +24,7 @@ from ..ops import chomp
 from ..ops import learner as ol
 from ..ops.chomp import CostInfo, CostParams, GoalSet
 from ..ops.sdf import WorldField, WorldPotential
+from ..utils import timing
 from ..utils.linalg import top_k
 from ..utils.spline import cubic_interpolate, linear_interpolate
 from ..utils.sync import host_bool, host_bools
@@ -245,49 +246,59 @@ def _step(model, cfg, hp, problem: PlanProblem, carry: _Carry,
     takes it alike and a ``cv_fn`` holding collectives may be skipped on
     the smoothing steps.  (JAX runs such a sweep unconditionally and masks
     its result, since SPMD forbids collectives inside ``lax.cond``.)"""
-    traj, goal_idx, lstate = carry.traj, carry.goal_idx, carry.learner
-    use_bl = _blacklist_enabled(cfg)
-    if _learner_enabled(cfg):
-        do_learn = carry.step < cfg.optim_steps
-        if cfg.learner_sweep_every > 1:
-            do_learn = do_learn and carry.step % cfg.learner_sweep_every == 0
-        if do_learn:
-            problem_l = (problem._replace(goal_set=problem.goal_set._replace(
-                mask=carry.goal_mask)) if use_bl else problem)
-            lstate, goal_idx = ol.update_goal(
-                model, problem_l.scene, problem_l.cost_params, cfg, hp, traj,
-                problem_l.goal_set, lstate, problem_l.world_potential,
-                cv_fn=cv_fn)
-    new_traj, info = _optimize_once(model, cfg, hp, problem, traj, goal_idx,
-                                    carry.step - carry.sched0)
-    ex_traj, ex_ok, ex_info = carry.exec_traj, carry.exec_ok, carry.exec_info
-    if cfg.exec_snapshot:
-        snap = info.execute
-        ex_traj = torch.where(snap, traj, ex_traj)
-        ex_info = _where_tree(snap, info, ex_info)
-        ex_ok = ex_ok | snap
-    fired = carry.step > 0 and host_bool(info.terminate)
-    goal_mask, sched0 = carry.goal_mask, carry.sched0
-    if use_bl and not fired and _blacklist_due(cfg, carry.step):
-        new_mask, fire = _inplan_blacklist(cfg, problem, goal_mask,
-                                           goal_idx, info)
-        if host_bool(fire):
-            goal_mask = new_mask
-            new_traj, goal_idx, lstate = _blacklist_restart(
-                cfg, problem, goal_mask, lstate)
-            sched0 = carry.step + 1
-    return _Carry(
-        traj=traj if fired else new_traj, goal_idx=goal_idx, learner=lstate,
-        step=carry.step + 1, done=fired, last_info=info,
-        goal_mask=goal_mask, sched0=sched0,
-        exec_traj=ex_traj, exec_ok=ex_ok, exec_info=ex_info)
+    with timing.span("plan.step"):
+        traj, goal_idx, lstate = carry.traj, carry.goal_idx, carry.learner
+        use_bl = _blacklist_enabled(cfg)
+        if _learner_enabled(cfg):
+            do_learn = carry.step < cfg.optim_steps
+            if cfg.learner_sweep_every > 1:
+                do_learn = (do_learn
+                            and carry.step % cfg.learner_sweep_every == 0)
+            if do_learn:
+                with timing.span("plan.learner"):
+                    problem_l = (problem._replace(
+                        goal_set=problem.goal_set._replace(
+                            mask=carry.goal_mask)) if use_bl else problem)
+                    lstate, goal_idx = ol.update_goal(
+                        model, problem_l.scene, problem_l.cost_params, cfg,
+                        hp, traj, problem_l.goal_set, lstate,
+                        problem_l.world_potential, cv_fn=cv_fn)
+        with timing.span("plan.chomp"):
+            new_traj, info = _optimize_once(model, cfg, hp, problem, traj,
+                                            goal_idx,
+                                            carry.step - carry.sched0)
+        with timing.span("plan.control"):
+            ex_traj, ex_ok = carry.exec_traj, carry.exec_ok
+            ex_info = carry.exec_info
+            if cfg.exec_snapshot:
+                snap = info.execute
+                ex_traj = torch.where(snap, traj, ex_traj)
+                ex_info = _where_tree(snap, info, ex_info)
+                ex_ok = ex_ok | snap
+            fired = carry.step > 0 and host_bool(info.terminate,
+                                                 "plan.terminate")
+            goal_mask, sched0 = carry.goal_mask, carry.sched0
+            if use_bl and not fired and _blacklist_due(cfg, carry.step):
+                new_mask, fire = _inplan_blacklist(cfg, problem, goal_mask,
+                                                   goal_idx, info)
+                if host_bool(fire, "plan.blacklist"):
+                    goal_mask = new_mask
+                    new_traj, goal_idx, lstate = _blacklist_restart(
+                        cfg, problem, goal_mask, lstate)
+                    sched0 = carry.step + 1
+        return _Carry(
+            traj=traj if fired else new_traj, goal_idx=goal_idx,
+            learner=lstate, step=carry.step + 1, done=fired, last_info=info,
+            goal_mask=goal_mask, sched0=sched0,
+            exec_traj=ex_traj, exec_ok=ex_ok, exec_info=ex_info)
 
 
 def _init_carry(model, cfg, hp, problem: PlanProblem, cv_fn=None) -> _Carry:
     dev = problem.start.device
-    traj0, goal_idx0, learner0 = _learner_init(model, cfg, hp, problem,
-                                               cv_fn)
-    info0 = _dummy_info(cfg, dev)
+    with timing.span("plan.init"):
+        traj0, goal_idx0, learner0 = _learner_init(model, cfg, hp, problem,
+                                                   cv_fn)
+        info0 = _dummy_info(cfg, dev)
     snap = cfg.exec_snapshot
     return _Carry(traj0, goal_idx0, learner0, 0, False, info0,
                   problem.goal_set.mask, 0,
@@ -301,15 +312,16 @@ def _finish(model, cfg, hp, problem, carry: _Carry):
     """Final info (the reference re-evaluates the final trajectory when
     the loop ran out of steps, planner.py:633-636) and the executable-state
     snapshot selection.  Returns (traj, info)."""
-    info = carry.last_info
-    if not carry.done:
-        info = _evaluate(model, cfg, hp, problem, carry.traj, carry.goal_idx,
-                         carry.step - carry.sched0)
-    if not cfg.exec_snapshot:
-        return carry.traj, info
-    use = carry.exec_ok & ~info.execute
-    return (torch.where(use, carry.exec_traj, carry.traj),
-            _where_tree(use, carry.exec_info, info))
+    with timing.span("plan.finish"):
+        info = carry.last_info
+        if not carry.done:
+            info = _evaluate(model, cfg, hp, problem, carry.traj,
+                             carry.goal_idx, carry.step - carry.sched0)
+        if not cfg.exec_snapshot:
+            return carry.traj, info
+        use = carry.exec_ok & ~info.execute
+        return (torch.where(use, carry.exec_traj, carry.traj),
+                _where_tree(use, carry.exec_info, info))
 
 
 def plan(model, cfg: OMGConfig, problem: PlanProblem,
@@ -320,40 +332,43 @@ def plan(model, cfg: OMGConfig, problem: PlanProblem,
     learner's candidate costs (``ops/learner.py::update_goal``); the
     goal-sharded plan (``parallel/batch.py``) runs this same loop with
     it."""
-    hp = cfg.horizon().on(problem.start.device)
-    carry = _init_carry(model, cfg, hp, problem, cv_fn)
-    history, infos, selected = [], [], []
-    for _ in range(cfg.total_steps):
-        if not carry.done:
-            carry = _step(model, cfg, hp, problem, carry, cv_fn)
-        history.append(carry.traj)
-        infos.append(carry.last_info)
-        selected.append(carry.goal_idx)
-    traj_out, info = _finish(model, cfg, hp, problem, carry)
-    dev = problem.start.device
-    return PlanResult(
-        traj=traj_out, goal_idx=carry.goal_idx, info=info,
-        info_history=CostInfo(*(torch.stack(f) for f in zip(*infos))),
-        history=torch.stack(history), selected_goals=torch.stack(selected),
-        steps_used=torch.tensor(carry.step, device=dev), flag=info.terminate,
-        goal_mask=carry.goal_mask)
+    with timing.span("plan"):
+        hp = cfg.horizon().on(problem.start.device)
+        carry = _init_carry(model, cfg, hp, problem, cv_fn)
+        history, infos, selected = [], [], []
+        for _ in range(cfg.total_steps):
+            if not carry.done:
+                carry = _step(model, cfg, hp, problem, carry, cv_fn)
+            history.append(carry.traj)
+            infos.append(carry.last_info)
+            selected.append(carry.goal_idx)
+        traj_out, info = _finish(model, cfg, hp, problem, carry)
+        dev = problem.start.device
+        return PlanResult(
+            traj=traj_out, goal_idx=carry.goal_idx, info=info,
+            info_history=CostInfo(*(torch.stack(f) for f in zip(*infos))),
+            history=torch.stack(history),
+            selected_goals=torch.stack(selected),
+            steps_used=torch.tensor(carry.step, device=dev),
+            flag=info.terminate, goal_mask=carry.goal_mask)
 
 
 def plan_fast(model, cfg: OMGConfig, problem: PlanProblem,
               cv_fn=None) -> PlanResult:
     """History-free plan: early termination ends the loop (the benchmark
     path).  ``cv_fn`` as in :func:`plan`."""
-    hp = cfg.horizon().on(problem.start.device)
-    carry = _init_carry(model, cfg, hp, problem, cv_fn)
-    while not carry.done and carry.step < cfg.total_steps:
-        carry = _step(model, cfg, hp, problem, carry, cv_fn)
-    traj_out, info = _finish(model, cfg, hp, problem, carry)
-    return PlanResult(
-        traj=traj_out, goal_idx=carry.goal_idx, info=info,
-        info_history=info, history=traj_out[None],
-        selected_goals=carry.goal_idx[None],
-        steps_used=torch.tensor(carry.step, device=problem.start.device),
-        flag=info.terminate, goal_mask=carry.goal_mask)
+    with timing.span("plan"):
+        hp = cfg.horizon().on(problem.start.device)
+        carry = _init_carry(model, cfg, hp, problem, cv_fn)
+        while not carry.done and carry.step < cfg.total_steps:
+            carry = _step(model, cfg, hp, problem, carry, cv_fn)
+        traj_out, info = _finish(model, cfg, hp, problem, carry)
+        return PlanResult(
+            traj=traj_out, goal_idx=carry.goal_idx, info=info,
+            info_history=info, history=traj_out[None],
+            selected_goals=carry.goal_idx[None],
+            steps_used=torch.tensor(carry.step, device=problem.start.device),
+            flag=info.terminate, goal_mask=carry.goal_mask)
 
 
 def _where_rows(cond, a, b):
@@ -439,13 +454,14 @@ def plan_fast_batch(model, cfg: OMGConfig,
             ex_info = _where_rows(snap, info, ex_info)
             ex_ok = ex_ok | snap
         fired = info.terminate & live if step > 0 else torch.zeros_like(live)
-        fired_host = host_bools(fired) if step > 0 else [False] * n
+        fired_host = (host_bools(fired, "plan_batch.terminate") if step > 0
+                      else [False] * n)
         if use_bl and _blacklist_due(cfg, step):
             new_mask, fire = vmap_scenes(
                 lambda pr, m, gi, inf: _inplan_blacklist(cfg, pr, m, gi, inf),
                 problems, goal_mask, goal_idx, info)
             fire = fire & live & ~fired
-            fire_host = host_bools(fire)
+            fire_host = host_bools(fire, "plan_batch.blacklist")
             if any(fire_host):
                 rt_traj, rt_goal, rt_l = vmap_scenes(
                     lambda pr, m, ls: _restart_tensors(cfg, pr, m, ls),

@@ -27,6 +27,7 @@ from ..config import OMGConfig
 from ..io import scene_io
 from ..ops.chomp import CostInfo
 from ..parallel.batch import pad_objects
+from ..utils import timing
 from ..utils.sync import SYNCS
 from ..utils.timing import TRANSIENT, retry_transient
 from .plan import PlanResult, plan_fast
@@ -107,9 +108,10 @@ class PackedResult:
 
     def result(self):
         """(numpy PlanResult, valid-goal count); waits for the copy."""
-        if self.event is not None:
-            self.event.synchronize()
-        return _unpack_flat(self.host.numpy(), *self.shapes)
+        with timing.span("harvest"):
+            if self.event is not None:
+                self.event.synchronize()
+            return _unpack_flat(self.host.numpy(), *self.shapes)
 
 
 def suite_shapes(scenes):

@@ -29,6 +29,7 @@ from ..ops.sdf import (AnalyticScene, WorldField, WorldPotential,
                        bake_world_field_analytic, bake_world_potential,
                        bake_world_potential_analytic, make_analytic_scene,
                        stage_scene_sdfs)
+from ..utils import timing
 from ..utils.sync import host_int
 from . import goal_set as gs
 from . import plan as plan_mod
@@ -116,12 +117,14 @@ class Env:
         the padded voxel stack (baked per ``cfg.sdf_baked``), synthesised
         on the device for primitives.  ``pad_to`` pads the stack to a
         suite-wide shape."""
-        fields = [o.sdf for o in self.objects]
-        scene = (make_analytic_scene(fields, self.device)
-                 if self.cfg.sdf_analytic else None)
-        if scene is None:
-            scene = stage_scene_sdfs(fields, self.device,
-                                     baked=self.cfg.sdf_baked, pad_to=pad_to)
+        with timing.span("scene_stage"):
+            fields = [o.sdf for o in self.objects]
+            scene = (make_analytic_scene(fields, self.device)
+                     if self.cfg.sdf_analytic else None)
+            if scene is None:
+                scene = stage_scene_sdfs(fields, self.device,
+                                         baked=self.cfg.sdf_baked,
+                                         pad_to=pad_to)
         self._scene_sdf = scene
         return scene
 
@@ -352,7 +355,7 @@ class PlanningScene:
             valid, _f32(self.start, d), gen=self.gen,
             attached=bool(t.attached), obj_pos=obj_pos)
         if not cfg.silent:
-            n_valid = host_int(goal_set.mask.sum())
+            n_valid = host_int(goal_set.mask.sum(), "goal_set.n_valid")
             print(f"{t.name} IK init time: {time.time() - t0:.3f}, "
                   f"goal set num: {n_valid}")
             if n_valid == 0:
@@ -377,36 +380,46 @@ class PlanningScene:
         ``assume_goals=True`` skips the host read of the valid-goal count
         (the empty-goal-set check), so a caller can queue many scenes'
         staging and plans; the caller then checks ``goal_set.mask``."""
-        self._sync_env_cfg()
-        cfg = self.cfg
-        env = self.env
-        d = self.device
-        start = _f32(self.start, d)
-        end = _f32(self.end, d)
-        n_valid = None
-        if cfg.goal_set_proj:
-            if goal_set is None:
-                goal_set = self._precomputed_goals
-            if goal_set is None:
-                if self.has_staged():
-                    _, goal_set, n_valid = self._staged
-                else:
-                    goal_set = self.build_goal_set()
-                    self._staged = (self._staged_key(), goal_set, None)
-        else:
-            g, dof = cfg.goal_set_max_num, model_api.dof(self.model)
-            goal_set = GoalSet(
-                grasps=torch.zeros((g, dof), device=d),
-                reach_grasps=torch.zeros((g, cfg.reach_tail_length, dof),
-                                         device=d),
-                mask=torch.zeros(g, dtype=torch.bool, device=d),
-                potentials=torch.zeros(g, device=d))
-        self.goal_set = goal_set
+        with timing.span("goal_set"):
+            self._sync_env_cfg()
+            cfg = self.cfg
+            d = self.device
+            start = _f32(self.start, d)
+            end = _f32(self.end, d)
+            n_valid = None
+            if cfg.goal_set_proj:
+                if goal_set is None:
+                    goal_set = self._precomputed_goals
+                if goal_set is None:
+                    if self.has_staged():
+                        _, goal_set, n_valid = self._staged
+                    else:
+                        goal_set = self.build_goal_set()
+                        self._staged = (self._staged_key(), goal_set, None)
+            else:
+                g, dof = cfg.goal_set_max_num, model_api.dof(self.model)
+                goal_set = GoalSet(
+                    grasps=torch.zeros((g, dof), device=d),
+                    reach_grasps=torch.zeros(
+                        (g, cfg.reach_tail_length, dof), device=d),
+                    mask=torch.zeros(g, dtype=torch.bool, device=d),
+                    potentials=torch.zeros(g, device=d))
+            self.goal_set = goal_set
+            with timing.span("goal_set.init"):
+                return self._initial_problem(cfg, goal_set, start, end,
+                                             n_valid, assume_goals)
+
+    def _initial_problem(self, cfg, goal_set, start, end, n_valid,
+                         assume_goals) -> plan_mod.PlanProblem:
+        """:meth:`build_problem` past the goal set: the valid-goal count
+        (unless ``assume_goals``), the initial goal and spline, the
+        limits and the learner's field."""
         if assume_goals and cfg.goal_set_proj:
             self._n_valid_goals = -1  # unknown: the caller checks the mask
         else:
             if n_valid is None:
-                n_valid = host_int(goal_set.mask.sum())
+                n_valid = host_int(goal_set.mask.sum(),
+                                   "build_problem.n_valid")
                 if (self._staged is not None
                         and self._staged[1] is goal_set):
                     self._staged = self._staged[:2] + (n_valid,)
@@ -421,6 +434,7 @@ class PlanningScene:
                     self.cfg = cfg
         traj0 = plan_mod.init_trajectory(cfg, start, end)
         lo, hi = self.model.soft_limits(cfg.soft_joint_limit_padding)
+        env = self.env
         return plan_mod.PlanProblem(
             start=start, end=end, traj_init=traj0, goal_set=goal_set,
             scene=env.scene_sdf(), cost_params=env.cost_params(),
@@ -526,6 +540,7 @@ class PlanningScene:
             return None
         self._staged = None
         problem = self.build_problem(assume_goals=True)
+        timing.mark("plan_fresh.plan")
         res = plan_mod.plan_fast(self.model, cfg, problem)
         return res, problem.goal_set.mask
 

@@ -41,6 +41,6 @@ def check_agreement(values: torch.Tensor, group, what: str):
     termination, a blacklist fire, a loop exit) must come out alike on
     every rank, or the ranks leave their loops at different steps."""
     rows = all_gather_cat(values.reshape(1, -1).to(torch.int64), group)
-    if not host_bool((rows == rows[:1]).all()):
+    if not host_bool((rows == rows[:1]).all(), "collectives.agree"):
         raise RuntimeError(f"{what}: ranks of the goal group disagree: "
                            f"{rows.tolist()}")
