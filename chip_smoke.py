@@ -91,17 +91,25 @@ Phases (any failure exits non-zero; no phase is skipped):
 5. the standard plan at the full ``OMGConfig()`` width on three
    ``data/suite_v2`` scenes (each must launch ``panda_fk``, ``sdf_query``,
    ``md_update``, ``joint_limit``, ``chomp_obstacle`` and ``chomp_step``
-   (once a plan step each) and, once each in its goal-set build,
-   ``ik_prefilter`` and ``ik_chain``, and no other kernel; their counts
-   go into the kernels line), with wall time and host syncs per staging
-   (at most 9) and per plan;
+   and, once each in its goal-set build, ``ik_prefilter`` and
+   ``ik_chain``, and no other kernel; the build kernels' counts go into
+   the kernels line), with wall time and host syncs per staging (at most
+   9) and per plan;
 6. a ``torch.profiler`` trace of one standard plan: the device's busy
    share, its operations per plan and per plan step (fails if it records
    none), and the operations by the port's function that launched them
    (``record_function`` ranges this script puts around the FK, the
    collision query, the CHOMP kernels and the rest of the step, and the
-   learner; fails unless each CHOMP kernel's range holds one operation a
-   step), and the plan's sort kernels; then the same
+   learner; fails unless ``chomp_obstacle``'s range holds one operation
+   a CHOMP evaluation and ``chomp_step``'s one an eager evaluation: a
+   graphed step launches it from its CUDA graph), and the plan's sort
+   kernels; the device launches of each plan kernel, counted by its
+   device function's name (fails unless ``chomp_obstacle`` and
+   ``chomp_step`` ran once a CHOMP evaluation, graph replays included,
+   and every plan kernel as often as in the same plan run eagerly, where
+   each launch is a wrapper call, plus the graphed plan's eager re-run of
+   its terminating step; these counts go into the kernels line); then the
+   same
    scene's goal-set build, warm, its device operations by function (the
    prefilter, the chain, the rest of the IK, flip and filter, prune,
    dedupe, sampling; fails unless the prefilter's and the chain's ranges
@@ -210,7 +218,8 @@ on the physics, service and viz and apps phases, ``min_dist_grid`` in
 phase 7, and no kernel elsewhere.
 The line before the last is a JSON object listing every kernel with its
 launches on its path (phase 7 for ``min_dist_grid``, 13 for
-``rigid_rollout``, 5 for the plan, loop, CHOMP and IK kernels), error,
+``rigid_rollout``, 5 for the IK kernels, and for the plan, loop and CHOMP
+kernels phase 6's device launches in one plan), error,
 times and
 bound; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -218,6 +227,7 @@ bound; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -257,6 +267,7 @@ from omg_planner_torch.planner.runner import (SuiteRunner, plan_pipelined,
                                               prebuild_goal_sets)
 from omg_planner_torch.planner.scene import PlanningScene
 from omg_planner_torch.utils import limit_cases
+from omg_planner_torch.utils.graphs import GRAPHS
 from omg_planner_torch.utils.sync import SYNCS
 from omg_planner_torch.utils.timing import RETRIES
 from omg_planner_torch.viz.render import collision_probe
@@ -389,10 +400,38 @@ def clocks_under_load(fn, calls: int = 50) -> str:
     return out.strip().splitlines()[0]
 
 
+@contextlib.contextmanager
+def _eager_plans():
+    """``plan_fast`` without CUDA graphs: every kernel call of a plan goes
+    through its wrapper, where a recorder sees it."""
+    orig = plan_mod.plan_fast
+    plan_mod.plan_fast = functools.partial(orig, _graphs=False)
+    try:
+        yield
+    finally:
+        plan_mod.plan_fast = orig
+
+
 def reset_counts():
     for fn in kernels.KERNELS.values():
         fn.launches = 0
     SYNCS.count = 0
+    GRAPHS.reset()
+
+
+def _chomp_runs(res) -> tuple:
+    """(CHOMP evaluations a plan ran, those of them from a CUDA graph, the
+    eager re-runs of a graphed terminating step), from ``GRAPHS`` since
+    :func:`reset_counts`: one a step, the final evaluation of a plan that
+    ran out of steps, and the re-run.  Of a graphed evaluation only
+    ``chomp_obstacle`` and ``sdf_query`` are wrapper calls (they run
+    between the graph's segments); its other kernels launch from the
+    graph, so their wrappers' ``.launches`` count the capture alone."""
+    g = GRAPHS.counts["chomp"]
+    steps = int(res.steps_used)
+    rerun = max(0, g["eager"] - min(steps, plan_mod._EAGER_STEPS))
+    return (steps + (not bool(res.flag)) + rerun,
+            g["capture"] + g["replay"], rerun)
 
 
 def check_traj(traj, model, what):
@@ -1104,7 +1143,8 @@ def capture_loop_calls(dev) -> tuple:
     learner_mod.update_goal_dist, chomp_mod.handle_joint_limit = (rec_md,
                                                                   rec_jl)
     try:
-        res = scene.step(fast=True)
+        with _eager_plans():
+            res = scene.step(fast=True)
     finally:
         learner_mod.update_goal_dist, chomp_mod.handle_joint_limit = upd, hjl
     _sync(dev)
@@ -1796,7 +1836,8 @@ def capture_chomp_calls(dev) -> tuple:
 
     kernels._chomp_obstacle_op, kernels._chomp_step_op = rec_obs, rec_step
     try:
-        res = scene.step(fast=True)
+        with _eager_plans():
+            res = scene.step(fast=True)
     finally:
         kernels._chomp_obstacle_op, kernels._chomp_step_op = obs, step
     _sync(dev)
@@ -2145,13 +2186,16 @@ def phase_standard(dev) -> dict:
         what = f"standard plan suite scene {i}"
         res = _timed_plan(scene, dev, what)
         counts = _check_launches(f"standard suite scene {i}", PLAN_KERNELS)
-        # one CHOMP step a plan step, and the final evaluation of a plan
-        # that ran out of steps
-        steps = int(res.steps_used) + (not bool(res.flag))
-        if any(counts[k] != steps for k in CHOMP_ENTRIES):
-            raise AssertionError(f"{what}: {steps} CHOMP steps launched "
-                                 f"{[counts[k] for k in CHOMP_ENTRIES]} CHOMP "
-                                 "kernels")
+        # chomp_obstacle called once an evaluation, chomp_step once an
+        # eager one or a capture (phase 6 counts the device's launches)
+        evals, graphed, _ = _chomp_runs(res)
+        g = GRAPHS.counts["chomp"]
+        log(f"{what}: graphs {GRAPHS.counts}")
+        calls = [counts[k] for k in CHOMP_ENTRIES]
+        if calls != [evals, evals - graphed + g["capture"]]:
+            raise AssertionError(f"{what}: {evals} CHOMP evaluations "
+                                 f"({graphed} graphed) called the CHOMP "
+                                 f"wrappers {calls} times")
         if (any(counts[k] != 1 for k in BUILD_KERNELS)
                 or STAGE_SYNCS[what] > STAGE_SYNC_CAP):
             raise AssertionError(f"{what}: the build launched "
@@ -2168,7 +2212,8 @@ def _profiled(fn, dev, what, cpu: bool = True):
     """``fn()`` under ``torch.profiler``: (result, wall ms under the
     profiler, device operations, device ms by operation name, device
     operations by the innermost ``attr::<label>`` range that launched
-    them, "other" outside every range; empty with ``cpu=False``).  Fails
+    them, "other" outside every range; empty with ``cpu=False``; device
+    operations by name).  Fails
     when the profiler records no device operation.  ``cpu=False`` traces
     the device alone (reading a trace that holds the host's operations too
     is slow in Python)."""
@@ -2188,9 +2233,10 @@ def _profiled(fn, dev, what, cpu: bool = True):
     if not ops:
         raise AssertionError(f"profile {what}: wall {wall_ms:.1f} ms, but "
                              "the profiler recorded no device operations")
-    by_name = {}
+    by_name, by_count = {}, {}
     for e in ops:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        by_count[e.name] = by_count.get(e.name, 0) + 1
     by_range = {}
     for e in prof.events() if cpu else ():
         if e.device_type != DeviceType.CPU or not e.kernels:
@@ -2203,7 +2249,7 @@ def _profiled(fn, dev, what, cpu: bool = True):
             up = up.cpu_parent
         by_range[label] = by_range.get(label, 0) + sum(
             not k.name.startswith("attr::") for k in e.kernels)
-    return out, wall_ms, len(ops), by_name, by_range
+    return out, wall_ms, len(ops), by_name, by_range, by_count
 
 
 # phase 6's attribution: the port's functions whose device operations it
@@ -2271,19 +2317,65 @@ def _ranges(spec):
             setattr(mod, name, orig)
 
 
+#: each plan kernel's device functions, as the profiler names them
+DEVICE_KERNELS = {"panda_fk": ("panda_fk_kernel",),
+                  "sdf_query": ("sdf_loop_kernel", "sdf_spread_kernel"),
+                  "md_update": ("md_update_kernel",),
+                  "joint_limit": ("joint_limit_kernel",),
+                  "chomp_obstacle": ("chomp_obstacle_kernel",),
+                  "chomp_step": ("chomp_step_kernel",)}
+
+
+def _plan_launches(scene, dev, by_count, evals: int, rerun: int) -> dict:
+    """Each plan kernel's device launches in phase 6's profiled plan
+    (``by_count``: its device operations by name), held to the launches of
+    the same plan run eagerly, where each launch is a wrapper call, plus
+    those of ``rerun`` eager CHOMP evaluations (a graphed plan's re-run of
+    its terminating step); ``chomp_obstacle`` and ``chomp_step`` must have
+    run once each of the plan's ``evals`` CHOMP evaluations."""
+    got = {k: sum(n for name, n in by_count.items()
+                  if any(d in name for d in names))
+           for k, names in DEVICE_KERNELS.items()}
+    cfg = scene.cfg
+    problem = scene.build_problem()
+    hp = cfg.horizon().on(dev)
+    reset_counts()
+    plan_mod._chomp_update(scene.model, cfg, hp, problem, problem.traj_init,
+                           torch.zeros((), dtype=torch.int64, device=dev),
+                           plan_mod.schedule_weights(cfg, 1))
+    per_eval = {k: kernels.KERNELS[k].launches for k in DEVICE_KERNELS}
+    reset_counts()
+    with _eager_plans():
+        scene.step(fast=True)
+    _sync(dev)
+    want = {k: kernels.KERNELS[k].launches + rerun * per_eval[k]
+            for k in DEVICE_KERNELS}
+    log(f"plan kernels' device launches in the profiled plan: {got}; the "
+        f"eager plan's wrapper calls with {rerun} re-run: {want}; "
+        f"{evals} CHOMP evaluations")
+    if (got != want or got["chomp_obstacle"] != evals
+            or got["chomp_step"] != evals):
+        raise AssertionError(f"the profiled plan launched {got} on the "
+                             f"device, not {want} ({evals} CHOMP "
+                             "evaluations)")
+    return got
+
+
 def phase_profile(dev):
     """Where one standard plan's time goes: ``torch.profiler`` over
     ``step(fast=True)`` of suite scene 1 (goal set already staged), for
     the device's busy share and the device operations per plan; then the
     same scene's goal-set build, warm, its device operations by the
-    function that launched them."""
+    function that launched them.  Returns the plan kernels' device
+    launches in the profiled plan (:func:`_plan_launches`)."""
     cfg = OMGConfig(silent=True)
     path = os.path.join(SUITE, "scene_1.npz")
     scene = PlanningScene.from_npz(cfg, path, device=dev)
     scene.step(fast=True)  # stages the goal set and warms up
     _sync(dev)
+    reset_counts()
     with _ranges(ATTRIBUTION):
-        res, wall_ms, n_ops, by_name, by_range = _profiled(
+        res, wall_ms, n_ops, by_name, by_range, by_count = _profiled(
             lambda: scene.step(fast=True), dev,
             "standard plan suite scene 1")
     steps = int(res.steps_used)
@@ -2304,17 +2396,22 @@ def phase_profile(dev):
     sorts = {n: us for n, us in by_name.items() if "sort" in n.lower()}
     log(f"  sort kernels of the plan: {len(sorts)} names, "
         f"{sum(sorts.values()) / 1e3:.3f} ms")
-    chomp_ops = {label: by_range.get(label, 0) for label in (
-        "CHOMP obstacle terms (chomp_obstacle)", "CHOMP step (chomp_step)")}
-    calls = steps + (not bool(res.flag))
-    if any(n != calls for n in chomp_ops.values()):
+    chomp_ops = [by_range.get(label, 0) for label in (
+        "CHOMP obstacle terms (chomp_obstacle)", "CHOMP step (chomp_step)")]
+    # chomp_obstacle runs between a graph's segments, in its range;
+    # chomp_step's graphed launches come from the graph, outside it
+    evals, graphed, rerun = _chomp_runs(res)
+    if chomp_ops != [evals, evals - graphed]:
         raise AssertionError(f"the CHOMP kernels' ranges hold {chomp_ops} "
-                             f"device operations, not one a step ({calls})")
+                             f"device operations, not {evals} and "
+                             f"{evals - graphed} ({graphed} of {evals} CHOMP "
+                             "evaluations graphed)")
+    launches = _plan_launches(scene, dev, by_count, evals, rerun)
 
     # the same scene's goal-set build, warm (the staging rebuilt)
     scene._staged = None
     with _ranges(BUILD_ATTRIBUTION):
-        _, wall_ms, n_ops, by_name, by_range = _profiled(
+        _, wall_ms, n_ops, by_name, by_range, _ = _profiled(
             scene.build_problem, dev, "goal-set build suite scene 1")
     busy_ms = sum(by_name.values()) / 1e3
     linked = sum(by_range.values())
@@ -2329,6 +2426,7 @@ def phase_profile(dev):
     if any(n != 1 for n in ik_ops.values()):
         raise AssertionError(f"the build's IK ranges hold {ik_ops} device "
                              "operations, not one each (the launch)")
+    return launches
 
 
 def phase_perception(dev) -> int:
@@ -3297,10 +3395,10 @@ def phase_scene_batches(dev):
     if rev_gap > 1e-5:
         raise AssertionError("scene batches: the reversed batch moves a "
                              "trajectory")
-    _, wall, n_ops, by_name, _ = _profiled(
+    _, wall, n_ops, by_name, _, _ = _profiled(
         lambda: batch_mod.plan_batch_vmap(model, cfg, stacked), dev,
         "plan_batch_vmap", cpu=False)
-    one, wall1, n_ops1, by_name1, _ = _profiled(
+    one, wall1, n_ops1, by_name1, _, _ = _profiled(
         lambda: plan_mod.plan_fast(model, cfg, problems[1]), dev,
         "plan_fast suite scene 1", cpu=False)
     busy, busy1 = (sum(b.values()) / 1e3 for b in (by_name, by_name1))
@@ -3557,9 +3655,9 @@ def main() -> int:
     plan_entries += timed("CHOMP kernels", phase_chomp_kernels, "cuda")
     timed("reference", phase_reference, "cuda")
     standard = timed("standard", phase_standard, "cuda")
+    device = timed("profile", phase_profile, "cuda")
     for e in plan_entries:
-        e["launches"] = standard[e["name"]]
-    timed("profile", phase_profile, "cuda")
+        e["launches"] = device.get(e["name"], standard[e["name"]])
     entry["launches"] = timed("perception", phase_perception, "cuda")
     timed("suite runner", phase_suite_runner, "cuda")
     timed("bench", phase_bench)

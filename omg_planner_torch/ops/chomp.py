@@ -189,14 +189,24 @@ def chomp_step(model, cfg: OMGConfig, hp: DeviceHorizon, xi, start, goal,
     check and the update (``omg/optimizer.py:88-135``), before the
     joint-limit projection; ``weights`` = (obstacle, smoothness, step
     size).  One ``chomp_step`` call.  Returns (trajectory, info)."""
+    new_xi, floats, flags = chomp_step_packed(model, cfg, hp, xi, start, goal,
+                                              tail, obs, weights, lower,
+                                              upper)
+    return new_xi, info_from(floats, flags)
+
+
+def chomp_step_packed(model, cfg: OMGConfig, hp: DeviceHorizon, xi, start,
+                      goal, tail, obs, weights, lower, upper):
+    """:func:`chomp_step` with the info as the kernel packs it: (trajectory,
+    floats [10 + T], flags [4]), of which :func:`info_from` makes the
+    :class:`CostInfo`."""
     pmat, mmat = _update_operators(hp, cfg)
-    new_xi, floats, flags = kernels.chomp_step(
+    return kernels.chomp_step(
         xi, start, goal, tail, *obs, *weights, lower, upper,
         hp.diff_matrices[0], hp.A, pmat, mmat, model_api.dof_tables(model),
         hp.time_interval, cfg.clip_grad_scale,
         float(cfg.allow_collision_point), cfg.terminate_smooth_loss,
         cfg.goal_set_proj, cfg.pre_terminate, cfg.consider_finger)
-    return new_xi, info_from(floats, flags)
 
 
 def goal_set_projection_update(hp: DeviceHorizon, cfg: OMGConfig, xi, grad,

@@ -75,12 +75,14 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 
 import torch
 from torch import Tensor
 
 from ..config import DIFF_RULE_LENGTH, DIFF_RULES
 from ..models import panda
+from ..utils import graphs
 from ..utils.diff import derivative
 from ..utils.linalg import solve_spd_unrolled, top_k
 from ..utils.pose import so3_log
@@ -806,7 +808,24 @@ def sdf_query(scene, inv_poses: Tensor, points: Tensor, epsilons: Tensor,
     ``AnalyticScene`` or a ``BakedSceneSDF``; ``inv_poses [O, 4, 4]``,
     the rest ``[O]``): the kernel for CUDA tensors (one launch), the plain
     version for CPU tensors; under ``torch.func.vmap`` one call for every
-    mapped row."""
+    mapped row.
+
+    Inside a CUDA-graph capture it runs out of the graph
+    (``utils/graphs.py::outside``), so that each launch is a call of this
+    function with arguments of its own: the benchmark's roofline reader
+    (``benchmark/probes.py``) counts a launch's work from its call, and on
+    a baked volume that work depends on where the points fall."""
+    args = (scene, inv_poses, points, epsilons, padding_scales, clearances,
+            disables)
+    if graphs.capturing():
+        return graphs.outside(_THIS, "sdf_query", _sdf_query, args,
+                              fresh=(2,))
+    return _sdf_query(*args)
+
+
+def _sdf_query(scene, inv_poses, points, epsilons, padding_scales,
+               clearances, disables):
+    """:func:`sdf_query`'s launch."""
     from .sdf import BakedSceneSDF
 
     rows = tuple(t[None] for t in (inv_poses, points, epsilons,
@@ -1718,10 +1737,14 @@ def chomp_obstacle(x: Tensor, origins: Tensor, axes: Tensor,
     launch, one block a row), the plain version for CPU tensors; under
     ``torch.func.vmap`` one call for every mapped row (the difference
     matrices and the tables shared).  Returns (obs_cost [..., T, L],
-    obs_grad [..., T, D], collide count [...])."""
-    return _chomp_obstacle_op(x, origins, axes, x_start, x_end, pot, grad,
-                              collide, dmats, tables, dt, k, consider_finger,
-                              soften, quirks)
+    obs_grad [..., T, D], collide count [...]).  Inside a CUDA-graph
+    capture it runs out of the graph, as :func:`sdf_query` does."""
+    args = (x, origins, axes, x_start, x_end, pot, grad, collide, dmats,
+            tables, dt, k, consider_finger, soften, quirks)
+    if graphs.capturing():
+        return graphs.outside(_THIS, "chomp_obstacle", _chomp_obstacle_op,
+                              args)
+    return _chomp_obstacle_op(*args)
 
 
 chomp_obstacle.launches = 0
@@ -1987,6 +2010,9 @@ def chomp_step(xi: Tensor, start: Tensor, goal: Tensor, tail: Tensor,
 
 
 chomp_step.launches = 0
+
+#: this module, the owner of the wrappers that run out of a CUDA graph
+_THIS = sys.modules[__name__]
 
 # every kernel wrapper of the package, for launch accounting
 KERNELS = {"min_dist_grid": min_dist_grid, "rigid_rollout": rigid_rollout,

@@ -180,10 +180,14 @@ def cost_vector_raw(model, scene, params: CostParams, cfg: OMGConfig,
                     start_idx=None):
     """Unnormalized masked candidate potentials [G] (invalid goals -> 0).
     ``start_idx`` (a 0-d tensor) gives the sweep's start row instead of
-    the host step count ``t`` (a scene batch's rows differ)."""
+    the host step count ``t`` (a scene batch's rows differ; a captured
+    sweep reads it from a buffer)."""
     if start_idx is None:
         start_idx = _start_index(cfg, t)
-    traj_start = traj[start_idx]
+        traj_start = traj[start_idx]
+    else:
+        # a gather: indexing with a 0-d tensor would read it on the host
+        traj_start = traj.index_select(0, start_idx.reshape(1))[0]
     goals = goal_set.grasps  # [G, D]
     g = goals.shape[0]
     if cfg.parity_density:
@@ -320,7 +324,7 @@ def update_goal(model, scene, params: CostParams, cfg: OMGConfig,
                 hp: DeviceHorizon, traj, goal_set: GoalSet,
                 state: LearnerState,
                 world_potential: WorldPotential | None = None,
-                cv_fn=None):
+                cv_fn=None, start_idx=None):
     """Advance the learner one step and pick the argmax goal (reference
     ``update_goal``, ``:237-249``).  With the active-lane restriction only
     the K active lanes are scored, except every ``learner_refresh_every``
@@ -331,7 +335,9 @@ def update_goal(model, scene, params: CostParams, cfg: OMGConfig,
     local sweep and an all-gather here).  A caller-supplied ``cv_fn`` is
     authoritative: it disables the active-lane restriction.  ``mask`` is
     the current goal validity (the in-plan blacklist narrows it); an
-    injected sweep applies it only at the finalize.
+    injected sweep applies it only at the finalize.  ``start_idx`` (a 0-d
+    tensor) gives the restricted sweep's start row in place of the one
+    the step count makes (a captured step reads it from a buffer).
 
     Returns (new_state, goal_idx 0-d int64 tensor)."""
     t = state.t + 1.0
@@ -354,7 +360,8 @@ def update_goal(model, scene, params: CostParams, cfg: OMGConfig,
             active = state.active_idx
             gs_small = GoalSet(*(take_rows(a, active) for a in goal_set))
             raw_small = cost_vector_raw(model, scene, params, cfg, hp, traj,
-                                        gs_small, t, world_potential)
+                                        gs_small, t, world_potential,
+                                        start_idx=start_idx)
             raw_full = state.last_raw.index_copy(0, active, raw_small)
         cv = finalize_cost_vector(cfg, raw_full, goal_set.mask)
         state = state._replace(last_raw=raw_full, active_idx=active)

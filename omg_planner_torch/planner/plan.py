@@ -10,11 +10,14 @@ The loop is a Python loop.  The step count, the learner cadence and the
 blacklist schedule are host integers; what depends on data is read on the
 host: the termination flag once per step, and the blacklist trigger on
 the steps where it is due.  The terminating step's update is rolled back
-(``omg/planner.py:627-636``).
+(``omg/planner.py:627-636``).  On a card, ``plan_fast`` replays its later
+steps' updates as CUDA graphs, captured once a plan
+(``_GraphedUpdates``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -24,7 +27,8 @@ from ..ops import chomp
 from ..ops import learner as ol
 from ..ops.chomp import CostInfo, CostParams, GoalSet
 from ..ops.sdf import WorldField, WorldPotential
-from ..utils import timing
+from ..utils import graphs, timing
+from ..utils.graphs import GRAPHS
 from ..utils.linalg import top_k
 from ..utils.spline import cubic_interpolate, linear_interpolate
 from ..utils.sync import host_bool, host_bools
@@ -81,10 +85,13 @@ def _where_tree(cond, a, b):
 
 
 def _chosen_goal(cfg: OMGConfig, goal_set: GoalSet, goal_idx):
-    """(termination goal [D], projection tail [k, D])."""
-    grasp = goal_set.grasps[goal_idx]
-    tail = goal_set.reach_grasps[goal_idx] if cfg.use_standoff \
-        else grasp[None]
+    """(termination goal [D], projection tail [k, D]), gathered on the
+    device (indexing with the 0-d ``goal_idx`` would read it on the
+    host)."""
+    idx = goal_idx.reshape(1)
+    grasp = goal_set.grasps.index_select(0, idx)[0]
+    tail = goal_set.reach_grasps.index_select(0, idx)[0] \
+        if cfg.use_standoff else grasp[None]
     return grasp, tail
 
 
@@ -108,6 +115,16 @@ def _chomp_update(model, cfg, hp, problem: PlanProblem, traj, goal_idx,
     the info's ``terminate`` false where the limits are violated (a pure
     tensor function, which ``torch.func.vmap`` batches).  FK, the query,
     then the ``chomp_obstacle`` and ``chomp_step`` kernels."""
+    return chomp.chomp_step(*_chomp_args(model, cfg, hp, problem, traj,
+                                         goal_idx, weights))
+
+
+def _chomp_args(model, cfg, hp, problem: PlanProblem, traj, goal_idx,
+                weights) -> tuple:
+    """The goal, its tail and the obstacle terms: the arguments of
+    ``chomp.chomp_step`` and of ``chomp.chomp_step_packed``, whose packed
+    info a captured update selects into the snapshot with two ``out=``
+    selects (:class:`_GraphedUpdates`)."""
     obstacle_w, smooth_w, _, step_size = weights
     if cfg.goal_set_proj:
         goal, tail = _chosen_goal(cfg, problem.goal_set, goal_idx)
@@ -117,9 +134,9 @@ def _chomp_update(model, cfg, hp, problem: PlanProblem, traj, goal_idx,
         model, problem.scene, problem.cost_params, cfg, hp, traj,
         problem.start, goal,
         world_field=problem.world_field if cfg.sdf_fused else None)
-    return chomp.chomp_step(model, cfg, hp, traj, problem.start, goal, tail,
-                            obs, (obstacle_w, smooth_w, step_size),
-                            problem.joint_lower, problem.joint_upper)
+    return (model, cfg, hp, traj, problem.start, goal, tail, obs,
+            (obstacle_w, smooth_w, step_size), problem.joint_lower,
+            problem.joint_upper)
 
 
 def _optimize_once(model, cfg, hp, problem: PlanProblem, traj, goal_idx,
@@ -145,8 +162,25 @@ def _learner_enabled(cfg: OMGConfig) -> bool:
     return cfg.goal_set_proj and cfg.ol_alg not in ("Baseline", "Proj")
 
 
+def _learner_due(cfg: OMGConfig, step: int) -> bool:
+    """Does the learner update on step ``step``?  (Host-side: the step
+    count and the sweep cadence only.)"""
+    due = _learner_enabled(cfg) and step < cfg.optim_steps
+    if cfg.learner_sweep_every > 1:
+        due = due and step % cfg.learner_sweep_every == 0
+    return due
+
+
 def _blacklist_enabled(cfg: OMGConfig) -> bool:
     return cfg.inplan_blacklist_step > 0 and _learner_enabled(cfg)
+
+
+def _learner_goals(cfg: OMGConfig, problem: PlanProblem, goal_mask):
+    """The goal set the learner scores: the in-plan blacklist narrows its
+    mask to ``goal_mask``."""
+    if _blacklist_enabled(cfg):
+        return problem.goal_set._replace(mask=goal_mask)
+    return problem.goal_set
 
 
 def _blacklist_due(cfg: OMGConfig, step: int) -> bool:
@@ -237,48 +271,82 @@ def _dummy_info(cfg: OMGConfig, device) -> CostInfo:
         violate_limit=f, cost_traj=torch.zeros(cfg.timesteps, device=device))
 
 
+class _Updates:
+    """The plan step's updates as :func:`_step` runs them, eagerly: the
+    learner's update, the CHOMP update, the executable-state snapshot and
+    the info of a terminating step.  :class:`_GraphedUpdates` runs them
+    from CUDA graphs."""
+
+    def __init__(self, model, cfg: OMGConfig, hp, problem: PlanProblem,
+                 cv_fn=None):
+        self.args = (model, cfg, hp, problem)
+        self.cv_fn = cv_fn
+
+    def learner(self, step: int, traj, goal_idx, goal_mask, lstate):
+        """The learner's update on step ``step``: (state, goal index)."""
+        model, cfg, hp, problem = self.args
+        return ol.update_goal(
+            model, problem.scene, problem.cost_params, cfg, hp, traj,
+            _learner_goals(cfg, problem, goal_mask), lstate,
+            problem.world_potential, cv_fn=self.cv_fn)
+
+    def chomp(self, step: int, rel: int, traj, goal_idx, ex):
+        """The CHOMP update on step ``step``, ``rel`` steps since the last
+        restart, the snapshot before it ``ex``: (the trajectory the plan
+        keeps if the step terminates, the updated trajectory, info)."""
+        model, cfg, hp, problem = self.args
+        return (traj,) + _optimize_once(model, cfg, hp, problem, traj,
+                                        goal_idx, rel)
+
+    def snapshot(self, kept, info, ex):
+        """The snapshot (trajectory, ok, info) after the update."""
+        ex_traj, ex_ok, ex_info = ex
+        snap = info.execute
+        ex_traj = torch.where(snap, kept, ex_traj)
+        ex_info = _where_tree(snap, info, ex_info)
+        return ex_traj, ex_ok | snap, ex_info
+
+    def last(self, rel: int, kept, goal_idx, info) -> CostInfo:
+        """The info a plan ends with when this step terminates."""
+        return info
+
+    def release(self):
+        """The plan's loop is over."""
+
+
 def _step(model, cfg, hp, problem: PlanProblem, carry: _Carry,
-          cv_fn=None) -> _Carry:
-    """One plan iteration (the body of the JAX package's loop).
+          cv_fn=None, updates: _Updates | None = None) -> _Carry:
+    """One plan iteration (the body of the JAX package's loop), its
+    updates run by ``updates`` (eagerly by default).
 
     The learner's gate (``step < optim_steps`` and the sweep cadence) is a
     host ``if`` on the step count, so every rank of a goal-sharded plan
     takes it alike and a ``cv_fn`` holding collectives may be skipped on
     the smoothing steps.  (JAX runs such a sweep unconditionally and masks
     its result, since SPMD forbids collectives inside ``lax.cond``.)"""
+    if updates is None:
+        updates = _Updates(model, cfg, hp, problem, cv_fn)
     with timing.span("plan.step"):
         traj, goal_idx, lstate = carry.traj, carry.goal_idx, carry.learner
-        use_bl = _blacklist_enabled(cfg)
-        if _learner_enabled(cfg):
-            do_learn = carry.step < cfg.optim_steps
-            if cfg.learner_sweep_every > 1:
-                do_learn = (do_learn
-                            and carry.step % cfg.learner_sweep_every == 0)
-            if do_learn:
-                with timing.span("plan.learner"):
-                    problem_l = (problem._replace(
-                        goal_set=problem.goal_set._replace(
-                            mask=carry.goal_mask)) if use_bl else problem)
-                    lstate, goal_idx = ol.update_goal(
-                        model, problem_l.scene, problem_l.cost_params, cfg,
-                        hp, traj, problem_l.goal_set, lstate,
-                        problem_l.world_potential, cv_fn=cv_fn)
+        rel = carry.step - carry.sched0
+        if _learner_due(cfg, carry.step):
+            with timing.span("plan.learner"):
+                lstate, goal_idx = updates.learner(
+                    carry.step, traj, goal_idx, carry.goal_mask, lstate)
+        ex = (carry.exec_traj, carry.exec_ok, carry.exec_info)
         with timing.span("plan.chomp"):
-            new_traj, info = _optimize_once(model, cfg, hp, problem, traj,
-                                            goal_idx,
-                                            carry.step - carry.sched0)
+            kept, new_traj, info = updates.chomp(carry.step, rel, traj,
+                                                 goal_idx, ex)
         with timing.span("plan.control"):
-            ex_traj, ex_ok = carry.exec_traj, carry.exec_ok
-            ex_info = carry.exec_info
             if cfg.exec_snapshot:
-                snap = info.execute
-                ex_traj = torch.where(snap, traj, ex_traj)
-                ex_info = _where_tree(snap, info, ex_info)
-                ex_ok = ex_ok | snap
+                ex = updates.snapshot(kept, info, ex)
             fired = carry.step > 0 and host_bool(info.terminate,
                                                  "plan.terminate")
+            if fired:
+                info = updates.last(rel, kept, goal_idx, info)
             goal_mask, sched0 = carry.goal_mask, carry.sched0
-            if use_bl and not fired and _blacklist_due(cfg, carry.step):
+            if (_blacklist_enabled(cfg) and not fired
+                    and _blacklist_due(cfg, carry.step)):
                 new_mask, fire = _inplan_blacklist(cfg, problem, goal_mask,
                                                    goal_idx, info)
                 if host_bool(fire, "plan.blacklist"):
@@ -287,10 +355,10 @@ def _step(model, cfg, hp, problem: PlanProblem, carry: _Carry,
                         cfg, problem, goal_mask, lstate)
                     sched0 = carry.step + 1
         return _Carry(
-            traj=traj if fired else new_traj, goal_idx=goal_idx,
+            traj=kept if fired else new_traj, goal_idx=goal_idx,
             learner=lstate, step=carry.step + 1, done=fired, last_info=info,
             goal_mask=goal_mask, sched0=sched0,
-            exec_traj=ex_traj, exec_ok=ex_ok, exec_info=ex_info)
+            exec_traj=ex[0], exec_ok=ex[1], exec_info=ex[2])
 
 
 def _init_carry(model, cfg, hp, problem: PlanProblem, cv_fn=None) -> _Carry:
@@ -354,14 +422,24 @@ def plan(model, cfg: OMGConfig, problem: PlanProblem,
 
 
 def plan_fast(model, cfg: OMGConfig, problem: PlanProblem,
-              cv_fn=None) -> PlanResult:
+              cv_fn=None, _graphs: bool = True) -> PlanResult:
     """History-free plan: early termination ends the loop (the benchmark
-    path).  ``cv_fn`` as in :func:`plan`."""
+    path).  ``cv_fn`` as in :func:`plan`.  On a card, without ``cv_fn``,
+    the later steps replay CUDA graphs (:class:`_GraphedUpdates`; the same
+    plan, bit for bit); ``_graphs=False`` keeps the eager loop there."""
     with timing.span("plan"):
         hp = cfg.horizon().on(problem.start.device)
         carry = _init_carry(model, cfg, hp, problem, cv_fn)
-        while not carry.done and carry.step < cfg.total_steps:
-            carry = _step(model, cfg, hp, problem, carry, cv_fn)
+        if _graphs and cv_fn is None and problem.start.device.type == "cuda":
+            updates = _GraphedUpdates(model, cfg, hp, problem)
+        else:
+            updates = _Updates(model, cfg, hp, problem, cv_fn)
+        try:
+            while not carry.done and carry.step < cfg.total_steps:
+                carry = _step(model, cfg, hp, problem, carry,
+                              updates=updates)
+        finally:
+            updates.release()
         traj_out, info = _finish(model, cfg, hp, problem, carry)
         return PlanResult(
             traj=traj_out, goal_idx=carry.goal_idx, info=info,
@@ -369,6 +447,201 @@ def plan_fast(model, cfg: OMGConfig, problem: PlanProblem,
             selected_goals=carry.goal_idx[None],
             steps_used=torch.tensor(carry.step, device=problem.start.device),
             flag=info.terminate, goal_mask=carry.goal_mask)
+
+
+# -- plan_fast on the card: CUDA graphs of the updates ----------------------
+
+_LEARNER_TENSORS = tuple(f for f in ol.LearnerState._fields if f != "t")
+
+
+@functools.lru_cache(maxsize=8)
+def _plan_tables(cfg: OMGConfig, device: str):
+    """A graphed plan's per-step constants on ``device``, made once per
+    configuration by the eager loop's host arithmetic: the cost schedule
+    ``[total_steps, 4]``, row ``r`` that of ``schedule_weights(cfg, r +
+    1)`` (``r`` counts the steps since the last restart), and the learner
+    sweep's start rows ``[optim_steps + 1]``, entry ``t`` that of
+    ``ol._start_index(cfg, t)``."""
+    weights = torch.stack([torch.stack(schedule_weights(cfg, r + 1))
+                           for r in range(cfg.total_steps)])
+    starts = torch.tensor([ol._start_index(cfg, float(t))
+                           for t in range(cfg.optim_steps + 1)])
+    return weights.to(device), starts.to(device)
+
+
+#: A graphed plan's first steps run eagerly: a plan that ends at step 1
+#: (about half of the suite's) pays no capture, which costs more host
+#: time than an eager step.
+_EAGER_STEPS = 2
+
+
+def _update_kind(cfg: OMGConfig, piece: str, restricted: bool, step: int,
+                 t: float, captured) -> str:
+    """How a graphed plan runs ``piece``'s (``chomp``, ``learner``) update
+    on step ``step``, from host counts alone: ``eager`` (the first
+    :data:`_EAGER_STEPS` steps; an unrestricted sweep), ``refresh`` (the
+    learner's full re-ranking sweep, eager), ``capture`` (the piece's
+    first graphed update, when ``captured`` lacks it) or ``replay``.
+    ``t`` is the learner's count of updates before this one since the
+    start or the last blacklist restart (``LearnerState.t``).  A graphed
+    CHOMP update that terminates the plan is run again eagerly
+    (:meth:`_GraphedUpdates.last`)."""
+    if step < _EAGER_STEPS or (piece == "learner" and not restricted):
+        return "eager"
+    every = cfg.learner_refresh_every
+    if piece == "learner" and every and (t + 1.0) % every == 0:
+        return "refresh"
+    return "replay" if piece in captured else "capture"
+
+
+class _GraphedUpdates(_Updates):
+    """:func:`plan_fast`'s updates on a card.  After the first
+    :data:`_EAGER_STEPS` steps the CHOMP update (the goal gathers, FK, the
+    query, ``chomp_obstacle``, ``chomp_step``, ``joint_limit`` and the
+    snapshot's selects) and the restricted learner update are each
+    captured once a plan as a CUDA graph on the plan's own tensors, then
+    replayed; the query's and ``chomp_obstacle``'s launches run between a
+    graph's segments (``utils/graphs.py::outside``).  A graph reads and
+    writes fixed buffers: the trajectory and the one before the update,
+    the goal index and mask, the learner state, the snapshot, the step's
+    weights and the sweep's start row (these two refreshed from the plan's
+    tables).  An input that is not its buffer (after an eager update or a
+    blacklist restart) is copied into it first.  A graphed update returns
+    the buffers, which the next replay overwrites, and its info lives in
+    the graph's pool: a terminating graphed step's info comes from an
+    eager re-run, and nothing the plan returns lives in the pool."""
+
+    def __init__(self, model, cfg: OMGConfig, hp, problem: PlanProblem):
+        super().__init__(model, cfg, hp, problem)
+        self.device = problem.start.device
+        self.restricted = ol.sweep_restricted(cfg, problem.goal_set.capacity)
+        self.w_rows, self.start_rows = _plan_tables(cfg, str(self.device))
+        self.bufs = {}
+        self.graphs = {}     # piece -> (graphs.Graph, its outputs)
+        self.ex_info = None  # the snapshot's info: views of its buffers
+        self.replayed = False  # the last CHOMP update ran from its graph
+
+    def _stage(self, **values) -> dict:
+        """The fixed buffers, each of ``values`` copied into its own (made
+        on first use)."""
+        for name, value in values.items():
+            buf = self.bufs.get(name)
+            if buf is None:
+                self.bufs[name] = value.clone()
+            elif buf is not value:
+                buf.copy_(value)
+        return self.bufs
+
+    def _run(self, piece: str, body):
+        """``body``'s graph for ``piece``, captured (and so run) on first
+        use, replayed after; returns its outputs."""
+        entry = self.graphs.get(piece)
+        if entry is None:
+            with timing.span("plan.graph.capture"):
+                entry = self.graphs[piece] = graphs.capture(body,
+                                                            self.device)
+            GRAPHS.add(piece, "capture")
+        else:
+            with timing.span("plan.graph.replay"):
+                entry[0].replay()
+            GRAPHS.add(piece, "replay")
+        return entry[1]
+
+    def learner(self, step: int, traj, goal_idx, goal_mask, lstate):
+        model, cfg, hp, problem = self.args
+        if _update_kind(cfg, "learner", self.restricted, step, lstate.t,
+                        self.graphs) in ("eager", "refresh"):
+            GRAPHS.add("learner", "eager")
+            return super().learner(step, traj, goal_idx, goal_mask, lstate)
+        t = lstate.t + 1.0
+        b = self._stage(traj=traj, goal=goal_idx, mask=goal_mask,
+                        start=self.start_rows[int(t)], **{
+                            "l_" + f: getattr(lstate, f)
+                            for f in _LEARNER_TENSORS})
+        state = lstate._replace(t=t, **{f: b["l_" + f]
+                                        for f in _LEARNER_TENSORS})
+
+        def body():
+            new, goal = ol.update_goal(
+                model, problem.scene, problem.cost_params, cfg, hp,
+                b["traj"], _learner_goals(cfg, problem, b["mask"]),
+                state._replace(t=t - 1.0), problem.world_potential,
+                start_idx=b["start"])
+            for f in _LEARNER_TENSORS:
+                if getattr(new, f) is not getattr(state, f):
+                    getattr(state, f).copy_(getattr(new, f))
+            b["goal"].copy_(goal)
+            return ()
+
+        self._run("learner", body)
+        return state, b["goal"]
+
+    def _stage_snapshot(self, ex):
+        ex_traj, ex_ok, ex_info = ex
+        self._stage(ex_traj=ex_traj, ex_ok=ex_ok)
+        if self.ex_info is None:
+            self.bufs["ex_floats"] = ex_traj.new_empty(
+                len(chomp.kernels.INFO_SCALARS) + ex_traj.shape[0])
+            self.bufs["ex_flags"] = ex_ok.new_empty(4)
+            self.ex_info = chomp.info_from(self.bufs["ex_floats"],
+                                           self.bufs["ex_flags"])
+        moved = [(b, v) for b, v in zip(self.ex_info, ex_info) if b is not v]
+        if moved:
+            torch._foreach_copy_(*map(list, zip(*moved)))
+
+    def chomp(self, step: int, rel: int, traj, goal_idx, ex):
+        model, cfg, hp, problem = self.args
+        self.replayed = _update_kind(cfg, "chomp", self.restricted, step,
+                                     0.0, self.graphs) != "eager"
+        if not self.replayed:
+            GRAPHS.add("chomp", "eager")
+            return super().chomp(step, rel, traj, goal_idx, ex)
+        b = self._stage(traj=traj, goal=goal_idx, weights=self.w_rows[rel])
+        if "prev" not in b:
+            b["prev"] = torch.empty_like(traj)
+        snapshot = cfg.exec_snapshot
+        if snapshot:
+            self._stage_snapshot(ex)
+
+        def body():
+            new, floats, flags = chomp.chomp_step_packed(*_chomp_args(
+                model, cfg, hp, problem, b["traj"], b["goal"],
+                b["weights"].unbind()))
+            new = chomp.handle_joint_limit(hp, cfg, new, problem.joint_lower,
+                                           problem.joint_upper)
+            if snapshot:
+                snap = chomp.info_from(floats, flags).execute
+                for name, value in (("ex_traj", b["traj"]),
+                                    ("ex_floats", floats),
+                                    ("ex_flags", flags)):
+                    torch.where(snap, value, b[name], out=b[name])
+                torch.logical_or(b["ex_ok"], snap, out=b["ex_ok"])
+            b["prev"].copy_(b["traj"])
+            b["traj"].copy_(new)
+            return chomp.info_from(floats, flags)
+
+        return b["prev"], b["traj"], self._run("chomp", body)
+
+    def snapshot(self, kept, info, ex):
+        if not self.replayed:
+            return super().snapshot(kept, info, ex)
+        return self.bufs["ex_traj"], self.bufs["ex_ok"], self.ex_info
+
+    def last(self, rel: int, kept, goal_idx, info) -> CostInfo:
+        """A graphed step's ``_chomp_update`` again, eagerly, on tensors of
+        its own (bit-equal to the replay's): the plan's last evaluation, as
+        the eager loop makes it."""
+        if not self.replayed:
+            return info
+        model, cfg, hp, problem = self.args
+        GRAPHS.add("chomp", "eager")
+        with timing.span("plan.chomp"):
+            return _chomp_update(model, cfg, hp, problem, kept.clone(),
+                                 goal_idx.clone(),
+                                 schedule_weights(cfg, rel + 1))[1]
+
+    def release(self):
+        graphs.retain([g for g, _ in self.graphs.values()], self.device)
 
 
 def _where_rows(cond, a, b):
@@ -425,21 +698,15 @@ def plan_fast_batch(model, cfg: OMGConfig,
 
     step = 0
     while any(live_host) and step < cfg.total_steps:
-        if _learner_enabled(cfg):
-            do_learn = step < cfg.optim_steps
-            if cfg.learner_sweep_every > 1:
-                do_learn = do_learn and step % cfg.learner_sweep_every == 0
-            if do_learn:
-                gset = (problems.goal_set._replace(mask=goal_mask) if use_bl
-                        else problems.goal_set)
-                l_new, g_new, t_new = ol.update_goal_batch(
-                    model, problems.scene, problems.cost_params, cfg, hp,
-                    traj, gset, lstate, t_host, live,
-                    problems.world_potential)
-                lstate = _where_rows(live, l_new, lstate)
-                goal_idx = torch.where(live, g_new, goal_idx)
-                t_host = [a if lv else b
-                          for a, b, lv in zip(t_new, t_host, live_host)]
+        if _learner_due(cfg, step):
+            l_new, g_new, t_new = ol.update_goal_batch(
+                model, problems.scene, problems.cost_params, cfg, hp, traj,
+                _learner_goals(cfg, problems, goal_mask), lstate, t_host,
+                live, problems.world_potential)
+            lstate = _where_rows(live, l_new, lstate)
+            goal_idx = torch.where(live, g_new, goal_idx)
+            t_host = [a if lv else b
+                      for a, b, lv in zip(t_new, t_host, live_host)]
         w = weights(torch.full_like(steps, step), sched0)
         new_traj, info = vmap_scenes(
             lambda pr, tr, gi, wt: _chomp_update(model, cfg, hp, pr, tr, gi,
