@@ -2,7 +2,8 @@
 over the device alone (a trace that also holds the host's operations is
 slow to read in Python), the union of the device's operations as its busy
 time, the idle gaps named by the benchmark's host span that was open, and
-the time of each hand kernel."""
+the time of each hand kernel (``KERNELS``, and those whose operations a
+configuration's kernel modules name)."""
 
 from __future__ import annotations
 
@@ -22,15 +23,17 @@ KERNELS = {"chomp_obstacle": ("chomp_obstacle_kernel",),
 
 
 class DeviceTrace:
-    def __init__(self, ops, window_s, gap_names):
+    def __init__(self, ops, window_s, gap_names, kernels=None):
         self.ops = ops                  # (name, start_s, end_s), host clock
         self.window_s = window_s
         self.busy_s = stats.union_length([(s, e) for _, s, e in ops])
         self.gap_names = gap_names      # {label: idle seconds}
+        # kernel -> substrings of its device operations' names
+        self.kernels = {**KERNELS, **(kernels or {})}
 
     def kernel_seconds(self, kernel: str) -> tuple:
         """(launches, seconds) of a hand kernel's device operations."""
-        names = KERNELS[kernel]
+        names = self.kernels[kernel]
         hits = [e - s for n, s, e in self.ops if any(k in n for k in names)]
         return len(hits), sum(hits)
 
@@ -83,7 +86,9 @@ class DeviceProfile:
         self.prof.__exit__(None, None, None)
         self.running = False
 
-    def read(self, spans) -> DeviceTrace:
+    def read(self, spans, kernels=None) -> DeviceTrace:
+        """The trace; ``kernels`` adds kernels' operation names
+        (``DeviceTrace``)."""
         from torch.autograd import DeviceType
 
         evs = [e for e in self.prof.events()
@@ -112,4 +117,4 @@ class DeviceProfile:
             if best is not None:
                 label = SPAN_LABELS.get(best[1], best[1])
             names[label] = names.get(label, 0.0) + (g1 - g0)
-        return DeviceTrace(ops, window, names)
+        return DeviceTrace(ops, window, names, kernels)

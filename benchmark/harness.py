@@ -12,6 +12,44 @@ reference, and the longest plan too) and ``trace_requests`` (the
 requests a traced run profiles on the device, from the window's start);
 ``metrics/<metric>.py`` (each a ``read(run)`` that returns the number or
 None); and the limits of the comparison in ``limits/<cell>.json``.
+
+A new configuration is new files only:
+
+* ``configs/<config>.json``: ``omg_config`` (the ``OMGConfig`` fields it
+  sets), ``published`` (the source's sizes, checked at set-up),
+  ``assumed``, and optionally ``reference`` and ``kernels`` (below);
+* ``reference/<reference>.py``, the comparison that decides ``correct``;
+  a file that names none gets ``reference/primitives.py``, the
+  primitive-obstacle comparison of ``check.py``;
+* ``kernels/<kernel>.py`` for each name in ``kernels``, a hand kernel of
+  the program (``omg_planner_torch.ops.kernels.<kernel>``) whose launches
+  a traced run counts for its roofline: ``OPS``, substrings of the
+  kernel's device-operation names, and ``work(args, kwargs)``, a launch's
+  ``(flops, bytes)`` counted from its arguments, or a callable that gives
+  them after the window where the count reads the device
+  (``chomp_obstacle`` and ``sdf_query`` are counted by ``probes.py``
+  itself and may not be named);
+* its cells' traffic (and generator, where no existing one fits), limits
+  and metric readers, as above; a kernel's roofline reader reads
+  ``run.kernel_work[<kernel>]`` and ``run.trace.kernel_seconds(<kernel>)``
+  as ``metrics/kernel_roofline_pct.sdf_query.py`` does.
+
+A reference module gives:
+
+* ``CHECKS``: the names of its readings; ``limits/<cell>.json`` names
+  exactly these and ``unanswered`` (the harness's own reading: requests
+  not answered 200), or the run is refused at set-up;
+* ``check_request(rec, conf, cfg, out)``: holds one sampled plan to the
+  reference; ``rec`` is ``probes.plan_record``'s host copy of it (the
+  request body, the goal set, the first and last CHOMP steps' inputs and
+  outputs, the answer), ``conf`` the configuration file's contents,
+  ``cfg`` the ``OMGConfig`` the program ran with, and ``out`` a
+  ``check.Readings`` shared by the run's sample, where it raises each
+  reading to the worst seen (``out.worst(name, value)``; entries that are
+  not numbers are notes, logged and not compared);
+* ``check_control(rec, conf, cfg)``: the control's readings on the same
+  plan (the reference at a lower precision in the program's place), a
+  new ``Readings``.
 """
 
 from __future__ import annotations
@@ -56,14 +94,44 @@ def config_of(bench: dict, name: str) -> dict:
     raise KeyError(f"no config {name!r} in BENCHMARK.json")
 
 
-def _module(folder: str, name: str):
-    """``<folder>/<name>.py`` under ``benchmark/``, loaded by its path."""
-    path = os.path.join(HERE, folder, f"{name}.py")
+def folder(kind: str) -> str:
+    """``benchmark/<kind>/``, where the files of one kind are found by
+    name."""
+    return os.path.join(HERE, kind)
+
+
+def _module(kind: str, name: str, module: str | None = None):
+    """``<kind>/<name>.py``, loaded by its path, under the module name
+    ``module`` where given."""
+    path = os.path.join(folder(kind), f"{name}.py")
     spec = importlib.util.spec_from_file_location(
-        f"bench_{folder}_{name.replace('.', '_')}", path)
+        module or f"bench_{kind}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def reference_of(conf: dict):
+    """The reference module that the configuration names; a module of the
+    ``reference`` package, so that it may import ``plain`` and ``check``
+    from it."""
+    name = conf.get("reference", "primitives")
+    return _module("reference", name, f"reference.{name}")
+
+
+def compared(ref) -> tuple:
+    """The readings a run compares: the reference's and ``unanswered``."""
+    return tuple(ref.CHECKS) + ("unanswered",)
+
+
+def kernels_of(conf: dict) -> dict:
+    """The work modules of the hand kernels the configuration names."""
+    names = conf.get("kernels", [])
+    own = sorted(set(names) & set(probes.COUNTED))
+    if own:
+        raise RuntimeError(f"kernels {own} are counted by probes.py itself; "
+                           f"a configuration may not name them")
+    return {k: _module("kernels", k) for k in names}
 
 
 def reader(metric: str):
@@ -73,7 +141,7 @@ def reader(metric: str):
 
 def traffic(name: str) -> dict:
     """The parameters of ``traffic/<name>.json``."""
-    with open(os.path.join(HERE, "traffic", f"{name}.json")) as f:
+    with open(os.path.join(folder("traffic"), f"{name}.json")) as f:
         return json.load(f)
 
 
@@ -91,8 +159,20 @@ def metrics_for(bench: dict, cell: str, trace: bool) -> list:
 
 def limits(cell: str) -> dict:
     """The cell's limits of the comparison (``limits/<cell>.json``)."""
-    with open(os.path.join(HERE, "limits", f"{cell}.json")) as f:
+    with open(os.path.join(folder("limits"), f"{cell}.json")) as f:
         return json.load(f)
+
+
+def limits_of(cell: str, ref) -> dict:
+    """The cell's limits, refused unless they name exactly the readings
+    that the run compares."""
+    lim = limits(cell)["limits"]
+    want = compared(ref)
+    if set(lim) != set(want):
+        raise RuntimeError(
+            f"limits/{cell}.json names {sorted(lim)}; {ref.__name__} and "
+            f"the harness compare {sorted(want)}")
+    return lim
 
 
 def card_power_limit() -> str:
@@ -131,6 +211,10 @@ class Run:
         return sum(t1 - t0 for n, t0, t1 in self.spans if n == name)
 
 
+def _number(v) -> bool:
+    return isinstance(v, (int, float))
+
+
 def _sampled(seed: int, index: int, every: int) -> bool:
     """Is answered plan ``index`` in the sample drawn from ``seed``."""
     rng = np.random.default_rng([seed, index])
@@ -145,8 +229,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     ``checks``).  ``device`` is ``cuda`` unless given; ``faults`` is a
     callable that breaks the program after set-up (the tests' planted
     faults).  ``control`` adds ``control``: the control's readings on the
-    same plans (the reference in float32 with TF32 products in the
-    program's place).  ``started`` is the process's start on
+    same plans (the reference module's ``check_control``).  The
+    configuration's reference, the cell's limits and the counted kernels
+    are found, and refused where they do not fit, before anything runs.
+    ``started`` is the process's start on
     ``time.perf_counter``'s clock, where set-up is counted from."""
     t_setup = time.perf_counter() if started is None else started
     import torch
@@ -154,6 +240,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     bench = bench or load_benchmark()
     cell = cell_of(bench, workload)
     conf = config_of(bench, cell["config"])
+    ref = reference_of(conf)
+    lim = limits_of(workload, ref)
+    counted = kernels_of(conf)
     mix = traffic(cell["traffic"])
     gen = generator(mix)
     run = Run(cell, mix, bench)
@@ -171,7 +260,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                                f"{getattr(base_cfg, key)}, not {val}")
     handler = getattr(serve, gen.HANDLER)
     bodies = gen.plans(mix)
-    pr = probes.Probes(spans=trace, cuda=cuda)
+    pr = probes.Probes(spans=trace, cuda=cuda, kernels=counted)
     pr.install()
     try:
         for body in gen.warmup(mix, bodies):
@@ -193,7 +282,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             faults()
         run.setup_s = time.perf_counter() - t_setup
         result = _window(run, pr, gen, handler, base_cfg, dev, bodies,
-                         seed, seconds, trace, log, SYNCS, control)
+                         seed, seconds, trace, log, SYNCS, control,
+                         (ref, conf, lim))
     finally:
         pr.uninstall()
     return result
@@ -268,7 +358,7 @@ class Client:
 
 
 def _window(run, pr, gen, handler, base_cfg, dev, bodies, seed, seconds,
-            trace, log, syncs, control=False):
+            trace, log, syncs, control, comparison):
     import torch
 
     cuda = dev.type == "cuda"
@@ -294,17 +384,19 @@ def _window(run, pr, gen, handler, base_cfg, dev, bodies, seed, seconds,
         raise SystemExit(f"modules of JAX or the JAX package loaded: "
                          f"{forbidden}")
     if prof is not None:
-        run.trace = prof.read(pr.spans)
+        run.trace = prof.read(pr.spans, {k: tuple(m.OPS) for k, m in
+                                         pr.kernels.items()})
         run.kernel_work = {"chomp_obstacle": pr.launches["chomp_obstacle"],
-                           "sdf_query": pr.sdf_launch_work()}
+                           "sdf_query": pr.sdf_launch_work(),
+                           **pr.named_launch_work()}
     if longest[1] is not None:
         keep.add(longest[1])
 
     # the comparison with the reference, after the window
-    from reference import check
-    analytic = bool(base_cfg.sdf_analytic)
-    readings = check.Readings()
-    ctl = check.Readings()
+    from reference.check import Readings
+    ref, conf, lim = comparison
+    readings = Readings()
+    ctl = Readings()
     t_ref = time.perf_counter()
     n_checked = 0
     with torch.device(dev):
@@ -312,20 +404,20 @@ def _window(run, pr, gen, handler, base_cfg, dev, bodies, seed, seconds,
             if cap not in keep:
                 continue
             rec = probes.plan_record(pr.plans[cap], body, ans)
-            check.check_request(rec, analytic, out=readings)
+            ref.check_request(rec, conf, base_cfg, readings)
             if control:
-                for k, v in check.check_control(rec, analytic).items():
-                    if k != "goal_notes":
+                for k, v in ref.check_control(rec, conf, base_cfg).items():
+                    if _number(v):
                         ctl.worst(k, v)
             n_checked += 1
     readings.worst("unanswered", sum(not r["ok"] for r in run.requests))
+    notes = {k: v for k, v in readings.items() if not _number(v)}
     log(f"reference: {n_checked} plans checked in "
-        f"{time.perf_counter() - t_ref:.1f} s; goal-set findings "
-        f"{readings.get('goal_notes', [])}", file=sys.stderr)
-    lim = limits(run.cell["name"])
+        f"{time.perf_counter() - t_ref:.1f} s; notes {notes}",
+        file=sys.stderr)
     checks = {}
     correct = n_checked > 0
-    for name, limit in lim["limits"].items():
+    for name, limit in lim.items():
         value = float(readings.get(name, 0.0))
         checks[name] = {"value": value, "limit": limit}
         correct = correct and value <= limit

@@ -19,7 +19,10 @@ With spans on (traced runs only), each of these closes on
 * ``plan``: ``planner/plan.py::plan_fast``;
 
 and while the device is being profiled, each ``chomp_obstacle`` and
-``sdf_query`` launch's work is counted from its arguments.
+``sdf_query`` launch's work is counted from its arguments, and so is each
+launch of the hand kernels that the configuration names (``kernels``:
+each wrapped in a traced run only, its work counted by its module's
+``work(args, kwargs)``).
 """
 
 from __future__ import annotations
@@ -32,16 +35,20 @@ import torch
 
 import work
 
+# the kernels whose launches these probes count in their own wrappers
+COUNTED = ("chomp_obstacle", "sdf_query")
+
 
 class Probes:
-    def __init__(self, spans: bool, cuda: bool = True):
+    def __init__(self, spans: bool, cuda: bool = True, kernels=None):
         self.spans_on = spans
         self._sync = torch.cuda.synchronize if cuda else (lambda: None)
         self.spans = []            # (name, t0, t1)
         self.plans = []            # finished plans' captures, in order
         self._current = None
         self._pending = None
-        self.launches = {"chomp_obstacle": [], "sdf_query": []}
+        self.kernels = kernels or {}   # name -> its work module
+        self.launches = {k: [] for k in COUNTED + tuple(self.kernels)}
         self.counting = False
         self._nz = {}
         self._saved = []
@@ -139,6 +146,8 @@ class Probes:
                     (scene.Env, "stage_scene", "scene_stage"),
                     (scene.PlanningScene, "build_problem", "goal_set")):
                 self._wrap(owner, name, self._spanned(label))
+            for name, mod in self.kernels.items():
+                self._wrap(kernels, name, self._counted(name, mod.work))
 
     def uninstall(self):
         for owner, name, orig in reversed(self._saved):
@@ -166,6 +175,15 @@ class Probes:
             return wrapped
         return make
 
+    def _counted(self, name, work):
+        def make(orig):
+            def wrapped(*args, **kwargs):
+                if self.counting:
+                    self.launches[name].append(work(args, kwargs))
+                return orig(*args, **kwargs)
+            return wrapped
+        return make
+
     # -- the captures as the reference takes them --------------------------
     def drop(self, index: int):
         """Release the captures of plan ``index`` (not in the sample)."""
@@ -184,6 +202,14 @@ class Probes:
                 rows.kinds = sc.kinds[None]
             out.append(work.sdf_work(rows, inv[None], pts[None], dis[None]))
         return out
+
+
+    def named_launch_work(self) -> dict:
+        """(flops, bytes) of each counted launch of the named kernels, by
+        kernel; a count that ``work`` deferred (a callable) is read here,
+        after the window."""
+        return {k: [w() if callable(w) else w for w in self.launches[k]]
+                for k in self.kernels}
 
 
 def step_record(step: dict) -> dict:

@@ -24,7 +24,7 @@ def test_reference_sources_import_nothing_forbidden():
 
 def test_reference_loads_no_program_module():
     code = ("import sys; sys.path.insert(0, %r); "
-            "from reference import check, plain; "
+            "from reference import check, plain, primitives; "
             "import guard; "
             "print(guard.loaded_forbidden(forbidden=guard.FORBIDDEN "
             "+ (guard.PROGRAM,)))" % HERE)

@@ -71,16 +71,25 @@ def test_moves_name_end_to_end_metrics_of_the_cells():
 
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_limits_cover_every_check(cell):
+    conf = harness.config_of(BENCH, harness.cell_of(BENCH, cell)["config"])
     lim = harness.limits(cell)["limits"]
-    assert set(lim) == {
+    assert set(lim) == set(harness.compared(harness.reference_of(conf)))
+    # the configuration's own IK acceptance, and the exact comparisons
+    if "goal_pose_err" in lim:
+        assert lim["goal_pose_err"] == 1.0
+    for k in ("collide_excess", "goal_invalid", "flag_flips", "unanswered"):
+        if k in lim:
+            assert lim[k] == 0
+
+
+def test_configuration_without_a_reference_compares_the_primitives():
+    ref = harness.reference_of({})
+    assert ref.__name__ == "reference.primitives"
+    assert set(harness.compared(ref)) == {
         "fk_gap_m", "sdf_pot_gap", "sdf_grad_gap", "collide_excess",
         "obstacle_gap", "step_gap", "goal_pose_err",
         "goal_pot_gap", "goal_invalid", "final_gap", "flag_flips",
         "unanswered"}
-    # the configuration's own IK acceptance, and the exact comparisons
-    assert lim["goal_pose_err"] == 1.0
-    for k in ("collide_excess", "goal_invalid", "flag_flips", "unanswered"):
-        assert lim[k] == 0
 
 
 FRESH = harness.traffic("fresh")
