@@ -45,13 +45,15 @@ def _load_scene(cfg, name: str, n_obstacles: int, traj_init: str = "grasp",
                                    n_obstacles=n_obstacles, device=device)
 
 
-def observe_obstacles(full, max_points: int = 3072) -> np.ndarray:
+def observe_obstacles(full, max_points: int = 3072, **camera) -> np.ndarray:
     """The perception cloud of a scene: the point-splat camera's partial
-    view, split by segmentation into target vs obstacles, obstacles kept
+    view (``camera``: ``render_point_observation``'s size and ``densify``),
+    split by segmentation into target vs obstacles, obstacles kept
     (subsampled to ``max_points`` with a fixed seed)."""
     from .viz.camera import render_point_observation
 
-    pts, labels, _depth, _seg = render_point_observation(full.env.objects)
+    pts, labels, _depth, _seg = render_point_observation(full.env.objects,
+                                                         **camera)
     nontarget = pts[labels != full.env.target_idx].astype(np.float32)
     if len(nontarget) > max_points:
         nontarget = nontarget[

@@ -31,6 +31,23 @@ plans anyway); response keys and status codes are the JAX service's:
   the fresh path as on the warm one.  The result comes back through the
   runner's flat pack: one copy into pinned host memory behind one CUDA
   event, not one read per field.
+* ``POST /plan_cloud`` -> body::
+
+      {"points": [[x, y, z], ...],  (the observed obstacle cloud, world)
+       "grasps": [[16 floats], ...]  (world panda_hand poses, row-major
+                                      4x4; or [K, 4, 4])
+       "start": [9 floats]          (optional)
+       "cfg": {field: value, ...}}  (optional)
+
+  plans from an observed cloud, as the reference's perception mode
+  (``omg/core.py:826-867``, ``python -m omg_planner_torch -p``): a
+  ``PointEnv`` with the cloud's 0.02 m distance grid (0.24 m margin) and
+  the grasps as external grasps, through ``/plan``'s core, cache and
+  harvest (external grasps take the general path: ``build_problem``, then
+  ``plan_fast``).  ``/plan``'s response, and its 400 / 422 / 500 rules:
+  400 also for points that are not [N, 3] or grasps that are not [K, 16]
+  or [K, 4, 4].  The cache keys a cloud by a digest of its points' and
+  grasps' float32 bytes.
 * ``POST /plan_batch`` -> ``{"scenes": [<plan body>, ...],
   "pipeline_depth": int}`` through the pipelined runner
   (``planner/runner.py::plan_pipelined``).
@@ -45,14 +62,17 @@ plans anyway); response keys and status codes are the JAX service's:
   ``execution.exec_attempts``.
 
 Each handler's work is a ``request`` span of ``utils/timing.py`` (on while
-tracing is), with the scene build (``scene_build``), the goal-set build and
-the plan loop (in ``planner/``) and the harvest inside it.
+tracing is), with the scene build (``scene_build``; for a cloud its
+``scene_build.cloud``: the body's arrays, the distance grid and its read
+back, the ``PointEnv``), the goal-set build and the plan loop (in
+``planner/``) and the harvest inside it.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
@@ -65,7 +85,7 @@ from ..config import OMGConfig
 from ..io.assets import make_primitive
 from ..planner.plan import plan_fast
 from ..planner.runner import PackedResult, plan_pipelined
-from ..planner.scene import PlanningScene
+from ..planner.scene import PlanningScene, PointEnv
 from ..utils import timing
 
 def _build_scene(cfg: OMGConfig, spec: dict, device) -> PlanningScene:
@@ -102,16 +122,77 @@ _SCENE_CACHE: dict = {}
 _SCENE_CACHE_CAP = 32
 
 
-def _cached_scene(cfg: OMGConfig, body: dict, device) -> PlanningScene:
-    key = (json.dumps(body.get("objects"), sort_keys=True),
-           tuple(body.get("start", ())), cfg.jit_key(), str(device))
+def _cached(key, build) -> PlanningScene:
+    """The scene cached under ``key``, or ``build()``'s, kept (the oldest
+    entry dropped past the cap)."""
     scene = _SCENE_CACHE.get(key)
     if scene is None:
-        scene = _build_scene(cfg, body, device)
+        scene = build()
         if len(_SCENE_CACHE) >= _SCENE_CACHE_CAP:
             _SCENE_CACHE.pop(next(iter(_SCENE_CACHE)))
         _SCENE_CACHE[key] = scene
     return scene
+
+
+def _cached_scene(cfg: OMGConfig, body: dict, device) -> PlanningScene:
+    key = (json.dumps(body.get("objects"), sort_keys=True),
+           tuple(body.get("start", ())), cfg.jit_key(), str(device))
+    return _cached(key, lambda: _build_scene(cfg, body, device))
+
+
+def _cloud_arrays(body: dict) -> tuple:
+    """(points [N, 3], grasps [K, 4, 4]) of a ``/plan_cloud`` body as
+    float32 arrays; ValueError where they are not those shapes of finite
+    numbers.  An empty cloud is [0, 3] (``pointsdf.grid_layout`` places
+    its grid as the reference does)."""
+    try:
+        points = np.asarray(body["points"], np.float32)
+        grasps = np.asarray(body["grasps"], np.float32)
+    except (TypeError, ValueError) as e:
+        raise ValueError(f"points and grasps must be arrays of numbers: "
+                         f"{e}") from None
+    if points.shape == (0,):
+        points = points.reshape(0, 3)
+    if points.ndim != 2 or points.shape[1] != 3:
+        raise ValueError(f"points must be [N, 3], got {list(points.shape)}")
+    if grasps.ndim == 2 and grasps.shape[1] == 16:
+        grasps = grasps.reshape(-1, 4, 4)
+    if grasps.ndim != 3 or grasps.shape[1:] != (4, 4) or not len(grasps):
+        raise ValueError(f"grasps must be [K, 16] or [K, 4, 4] with K > 0, "
+                         f"got {list(grasps.shape)}")
+    if not (np.isfinite(points).all() and np.isfinite(grasps).all()):
+        raise ValueError("points and grasps must be finite")
+    return points, grasps
+
+
+def _build_cloud_scene(cfg: OMGConfig, points, grasps, start,
+                       device) -> PlanningScene:
+    """The perception scene of a cloud (``__main__.perception_plan`` once
+    its cloud and grasps are made): a ``PointEnv`` with the cloud's
+    distance grid at the reference's 0.02 m and 0.24 m margin, the grasps
+    as external grasps."""
+    env = PointEnv(cfg, device=device)
+    env.compute_sdf_from_points(points)
+    scene = PlanningScene(cfg, env)
+    scene.external_grasps = grasps
+    if start is not None:
+        scene.start = np.asarray(start, np.float64)
+    return scene
+
+
+def _cloud_scene(cfg: OMGConfig, body: dict, device) -> PlanningScene:
+    """The cached scene of a ``/plan_cloud`` body, keyed by a digest of
+    its points' and grasps' float32 bytes.  The body's arrays are needed
+    for the key, so the span holds their parse on a repeat too."""
+    with timing.span("scene_build"), timing.span("scene_build.cloud"):
+        points, grasps = _cloud_arrays(body)
+        digest = hashlib.blake2b(digest_size=16)
+        digest.update(points.tobytes())
+        digest.update(grasps.tobytes())
+        key = ("cloud", len(points), digest.hexdigest(),
+               tuple(body.get("start", ())), cfg.jit_key(), str(device))
+        return _cached(key, lambda: _build_cloud_scene(
+            cfg, points, grasps, body.get("start"), device))
 
 
 def _request_cfg(body: dict, base_cfg: OMGConfig):
@@ -130,14 +211,25 @@ def plan_request(body: dict, base_cfg: OMGConfig,
         return _plan(body, base_cfg, device)
 
 
-def _plan(body: dict, base_cfg: OMGConfig, device) -> tuple[int, dict]:
+def plan_cloud_request(body: dict, base_cfg: OMGConfig,
+                       device=None) -> tuple[int, dict]:
+    """Handle one /plan_cloud body (an observed cloud and grasps);
+    returns (http_status, response_dict) as :func:`plan_request`."""
+    with timing.request():
+        return _plan(body, base_cfg, device, _cloud_scene)
+
+
+def _plan(body: dict, base_cfg: OMGConfig, device,
+          scene_of=_cached_scene) -> tuple[int, dict]:
+    """The plan of a body whose scene ``scene_of(cfg, body, device)``
+    gives (cached), and the response."""
     cfg, err = _request_cfg(body, base_cfg)
     if err is not None:
         return err
     device = resolve_device(device)
     try:
         t0 = time.perf_counter_ns()
-        scene = _cached_scene(cfg, body, device)
+        scene = scene_of(cfg, body, device)
         fused = None if scene.has_staged() else scene.plan_fresh()
         if fused is not None:
             res, goal_mask = fused
@@ -298,6 +390,7 @@ def make_server(port: int, cfg: OMGConfig, device=None) -> HTTPServer:
 
         def do_POST(self):
             routes = {"/plan": plan_request,
+                      "/plan_cloud": plan_cloud_request,
                       "/plan_batch": plan_batch_request,
                       "/execute": execute_request}
             if self.path not in routes:

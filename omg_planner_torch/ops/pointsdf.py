@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .kernels import min_dist_grid
+from ..utils.sync import host_array
+from . import kernels
 from .sdf import SignedDensityField
 
 
@@ -34,7 +35,7 @@ def _min_dist_grid(points: torch.Tensor, dims: tuple, origin: tuple,
                    delta: float) -> torch.Tensor:
     """[N, 3] points -> [dims] grid of nearest-point distances."""
     grid = grid_cells(dims, origin, delta, points.device)
-    return min_dist_grid(grid, points.contiguous()).reshape(dims)
+    return kernels.min_dist_grid(grid, points.contiguous()).reshape(dims)
 
 
 def grid_layout(points: np.ndarray, resolution: float, margin: float):
@@ -53,11 +54,11 @@ def sdf_from_points(points: np.ndarray, resolution: float = 0.02,
                     margin: float = 0.24,
                     device=None) -> SignedDensityField:
     """An (unsigned) distance field around a point cloud, computed on
-    ``device`` (``cuda`` unless named); cell centers at
-    ``origin + i * resolution``."""
+    ``device`` (``cuda`` unless named) and read back to the host (site
+    ``pointsdf.field``); cell centers at ``origin + i * resolution``."""
     points, dims, lo = grid_layout(points, resolution, margin)
     data = _min_dist_grid(torch.as_tensor(points,
                                           device=resolve_device(device)), dims,
                           tuple(float(v) for v in lo), resolution)
-    return SignedDensityField(data.cpu().numpy(), lo.astype(np.float64),
-                              resolution)
+    return SignedDensityField(host_array(data, "pointsdf.field"),
+                              lo.astype(np.float64), resolution)

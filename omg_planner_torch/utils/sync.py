@@ -1,13 +1,15 @@
-"""Device-to-host reads that decide control flow.
+"""Device-to-host reads that decide control flow, or that bring back data
+the host keeps.
 
 The JAX package keeps its data-dependent loops on device (``while_loop``);
 in eager PyTorch each such condition is read on the host, which waits for
-the device.  Every such read goes through these helpers, named by its call
-site (a short dotted name: ``plan.terminate``, ``goal_set.dedupe``), so a
-run can count them: ``SYNCS.count`` in all, ``SYNCS.sites`` by site
-(``chip_smoke.py`` prints the count per plan).  While tracing is on
-(``utils/timing.py``) each read is also a span ``sync.<site>``, the host's
-wait for the device.
+the device.  Every such read, and every copy of device data that the host
+keeps (``pointsdf.field``, a perception grid), goes through these helpers,
+named by its call site (a short dotted name: ``plan.terminate``,
+``goal_set.dedupe``), so a run can count them: ``SYNCS.count`` in all,
+``SYNCS.sites`` by site (``chip_smoke.py`` prints the count per plan).
+While tracing is on (``utils/timing.py``) each read is also a span
+``sync.<site>``, the host's wait for the device.
 """
 
 from __future__ import annotations
@@ -70,3 +72,13 @@ def host_bools(t: torch.Tensor, site: str = "unattributed") -> list:
     """A 1-d bool tensor as a list, in one read (a scene batch's per-scene
     flags)."""
     return _read(_bools, t, site)
+
+
+def _numpy(t: torch.Tensor):
+    return t.cpu().numpy()
+
+
+def host_array(t: torch.Tensor, site: str = "unattributed"):
+    """A tensor's values as a host numpy array, in one read (a field that
+    the host keeps)."""
+    return _read(_numpy, t, site)

@@ -5,11 +5,11 @@
 records its name, start and end (``time.perf_counter_ns``, the clock onto
 which a ``torch.profiler`` device trace can be mapped), the span that
 encloses it on the same thread, and the id of its request: ``with
-request():`` opens a ``request`` span with a fresh id, which every span
-inside it shares.  A span never synchronises the device, reads the host or
-touches a tensor, so it times what the host spends in a phase, the host's
-waits included only where the phase itself reads the device
-(``utils/sync.py``'s reads are spans ``sync.<site>``).
+request():`` opens a ``request`` span whose own id is the request's id,
+which every span inside it shares.  A span never synchronises the device,
+reads the host or touches a tensor, so it times what the host spends in a
+phase, the host's waits included only where the phase itself reads the
+device (``utils/sync.py``'s reads are spans ``sync.<site>``).
 
 Tracing is on after :func:`enable` and while a ``torch.profiler`` session
 runs (torch's own flag, the one ``record_function`` reads), so every
@@ -71,7 +71,6 @@ class _Trace:
         self.lock = threading.Lock()
         self.local = threading.local()  # .stack: open spans; .marks
         self.ids = itertools.count(1)
-        self.request_ids = itertools.count(1)
 
     def stack(self) -> list:
         try:
@@ -100,6 +99,8 @@ class _Open:
         if not self.request:
             self.request = top.request if top is not None else 0
         self.id = next(TRACE.ids)
+        if self.request < 0:        # a request span names its request
+            self.request = self.id
         stack.append(self)
         self.t0 = time.perf_counter_ns()
         return self
@@ -146,9 +147,9 @@ def span(name: str):
 
 
 def request():
-    """A ``request`` span with a fresh request id, which every span opened
-    inside it on this thread shares."""
-    return _Open("request", next(TRACE.request_ids)) if active() else _OFF
+    """A ``request`` span whose own id is the request id that every span
+    opened inside it on this thread shares."""
+    return _Open("request", -1) if active() else _OFF
 
 
 def enable(on: bool = True):
