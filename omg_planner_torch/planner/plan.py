@@ -11,8 +11,8 @@ blacklist schedule are host integers; what depends on data is read on the
 host: the termination flag once per step, and the blacklist trigger on
 the steps where it is due.  The terminating step's update is rolled back
 (``omg/planner.py:627-636``).  On a card, ``plan_fast`` replays its later
-steps' updates as CUDA graphs, captured once a plan
-(``_GraphedUpdates``).
+steps' updates as CUDA graphs, captured by the first plan of their key and
+kept for the later ones (``_GraphedUpdates``).
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ from ..config import OMGConfig, schedule_weights
 from ..ops import chomp
 from ..ops import learner as ol
 from ..ops.chomp import CostInfo, CostParams, GoalSet
-from ..ops.sdf import WorldField, WorldPotential
+from ..ops.sdf import (AnalyticScene, BakedSceneSDF, WorldField,
+                       WorldPotential)
 from ..utils import graphs, timing
 from ..utils.graphs import GRAPHS
 from ..utils.linalg import top_k
@@ -310,6 +311,11 @@ class _Updates:
         """The info a plan ends with when this step terminates."""
         return info
 
+    def own(self, carry: _Carry) -> _Carry:
+        """``carry`` with tensors of the plan's own, for the plan's
+        result."""
+        return carry
+
     def release(self):
         """The plan's loop is over."""
 
@@ -434,19 +440,26 @@ def plan_fast(model, cfg: OMGConfig, problem: PlanProblem,
             updates = _GraphedUpdates(model, cfg, hp, problem)
         else:
             updates = _Updates(model, cfg, hp, problem, cv_fn)
-        try:
-            while not carry.done and carry.step < cfg.total_steps:
-                carry = _step(model, cfg, hp, problem, carry,
-                              updates=updates)
-        finally:
-            updates.release()
-        traj_out, info = _finish(model, cfg, hp, problem, carry)
-        return PlanResult(
-            traj=traj_out, goal_idx=carry.goal_idx, info=info,
-            info_history=info, history=traj_out[None],
-            selected_goals=carry.goal_idx[None],
-            steps_used=torch.tensor(carry.step, device=problem.start.device),
-            flag=info.terminate, goal_mask=carry.goal_mask)
+        return _fast_loop(model, cfg, hp, problem, carry, updates)
+
+
+def _fast_loop(model, cfg: OMGConfig, hp, problem: PlanProblem,
+               carry: _Carry, updates: _Updates) -> PlanResult:
+    """:func:`plan_fast`'s loop from ``carry``, its updates run by
+    ``updates``, and its result."""
+    try:
+        while not carry.done and carry.step < cfg.total_steps:
+            carry = _step(model, cfg, hp, problem, carry, updates=updates)
+        carry = updates.own(carry)
+    finally:
+        updates.release()
+    traj_out, info = _finish(model, cfg, hp, problem, carry)
+    return PlanResult(
+        traj=traj_out, goal_idx=carry.goal_idx, info=info,
+        info_history=info, history=traj_out[None],
+        selected_goals=carry.goal_idx[None],
+        steps_used=torch.tensor(carry.step, device=problem.start.device),
+        flag=info.terminate, goal_mask=carry.goal_mask)
 
 
 # -- plan_fast on the card: CUDA graphs of the updates ----------------------
@@ -494,65 +507,183 @@ def _update_kind(cfg: OMGConfig, piece: str, restricted: bool, step: int,
     return "replay" if piece in captured else "capture"
 
 
+#: the problem's fields that a captured segment reads, whatever the scene
+_READ_IN_GRAPH = ("goal_set", "start", "end", "joint_lower", "joint_upper",
+                  "world_potential", "world_field")
+
+
+def _split(problem: PlanProblem) -> tuple:
+    """(the problem's fields that a captured segment reads, the objects that
+    only the eager calls between the segments take).  The ``sdf_query``
+    kernel, which runs between the segments, alone reads an analytic or a
+    baked scene and its cost parameters; an exact scene's query runs inside
+    the segments."""
+    if isinstance(problem.scene, (AnalyticScene, BakedSceneSDF)):
+        return _READ_IN_GRAPH, (problem.scene, *problem.cost_params)
+    return _READ_IN_GRAPH + ("scene", "cost_params"), ()
+
+
+def _tensors(problem: PlanProblem, fields) -> list:
+    """The tensors of ``problem``'s ``fields``, in order (a field is a
+    tensor, a tuple of tensors or None)."""
+    out = []
+    for f in fields:
+        v = getattr(problem, f)
+        if v is not None:
+            out.extend([v] if isinstance(v, torch.Tensor) else v)
+    return out
+
+
+def _with_tensors(fields, like: PlanProblem, tensors) -> PlanProblem:
+    """A problem whose ``fields`` hold ``tensors`` (in :func:`_tensors`'
+    order, laid out as ``like``'s) and whose other fields are None."""
+    it = iter(tensors)
+    values = dict.fromkeys(PlanProblem._fields)
+    for f in fields:
+        v = getattr(like, f)
+        if v is not None:
+            values[f] = (next(it) if isinstance(v, torch.Tensor)
+                         else type(v)(*(next(it) for _ in v)))
+    return PlanProblem(**values)
+
+
+def _graph_key(model, cfg: OMGConfig, problem: PlanProblem) -> tuple:
+    """What a captured update depends on, as the input shows it: the
+    configuration's device-relevant fields (``cfg.jit_key()``: the
+    horizon, the goal capacity, the learner, the snapshot), the model,
+    the device, the learner's restriction, the scene's kind, the layout of
+    every problem tensor a segment reads (:func:`_split`; among them the
+    goal set, the reach tail and the world potential) and which of the
+    objects that the eager calls between the segments take are the same
+    object."""
+    fields, outside = _split(problem)
+    layout = tuple((tuple(t.shape), t.stride(), t.dtype)
+                   for t in _tensors(problem, fields))
+    alias = tuple(next(j for j, y in enumerate(outside) if y is x)
+                  for x in outside)
+    return (cfg.jit_key(), id(model), str(problem.start.device),
+            ol.sweep_restricted(cfg, problem.goal_set.capacity),
+            type(problem.scene), layout, alias)
+
+
+class _Kept:
+    """The CUDA graphs of one key (:func:`_graph_key`) and everything they
+    read or write, kept from plan to plan (``utils/graphs.py::retain``).
+    Every tensor a segment reads is the entry's own (its step buffers and
+    its copy of the problem) or a cache's that outlives it (the horizon's
+    operators, the model's tables); the eager calls between the segments
+    take the scene of the plan that runs the graphs (``pointed``), and
+    placeholders between plans, so that no kept graph holds a scene."""
+
+    def __init__(self, key, model, cfg: OMGConfig, hp, n_outside: int):
+        self.key = key
+        self.args = (model, cfg, hp)  # the model held: its id is in the key
+        self.graphs = {}     # piece -> (graphs.Graph, its outputs)
+        self.bufs = {}       # the step's buffers (_GraphedUpdates._stage)
+        self.ex_info = None  # the snapshot's info: views of its buffers
+        self.inputs = []     # the problem's tensors a segment reads
+        self.problem = None  # those, as the running plan's problem
+        self.dropped = tuple(object() for _ in range(n_outside))
+        self.pointed = self.dropped
+
+    def point(self, outside: tuple):
+        """Point the eager calls between the graphs' segments at
+        ``outside`` (the objects of :func:`_split`)."""
+        for graph, _ in self.graphs.values():
+            graph.repoint(self.pointed, outside)
+        self.pointed = outside
+
+
 class _GraphedUpdates(_Updates):
     """:func:`plan_fast`'s updates on a card.  After the first
     :data:`_EAGER_STEPS` steps the CHOMP update (the goal gathers, FK, the
     query, ``chomp_obstacle``, ``chomp_step``, ``joint_limit`` and the
-    snapshot's selects) and the restricted learner update are each
-    captured once a plan as a CUDA graph on the plan's own tensors, then
-    replayed; the query's and ``chomp_obstacle``'s launches run between a
-    graph's segments (``utils/graphs.py::outside``).  A graph reads and
-    writes fixed buffers: the trajectory and the one before the update,
-    the goal index and mask, the learner state, the snapshot, the step's
-    weights and the sweep's start row (these two refreshed from the plan's
-    tables).  An input that is not its buffer (after an eager update or a
-    blacklist restart) is copied into it first.  A graphed update returns
-    the buffers, which the next replay overwrites, and its info lives in
-    the graph's pool: a terminating graphed step's info comes from an
-    eager re-run, and nothing the plan returns lives in the pool."""
+    snapshot's selects) and the restricted learner update each run as a
+    CUDA graph, captured by the first plan of their key and kept for the
+    later ones (:class:`_Kept`), then replayed; the query's and
+    ``chomp_obstacle``'s launches run between a graph's segments
+    (``utils/graphs.py::outside``).  A graph reads and writes fixed
+    buffers: the problem's tensors that a segment reads (copied in on a
+    plan's first graphed update), the trajectory and the one before the
+    update, the goal index and mask, the learner state, the snapshot, the
+    step's weights and the sweep's start row (these two refreshed from the
+    plan's tables).  An input that is not its buffer (after an eager
+    update or a blacklist restart) is copied into it first.  A graphed
+    update returns the buffers, which the next replay overwrites, and its
+    info lives in the graphs' pool: a terminating graphed step's info
+    comes from an eager re-run, and nothing the plan returns is a buffer
+    (:meth:`own`) or lives in the pool."""
 
     def __init__(self, model, cfg: OMGConfig, hp, problem: PlanProblem):
         super().__init__(model, cfg, hp, problem)
         self.device = problem.start.device
         self.restricted = ol.sweep_restricted(cfg, problem.goal_set.capacity)
         self.w_rows, self.start_rows = _plan_tables(cfg, str(self.device))
-        self.bufs = {}
-        self.graphs = {}     # piece -> (graphs.Graph, its outputs)
-        self.ex_info = None  # the snapshot's info: views of its buffers
+        key = _graph_key(model, cfg, problem)
+        self.kept = graphs.take(key, self.device) or _Kept(
+            key, model, cfg, hp, len(_split(problem)[1]))
+        self.used = set()      # the pieces this plan ran from their graphs
         self.replayed = False  # the last CHOMP update ran from its graph
+
+    def _bind(self) -> _Kept:
+        """The kept entry, made this plan's on the plan's first graphed
+        update: the problem's tensors that a segment reads copied into its
+        buffers (made by the key's first plan), the eager calls between the
+        segments pointed at the plan's scene."""
+        kept = self.kept
+        if kept.problem is None:
+            problem = self.args[3]
+            fields, outside = _split(problem)
+            values = _tensors(problem, fields)
+            if not kept.inputs:
+                kept.inputs = [torch.empty_strided(
+                    v.shape, v.stride(), dtype=v.dtype, device=v.device)
+                    for v in values]
+            torch._foreach_copy_(kept.inputs, values)
+            kept.problem = _with_tensors(fields, problem, kept.inputs)
+            if outside:
+                kept.problem = kept.problem._replace(
+                    scene=problem.scene, cost_params=problem.cost_params)
+            kept.point(outside)
+        return kept
 
     def _stage(self, **values) -> dict:
         """The fixed buffers, each of ``values`` copied into its own (made
         on first use)."""
+        bufs = self.kept.bufs
         for name, value in values.items():
-            buf = self.bufs.get(name)
+            buf = bufs.get(name)
             if buf is None:
-                self.bufs[name] = value.clone()
+                bufs[name] = value.clone()
             elif buf is not value:
                 buf.copy_(value)
-        return self.bufs
+        return bufs
 
     def _run(self, piece: str, body):
         """``body``'s graph for ``piece``, captured (and so run) on first
-        use, replayed after; returns its outputs."""
-        entry = self.graphs.get(piece)
+        use of its key, replayed after; returns its outputs."""
+        graphed = self.kept.graphs
+        entry = graphed.get(piece)
         if entry is None:
             with timing.span("plan.graph.capture"):
-                entry = self.graphs[piece] = graphs.capture(body,
-                                                            self.device)
+                entry = graphed[piece] = graphs.capture(body, self.device)
             GRAPHS.add(piece, "capture")
         else:
             with timing.span("plan.graph.replay"):
                 entry[0].replay()
             GRAPHS.add(piece, "replay")
+            if piece not in self.used:
+                GRAPHS.add(piece, "kept")
+        self.used.add(piece)
         return entry[1]
 
     def learner(self, step: int, traj, goal_idx, goal_mask, lstate):
-        model, cfg, hp, problem = self.args
+        cfg = self.args[1]
         if _update_kind(cfg, "learner", self.restricted, step, lstate.t,
-                        self.graphs) in ("eager", "refresh"):
+                        self.kept.graphs) in ("eager", "refresh"):
             GRAPHS.add("learner", "eager")
             return super().learner(step, traj, goal_idx, goal_mask, lstate)
+        kept = self._bind()
         t = lstate.t + 1.0
         b = self._stage(traj=traj, goal=goal_idx, mask=goal_mask,
                         start=self.start_rows[int(t)], **{
@@ -562,6 +693,8 @@ class _GraphedUpdates(_Updates):
                                         for f in _LEARNER_TENSORS})
 
         def body():
+            model, cfg, hp = kept.args
+            problem = kept.problem
             new, goal = ol.update_goal(
                 model, problem.scene, problem.cost_params, cfg, hp,
                 b["traj"], _learner_goals(cfg, problem, b["mask"]),
@@ -578,24 +711,26 @@ class _GraphedUpdates(_Updates):
 
     def _stage_snapshot(self, ex):
         ex_traj, ex_ok, ex_info = ex
+        kept = self.kept
         self._stage(ex_traj=ex_traj, ex_ok=ex_ok)
-        if self.ex_info is None:
-            self.bufs["ex_floats"] = ex_traj.new_empty(
+        if kept.ex_info is None:
+            kept.bufs["ex_floats"] = ex_traj.new_empty(
                 len(chomp.kernels.INFO_SCALARS) + ex_traj.shape[0])
-            self.bufs["ex_flags"] = ex_ok.new_empty(4)
-            self.ex_info = chomp.info_from(self.bufs["ex_floats"],
-                                           self.bufs["ex_flags"])
-        moved = [(b, v) for b, v in zip(self.ex_info, ex_info) if b is not v]
+            kept.bufs["ex_flags"] = ex_ok.new_empty(4)
+            kept.ex_info = chomp.info_from(kept.bufs["ex_floats"],
+                                           kept.bufs["ex_flags"])
+        moved = [(b, v) for b, v in zip(kept.ex_info, ex_info) if b is not v]
         if moved:
             torch._foreach_copy_(*map(list, zip(*moved)))
 
     def chomp(self, step: int, rel: int, traj, goal_idx, ex):
-        model, cfg, hp, problem = self.args
+        cfg = self.args[1]
         self.replayed = _update_kind(cfg, "chomp", self.restricted, step,
-                                     0.0, self.graphs) != "eager"
+                                     0.0, self.kept.graphs) != "eager"
         if not self.replayed:
             GRAPHS.add("chomp", "eager")
             return super().chomp(step, rel, traj, goal_idx, ex)
+        kept = self._bind()
         b = self._stage(traj=traj, goal=goal_idx, weights=self.w_rows[rel])
         if "prev" not in b:
             b["prev"] = torch.empty_like(traj)
@@ -604,6 +739,8 @@ class _GraphedUpdates(_Updates):
             self._stage_snapshot(ex)
 
         def body():
+            model, cfg, hp = kept.args
+            problem = kept.problem
             new, floats, flags = chomp.chomp_step_packed(*_chomp_args(
                 model, cfg, hp, problem, b["traj"], b["goal"],
                 b["weights"].unbind()))
@@ -625,7 +762,8 @@ class _GraphedUpdates(_Updates):
     def snapshot(self, kept, info, ex):
         if not self.replayed:
             return super().snapshot(kept, info, ex)
-        return self.bufs["ex_traj"], self.bufs["ex_ok"], self.ex_info
+        return self.kept.bufs["ex_traj"], self.kept.bufs["ex_ok"], \
+            self.kept.ex_info
 
     def last(self, rel: int, kept, goal_idx, info) -> CostInfo:
         """A graphed step's ``_chomp_update`` again, eagerly, on tensors of
@@ -640,8 +778,22 @@ class _GraphedUpdates(_Updates):
                                  goal_idx.clone(),
                                  schedule_weights(cfg, rel + 1))[1]
 
+    def own(self, carry: _Carry) -> _Carry:
+        """The trajectory and goal index that a graphed update left in the
+        kept buffers, copied: the next plan of the key overwrites them."""
+        held = {id(t) for t in self.kept.bufs.values()}
+        return carry._replace(**{
+            f: v.clone() for f, v in (("traj", carry.traj),
+                                      ("goal_idx", carry.goal_idx))
+            if id(v) in held})
+
     def release(self):
-        graphs.retain([g for g, _ in self.graphs.values()], self.device)
+        """Keep the graphs for the key's next plan, pointed at no
+        scene."""
+        kept = self.kept
+        kept.point(kept.dropped)
+        kept.problem = None
+        graphs.retain(kept, self.device)
 
 
 def _where_rows(cond, a, b):

@@ -16,26 +16,38 @@ is a call of the wrapper, which counts it and which anything put around
 the wrapper sees, and its outputs are copied into the tensors that the
 next segment reads.
 
-Every capture of a thread on one card allocates from one memory pool, so
-a plan's graphs and the next plan's reuse one set of blocks: the graphs of
-the last plan that captured stay alive (:func:`retain`), which keeps the
-pool in use.  A graph's outputs therefore live in blocks that another
-graph of the pool may also use: whatever must outlast the next replay of
-another graph is copied into tensors allocated outside the capture.
+A graph outlives the plan that captured it: :func:`retain` keeps it, with
+whatever else its owner holds, in a store of its thread on its card under
+the owner's key, and :func:`take` hands it to a later plan of that key.
+:meth:`Graph.repoint` points the eager calls between its segments at
+another plan's arguments.
+
+Every capture of a thread on one card allocates from one memory pool.  The
+pool keeps its last capture alive, so that it stays in use whatever the
+store drops: the allocator refuses a capture into a pool that every graph
+has left.  A graph's outputs live in blocks that another graph of the pool
+may also use: whatever must outlast the next replay of another graph is
+copied into tensors allocated outside the capture.
 
 ``GRAPHS`` counts, by piece of the plan step (``chomp``, ``learner``), the
 captures, the replays and the updates that ran eagerly on the card, as
-``utils/sync.py``'s ``SYNCS`` counts host reads by site.
+``utils/sync.py``'s ``SYNCS`` counts host reads by site; ``kept`` counts,
+among the replays, a piece's first graphed update in a plan that found its
+graph kept by an earlier plan, so ``kept / (kept + capture)`` is the share
+of plans that took a graph over.
 """
 
 from __future__ import annotations
 
+import collections
 import threading
 
 import torch
 
 PIECES = ("chomp", "learner")
-KINDS = ("capture", "replay", "eager")
+KINDS = ("capture", "replay", "eager", "kept")
+#: the most graph owners a thread keeps on one card (:func:`retain`)
+KEEP = 4
 
 
 class GraphCounter:
@@ -59,13 +71,13 @@ GRAPHS = GraphCounter()
 
 
 class _Pool:
-    """A thread's capture stream and memory pool on one card, and the
-    graphs that keep the pool in use."""
+    """A thread's capture stream and memory pool on one card, and the last
+    graph captured into the pool, which keeps it in use."""
 
     def __init__(self, device):
         self.id = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(device)
-        self.live = []
+        self.last = None
 
 
 _LOCAL = threading.local()
@@ -100,6 +112,20 @@ class Graph:
                          for i, a in enumerate(args))
             new = getattr(owner, name)(*args)
             torch._foreach_copy_(list(outs), list(new))
+
+    def repoint(self, old: tuple, new: tuple):
+        """Give each eager call between the segments that takes an object
+        of ``old`` (compared by identity) the object at its position in
+        ``new`` instead."""
+        at = {}
+        for i, x in enumerate(old):
+            at.setdefault(id(x), i)
+        for n, part in enumerate(self.parts):
+            if isinstance(part, torch.cuda.CUDAGraph):
+                continue
+            owner, name, args, fresh, outs = part
+            args = tuple(new[at[id(a)]] if id(a) in at else a for a in args)
+            self.parts[n] = (owner, name, args, fresh, outs)
 
     def _begin(self):
         self._open = torch.cuda.CUDAGraph()
@@ -163,14 +189,28 @@ def capture(fn, device):
             raise
         graph._end()
     cur.wait_stream(pool.stream)
-    pool.live.append(graph)
+    pool.last = graph
     return graph, out
 
 
-def retain(graphs: list, device):
-    """Keep ``graphs`` (one plan's, all captured by :func:`capture` on this
-    thread) alive in place of the graphs kept before, so the pool stays in
-    use for the next plan's captures; no-op without graphs."""
-    if graphs:
-        pool = _pool(device)
-        pool.live = list(graphs)
+def _store(device) -> collections.OrderedDict:
+    stores = _LOCAL.__dict__.setdefault("kept", {})
+    return stores.setdefault(str(device), collections.OrderedDict())
+
+
+def take(key, device):
+    """What :func:`retain` kept under ``key`` on this thread and
+    ``device``, taken out of the store (None if nothing is kept)."""
+    return _store(device).pop(key, None)
+
+
+def retain(kept, device):
+    """Keep ``kept`` (an owner of graphs captured on this thread, with a
+    hashable ``key``) for the next :func:`take` of its key on this thread
+    and ``device``.  Beyond :data:`KEEP` owners the one retained longest
+    ago is dropped, and with it its graphs and buffers."""
+    store = _store(device)
+    store.pop(kept.key, None)
+    store[kept.key] = kept
+    while len(store) > KEEP:
+        store.popitem(last=False)
