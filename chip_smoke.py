@@ -706,7 +706,7 @@ HEAVY_MODULES = ("torch._dynamo", "torch.distributed.tensor", "sympy")
 COLD_PROBE = """
 import json, sys, time
 import torch
-from omg_planner_torch.models import panda
+from omg_planner_torch.models import api, panda
 from omg_planner_torch.ops import chomp, kernels, sdf
 chomp_ops = "chomp_cost" in kernels._LIBS
 kernels.build(libs=["panda_fk", "sdf_query"] + ["chomp_cost"] * chomp_ops)
@@ -722,9 +722,7 @@ torch.cuda.synchronize()
 out = {}
 for call in ("first", "second"):
     t0 = time.perf_counter()
-    _, og, ax, x = kernels.panda_fk(q, model.pose_0, model.chain_post,
-                                    model.center_offset,
-                                    model.collision_points)
+    _, og, ax, x = api.fk_points(model, q, joint_info=True)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     kernels.sdf_query(scene, inv, x.reshape(-1, 3), *rest)
@@ -732,7 +730,6 @@ for call in ("first", "second"):
     out[call] = [t1 - t0, time.perf_counter() - t1]
     if chomp_ops:
         from omg_planner_torch.config import OMGConfig, schedule_weights
-        from omg_planner_torch.models import api
         cfg = OMGConfig()
         hp = cfg.horizon().on("cuda")
         z = torch.zeros(x.shape[:3], device="cuda")
@@ -784,6 +781,7 @@ def phase_plan_kernels(dev):
     model = scene.model
     fk_args = (panda_mod.pqr_table(model.pose_0, model.chain_post),
                model.pose_0, model.center_offset, model.collision_points)
+    tables = model_api.kernel_tables(model).fk
     pts15 = model.collision_points.shape[1]
 
     # panda_fk: the CHOMP step's start and end (N = 2), its trajectory
@@ -792,9 +790,7 @@ def phase_plan_kernels(dev):
     for n in (2, 30, 544, 1700):
         q = _in_limits(model, n, gen)
         for offset, points in ((True, True), (False, False)):
-            k = kernels.panda_fk(q, model.pose_0, model.chain_post,
-                                 model.center_offset, model.collision_points,
-                                 offset, points)
+            k = kernels.panda_fk(q, tables, offset, points)
             ref = kernels.panda_fk_plain(q, *fk_args, offset, points)
             _sync(dev)
             err = _err(k, ref)
@@ -805,15 +801,10 @@ def phase_plan_kernels(dev):
                 raise AssertionError(f"panda_fk N={n}: error {err}")
         fk[n] = q
     q = fk[1700]
-    rows = kernels.panda_fk(q[:544], *(model.pose_0, model.chain_post,
-                                       model.center_offset,
-                                       model.collision_points))
-    full = kernels.panda_fk(q, model.pose_0, model.chain_post,
-                            model.center_offset, model.collision_points)
+    rows = kernels.panda_fk(q[:544], tables)
+    full = kernels.panda_fk(q, tables)
     qs = q[:3 * 544].reshape(3, 544, 9)
-    mapped = torch.func.vmap(lambda x: kernels.panda_fk(
-        x, model.pose_0, model.chain_post, model.center_offset,
-        model.collision_points))(qs)
+    mapped = torch.func.vmap(lambda x: kernels.panda_fk(x, tables))(qs)
     same = (all(torch.equal(a, b[:544]) for a, b in zip(rows, full))
             and all(torch.equal(a.reshape(b[:3 * 544].shape), b[:3 * 544])
                     for a, b in zip(mapped, full)))
@@ -833,9 +824,7 @@ def phase_plan_kernels(dev):
                   [o.sdf for o in scene.env.objects], dev, baked=True)}
     pts = {}
     for p in (4500, 72000, 225000):
-        x = kernels.panda_fk(_in_limits(model, p // 150, gen),
-                             model.pose_0, model.chain_post,
-                             model.center_offset, model.collision_points)[3]
+        x = kernels.panda_fk(_in_limits(model, p // 150, gen), tables)[3]
         pts[p] = x.reshape(-1, 3)
     q_err = 0.0
     worst_col = 0.0
@@ -868,9 +857,8 @@ def phase_plan_kernels(dev):
              "baked": (scenes["baked"], inv8,
                        tuple(t[None].expand(8, *t.shape) for t in rest))}
     x8s = {p: kernels.panda_fk(_in_limits(model, 8 * p // 150, gen),
-                               model.pose_0, model.chain_post,
-                               model.center_offset, model.collision_points
-                               )[3].reshape(8, p, 3) for p in (4500, 72000)}
+                               tables)[3].reshape(8, p, 3)
+           for p in (4500, 72000)}
     b8 = {}
     for kind, (sc, inv, rr) in cases.items():
         for p, x8 in x8s.items():
@@ -899,17 +887,13 @@ def phase_plan_kernels(dev):
 
     # timings: the kernel (median of 5 runs of 50 launches), the plain
     # version, the wrapper's host time a call, the bound
-    smi = clocks_under_load(lambda: kernels.panda_fk(
-        fk[1700], model.pose_0, model.chain_post, model.center_offset,
-        model.collision_points))
+    smi = clocks_under_load(lambda: kernels.panda_fk(fk[1700], tables))
     log(f"plan kernels under load: clocks.sm, power.draw, power.limit = "
         f"{smi}")
     timing = {}
     for n in (2, 30, 544, 1700):
         def run(q=fk[n]):
-            return kernels.panda_fk(q, model.pose_0, model.chain_post,
-                                    model.center_offset,
-                                    model.collision_points)
+            return kernels.panda_fk(q, tables)
         ms, wrapped = time_graph(run), time_launches(run)
         plain_ms = time_ms(lambda q=fk[n]: kernels.panda_fk_plain(
             q, *fk_args, True, True), 5, 1)
@@ -1190,36 +1174,38 @@ def floor_ms(blocks: int, threads: int, dev: torch.device) -> float:
     return time_graph(empty)
 
 
-def host_split(name: str, args) -> dict:
-    """The wrapper's host time a call (us, 200 calls each): the whole
-    call, its input checks, its output allocation and its launch (the
-    ctypes arguments and the call), and the dispatch, what is left (the
-    operator's dispatch and the wrapper's own frames)."""
+def host_split(name: str, args, lib: str | None = None) -> dict:
+    """The wrapper's host time a call (us, 200 calls each), split: the
+    whole call, the packer's input checks (its time less the allocation),
+    its output allocation (one ``torch.empty`` of the packed outputs), the
+    launch (the C entry point's call on packed arguments) and the
+    dispatch, what is left (the operator's dispatch and the wrapper's own
+    frames).  ``args`` are the operator's (``md_update`` and
+    ``joint_limit`` at the plan's steps); ``lib`` is the library, ``name``
+    unless given."""
     dev = args[0].device
+    pack_args, scalars = args, ()
+    whole = lambda: getattr(kernels, name)(*args)  # noqa: E731
     if name == "md_update":
-        ins, lead, g = kernels._md_update_inputs(*args)
-        buf, _ = kernels._md_update_outputs(lead, g, dev)
-        entry = kernels._entry("md_update", "omg_md_update")
-        parts = dict(
-            checks=lambda: kernels._md_update_inputs(*args),
-            allocation=lambda: kernels._md_update_outputs(lead, g, dev),
-            launch=lambda: entry(*kernels._md_update_args(
-                ins, buf, lead, g, OMG_OPTIM_STEPS, 20), 1e-6,
-                kernels._raw_stream(dev)))
+        pack_args, scalars = (*args, OMG_OPTIM_STEPS, 20), (1e-6,)
         whole = lambda: kernels.md_update(*args, OMG_OPTIM_STEPS)  # noqa: E731
-    else:
-        ins, lead, t, d = kernels._joint_limit_inputs(*args)
-        out = torch.empty(lead + (t, d), device=dev)
-        entry = kernels._entry("joint_limit", "omg_joint_limit")
-        parts = dict(
-            checks=lambda: kernels._joint_limit_inputs(*args),
-            allocation=lambda: torch.empty(lead + (t, d), device=dev),
-            launch=lambda: entry(*kernels._joint_limit_args(
-                ins, out, lead, t, d, 10), kernels._raw_stream(dev)))
+    elif name == "joint_limit":
+        pack_args = (*args, 10)
         whole = lambda: kernels.joint_limit(*args, 10)  # noqa: E731
-    split = {k: _host_us(fn) for k, fn in parts.items()}
-    split["total"] = _host_us(whole)
-    split["dispatch"] = split["total"] - sum(split[k] for k in parts)
+    pack = getattr(kernels, f"_{name}_pack")
+    entry = kernels._entry(lib or name, f"omg_{name}")
+    keep, outs, ptrs, dims, *consts = pack(*pack_args)
+    size = sum(o.numel() for o in (outs if isinstance(outs, tuple)
+                                   else (outs,)))
+    split = dict(
+        pack=_host_us(lambda: pack(*pack_args)),
+        allocation=_host_us(lambda: torch.empty(size, device=dev)),
+        launch=_host_us(lambda: entry(ptrs, dims, *consts, *scalars,
+                                      kernels._raw_stream(dev))),
+        total=_host_us(whole))
+    del keep
+    split["checks"] = split["pack"] - split["allocation"]
+    split["dispatch"] = split["total"] - split["pack"] - split["launch"]
     return split
 
 
@@ -1372,12 +1358,11 @@ IK_STACK_BYTES = 32
 
 
 def _ik_plain_args(args) -> list:
-    """A wrapper's arguments (the model's ``pose_0, chain_post``) as its
-    plain version takes them (``pqr, pose_0``)."""
-    at = 4 if len(args) == 13 else 2           # the chain has 13
-    pose_0, chain_post = args[at:at + 2]
-    return (list(args[:at]) + [panda_mod.pqr_table(pose_0, chain_post),
-                               pose_0] + list(args[at + 2:]))
+    """A wrapper's arguments (the model's tables, ``kernels.fk_tables``'
+    buffer) as its plain version takes them (``pqr, pose_0``)."""
+    at = 4 if len(args) == 12 else 2           # the chain has 12
+    return (list(args[:at]) + list(kernels.fk_table_parts(args[at])[:2])
+            + list(args[at + 1:]))
 
 
 def _ik_work(args) -> tuple:
@@ -1388,8 +1373,8 @@ def _ik_work(args) -> tuple:
     targets of the stages an active lane reaches (at most one more than it
     ends).  The tables and limits once."""
     b = args[1].shape[0]
-    if len(args) != 13:
-        iters = args[7]
+    if len(args) != 12:
+        iters = args[6]
         flops = b * ((iters + 1) * IK_FLOPS["eval"]
                      + iters * IK_FLOPS["newton"])
         return flops, 4 * (b * (16 + 7 + 7 + 1) + IK_TABLES), b * (iters + 1)
@@ -1530,8 +1515,8 @@ def _chain_margins(args, qs, lane) -> str:
     pa = _ik_plain_args(args)
     pos, rot = kernels.ik_acceptance(args[0][lane:lane + 1],
                                      qs[lane:lane + 1], pa[4], pa[5])
-    return (f"pos {[round(float(v), 4) for v in pos[0] / (10 * args[9])]} "
-            f"rot {[round(float(v), 4) for v in rot[0] / (10 * args[10])]}")
+    return (f"pos {[round(float(v), 4) for v in pos[0] / (10 * args[8])]} "
+            f"rot {[round(float(v), 4) for v in rot[0] / (10 * args[9])]}")
 
 
 def _chain_vs_plain(args, what) -> float:
@@ -1562,8 +1547,8 @@ def _chain_vs_plain(args, what) -> float:
 def _ik_rows_alone(args, what):
     """Every 8th lane of a call alone, and a ragged slice of 37 lanes,
     against their rows of the call's launch: bit for bit."""
-    run = kernels.ik_chain if len(args) == 13 else kernels.ik_prefilter
-    n_lane = 4 if len(args) == 13 else 2    # the lane inputs lead
+    run = kernels.ik_chain if len(args) == 12 else kernels.ik_prefilter
+    n_lane = 4 if len(args) == 12 else 2    # the lane inputs lead
     full = run(*args)
     b = args[1].shape[0]
     cuts = [slice(i, i + 1) for i in range(0, b, 8)] + [slice(3, 40)]
@@ -1785,30 +1770,6 @@ def chomp_block(name: str, args) -> tuple:
                 kernels.chomp_obstacle_threads(t, n_links, p))
     t, d = args[0].shape[-2:]
     return args[0].numel() // (t * d), kernels.chomp_step_threads(t, d)
-
-
-def chomp_host_split(name: str, args) -> dict:
-    """The CHOMP wrapper's host time a call (us, 200 calls each), split as
-    :func:`host_split` splits the loop kernels': the whole call, the
-    packer's input checks (its time less the allocation), its output
-    allocation (one ``torch.empty`` of the packed outputs), the launch (the
-    C entry point's call on packed arguments) and the dispatch, what is
-    left (the operator's dispatch and the wrapper's own frames)."""
-    dev = args[0].device
-    pack = getattr(kernels, f"_{name}_pack")
-    entry = kernels._entry("chomp_cost", f"omg_{name}")
-    keep, outs, ptrs, dims, consts = pack(*args)
-    size = sum(o.numel() for o in outs)
-    split = dict(
-        pack=_host_us(lambda: pack(*args)),
-        allocation=_host_us(lambda: torch.empty(size, device=dev)),
-        launch=_host_us(lambda: entry(ptrs, dims, consts,
-                                      kernels._raw_stream(dev))),
-        total=_host_us(lambda: getattr(kernels, name)(*args)))
-    del keep
-    split["checks"] = split["pack"] - split["allocation"]
-    split["dispatch"] = split["total"] - split["pack"] - split["launch"]
-    return split
 
 
 def capture_chomp_calls(dev) -> tuple:
@@ -2074,7 +2035,7 @@ def phase_chomp_kernels(dev):
         wrapped = time_launches(run)
         plain_ms = time_ms(plain, 5, 1)
         bound, by = _bound(flops, nbytes)
-        split = chomp_host_split(name, args)
+        split = host_split(name, args, "chomp_cost")
         host = split["total"]
         timing[(name, what)] = (ms, plain_ms, bound, by, floor, host)
         log(f"{name} {what}: kernel {ms:.5f} ms (graph of 50), floor "

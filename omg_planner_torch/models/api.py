@@ -12,7 +12,10 @@ set.
 
 A :class:`~.panda.PandaModel`'s FK runs through the ``panda_fk`` kernel
 (``ops/kernels.py``): on the card one launch a call, on the CPU its plain
-version (``panda.fk_batch_tables``).  :func:`fk_points` and
+version (``panda.fk_batch_tables``).  What the kernels read of a model
+(:func:`kernel_tables`) is made once for the model object and held by it,
+so it lives exactly as long as the model: a model made by ``_replace``
+gets tables of its own fields.  :func:`fk_points` and
 :func:`end_points` are the fused forms that also return the body points.
 ``fk_one`` and ``end_points`` keep the single-configuration FK
 (``panda.forward_kinematics``) on the CPU, as the JAX package computes
@@ -22,7 +25,7 @@ gradient); ``physics/dynamics.py`` and the IK call ``panda`` directly.
 
 from __future__ import annotations
 
-import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,11 +49,7 @@ def dof(model) -> int:
 
 def _chain_tables(model: ChainModel):
     """(dof -> joint-row index, affect [L, D], prismatic [D]) on the host."""
-    return _chain_tables_of(model.jtype)
-
-
-def _chain_tables_of(jtype: tuple):
-    jt = np.asarray(jtype)
+    jt = np.asarray(model.jtype)
     moving = np.where(jt != FIXED)[0]
     links = np.arange(len(jt))
     affect = (links[:, None] >= moving[None, :]).astype(np.float32)
@@ -58,10 +57,70 @@ def _chain_tables_of(jtype: tuple):
     return moving, affect, prismatic
 
 
+class KernelTables(NamedTuple):
+    """What the kernels read of one model, laid out once for it."""
+
+    fk: torch.Tensor | None   # ``kernels.fk_tables``' buffer (Panda)
+    pqr: torch.Tensor | None  # its head, [7, 3, 4, 4] (Panda)
+    jacobian: torch.Tensor    # ``chomp_obstacle``'s (:func:`jacobian_tables`)
+    dofs: torch.Tensor        # ``chomp_step``'s (:func:`dof_tables`)
+
+
+def _held(model, key, make):
+    """``make()``, made on the first call for ``model`` and kept in the
+    model's ``__dict__``: it lives exactly as long as the model object (a
+    copy by ``_replace`` starts with none)."""
+    held = vars(model)
+    got = held.get(key)
+    if got is None:
+        got = held[key] = make()
+    return got
+
+
+def kernel_tables(model) -> KernelTables:
+    """The model's :class:`KernelTables`, all made on its first call (outside
+    any CUDA-graph capture: a plan's first steps run eagerly), then held by
+    the model.  A captured graph that reads them is kept with the model
+    (``planner/plan.py::_Kept``), and so with them."""
+    return _held(model, "_kernel_tables", lambda: _tables_of(model))
+
+
+def _tables_of(model) -> KernelTables:
+    dev = model.device
+    if isinstance(model, PandaModel):
+        d2j, affect, prismatic = (panda_mod._DOF_TO_AXIS, panda_mod._AFFECT,
+                                  panda_mod._PRISMATIC)
+        fk = kernels.fk_tables(
+            panda_mod.pqr_table(model.pose_0, model.chain_post),
+            model.pose_0, model.center_offset, model.collision_points)
+        pqr = kernels.fk_table_parts(fk)[0]
+    else:
+        d2j, affect, prismatic = _chain_tables(model)
+        fk = pqr = None
+    jac = np.concatenate([np.asarray(d2j, np.float32), prismatic,
+                          affect.reshape(-1), finger_link_mask(model)])
+    arm = arm_dof_mask(model)
+    return KernelTables(
+        fk=fk, pqr=pqr,
+        jacobian=torch.as_tensor(jac.astype(np.float32), device=dev),
+        dofs=torch.as_tensor(np.stack([arm, 1.0 - arm]), device=dev))
+
+
+def thinned(model, n: int):
+    """``model`` on ``n`` of its body points a link, every
+    ``P // n``-th (the learner's ``learner_collision_points``; ``model``
+    itself where ``n`` is 0 or not below P).  Made once per model and
+    ``n`` and held by the model, so its tables are made once too."""
+    p = model.num_collision_points
+    if not n or n >= p:
+        return model
+    return _held(model, ("thinned", n), lambda: model._replace(
+        collision_points=model.collision_points[:, ::max(p // n, 1), :]
+        [:, :n, :]))
+
+
 def _panda_fk(model: PandaModel, q: torch.Tensor, with_points: bool):
-    return kernels.panda_fk(q, model.pose_0, model.chain_post,
-                            model.center_offset, model.collision_points,
-                            True, with_points)
+    return kernels.panda_fk(q, kernel_tables(model).fk, True, with_points)
 
 
 def fk_with_joint_info_batch(model, q: torch.Tensor):
@@ -127,38 +186,26 @@ def point_jacobians(model, origins_w, axes_w, x):
 def jacobian_tables(model) -> torch.Tensor:
     """The model's point-Jacobian and finger tables as the
     ``chomp_obstacle`` kernel reads them, one float32 buffer on the model's
-    device (cached per model kind, as ``kernels._fk_tables`` caches the
-    FK's): the joint row of each dof [D], prismatic [D], affect [L, D],
-    the finger links [L] (:func:`finger_link_mask`)."""
-    jtype = None if isinstance(model, PandaModel) else model.jtype
-    return _jacobian_tables(jtype, tuple(finger_link_mask(model)),
-                            str(model.device))
-
-
-@functools.lru_cache(maxsize=32)
-def _jacobian_tables(jtype, finger: tuple, device: str) -> torch.Tensor:
-    if jtype is None:
-        d2j, affect, prismatic = (panda_mod._DOF_TO_AXIS, panda_mod._AFFECT,
-                                  panda_mod._PRISMATIC)
-    else:
-        d2j, affect, prismatic = _chain_tables_of(jtype)
-    flat = np.concatenate([np.asarray(d2j, np.float32), prismatic,
-                           affect.reshape(-1), finger]).astype(np.float32)
-    return torch.as_tensor(flat, device=device)
+    device (held by the model, :func:`kernel_tables`): the joint row of
+    each dof [D], prismatic [D], affect [L, D], the finger links [L]
+    (:func:`finger_link_mask`)."""
+    return kernel_tables(model).jacobian
 
 
 def dof_tables(model) -> torch.Tensor:
-    """[2, D] float32 on the model's device (cached per model kind), as the
-    ``chomp_step`` kernel reads them: the arm dofs (:func:`arm_dof_mask`)
-    and the others, the gripper dofs that :func:`gripper_clamp` clamps to
-    [0, 0.04]."""
-    return _dof_tables(tuple(arm_dof_mask(model)), str(model.device))
+    """[2, D] float32 on the model's device (held by the model,
+    :func:`kernel_tables`), as the ``chomp_step`` kernel reads them: the
+    arm dofs (:func:`arm_dof_mask`) and the others, the gripper dofs that
+    :func:`gripper_clamp` clamps to [0, 0.04]."""
+    return kernel_tables(model).dofs
 
 
-@functools.lru_cache(maxsize=32)
-def _dof_tables(arm: tuple, device: str) -> torch.Tensor:
-    arm = np.asarray(arm, np.float32)
-    return torch.as_tensor(np.stack([arm, 1.0 - arm]), device=device)
+def hand_poses(model: PandaModel, q: torch.Tensor) -> torch.Tensor:
+    """``panda_hand`` poses ``[N, 4, 4]`` of configurations ``q [N, 9]``:
+    ``panda.hand_pose_batch`` on the model's own ``pqr`` table."""
+    return panda_mod.fk_batch_tables(kernel_tables(model).pqr, model.pose_0,
+                                     model.center_offset, q,
+                                     apply_offset=False)[:, 7]
 
 
 def tip_pose(model, q: torch.Tensor):

@@ -53,9 +53,7 @@ _E2[0, 1] = -1.0
 _E3 = np.diag([0.0, 0.0, 1.0, 1.0])
 
 
-class PandaModel(NamedTuple):
-    """Constant kinematic tables (float32 tensors on one device)."""
-
+class _PandaFields(NamedTuple):
     pose_0: torch.Tensor        # [10, 4, 4] rest poses
     chain_post: torch.Tensor    # [7, 4, 4]  Rx(offset_i) (+ column flip)
     tip2joint: torch.Tensor     # [10, 4, 4]
@@ -64,6 +62,12 @@ class PandaModel(NamedTuple):
     joint_lower: torch.Tensor   # [9] hard limits
     joint_upper: torch.Tensor   # [9]
     collision_points: torch.Tensor  # [10, P, 3] body points
+
+
+class PandaModel(_PandaFields):
+    """Constant kinematic tables (float32 tensors on one device).  It
+    declares no ``__slots__``, so an instance has a ``__dict__``, where
+    ``models/api.py::kernel_tables`` keeps what the kernels read of it."""
 
     @property
     def num_collision_points(self) -> int:
@@ -183,11 +187,10 @@ def _mm4_const_lanes(a: torch.Tensor, b_const: torch.Tensor) -> torch.Tensor:
     return ((p[:, 0] + p[:, 1]) + p[:, 2]) + p[:, 3]
 
 
-@functools.lru_cache(maxsize=16)
 def pqr_table(pose_0, chain_post) -> torch.Tensor:
     """Per-joint constants ``[7, 3, 4, 4]``: ``(P_i, Q_i, R_i)`` with
-    ``A Rz(q) C = cos(q) P + sin(q) Q + R`` (cached per model; the table
-    the ``panda_fk`` kernel reads)."""
+    ``A Rz(q) C = cos(q) P + sin(q) Q + R`` (the table the ``panda_fk``
+    kernel reads; ``models/api.py::kernel_tables`` holds a model's)."""
     dt, dev = pose_0.dtype, pose_0.device
     e1, e2, e3 = (torch.as_tensor(e, dtype=dt, device=dev)
                   for e in (_E1, _E2, _E3))

@@ -21,6 +21,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import OMGConfig
+from ..models import api as model_api
 from ..models import panda
 from ..utils.collectives import all_gather_cat, all_reduce_max
 from ..utils.linalg import solve_spd_unrolled, take_rows, top_k
@@ -86,9 +87,8 @@ def ik_single(model, target, seed, cfg: OMGConfig, lower7, upper7) -> IKResult:
 def _batch_error_and_jac(model, q7, targets):
     """Errors and Jacobians for a batch: q7 [B,7], targets [B,4,4]
     -> (e [B,6], jac [B,6,7])."""
-    return kernels.ik_error_and_jac(
-        panda.pqr_table(model.pose_0, model.chain_post), model.pose_0, q7,
-        targets)
+    return kernels.ik_error_and_jac(model_api.kernel_tables(model).pqr,
+                                    model.pose_0, q7, targets)
 
 
 def ik_batch(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
@@ -147,7 +147,7 @@ def ik_batch(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
         it += 1
     e, _ = _batch_error_and_jac(model, q, targets)
     q9 = torch.cat([q, _fingers((b,), q)], dim=1)
-    hand = panda.forward_kinematics_batch(model, q9, apply_offset=False)[:, 7]
+    hand = model_api.hand_poses(model, q9)
     r_err = torch.einsum("bij,bkj->bik", targets[:, :3, :3], hand[:, :3, :3])
     pos_err = torch.linalg.norm(e[:, :3], dim=1)
     # angle from the trace: robust where so3_log degenerates at pi
@@ -162,9 +162,9 @@ def ik_batch_fixed(model, targets, seeds, cfg: OMGConfig, lower7, upper7,
     launch of the ``ik_prefilter`` kernel on the card, which reads
     ``targets`` in place where it is a view of one standoff stage.
     Returns (q [B, 7], post-sweep twist norm [B])."""
-    return kernels.ik_prefilter(targets, seeds, model.pose_0,
-                                model.chain_post, lower7, upper7,
-                                cfg.ik_damping, iters)
+    return kernels.ik_prefilter(targets, seeds,
+                                model_api.kernel_tables(model).fk, lower7,
+                                upper7, cfg.ik_damping, iters)
 
 
 def solve_standoff_chain(model, grasp_pose, standoff_poses, seed,
@@ -218,9 +218,10 @@ def _solve_chain_fused(model, cfg: OMGConfig, chain_tgts, seeds, lower7,
                                ).repeat_interleave(b // len(scene_budgets)
                                                    ).to(seeds.device)
     return kernels.ik_chain(
-        chain_tgts, seeds, active, budgets, model.pose_0,
-        model.chain_post, lower7, upper7, cfg.ik_damping, cfg.ik_pos_tol,
-        cfg.ik_rot_tol, cfg.ik_max_iters, cfg.ik_stall_window)
+        chain_tgts, seeds, active, budgets,
+        model_api.kernel_tables(model).fk, lower7, upper7, cfg.ik_damping,
+        cfg.ik_pos_tol, cfg.ik_rot_tol, cfg.ik_max_iters,
+        cfg.ik_stall_window)
 
 
 def solve_lanes(cfg: OMGConfig, n_grasps: int, n_seeds: int) -> int:

@@ -5,9 +5,13 @@ Each kernel's source lives in ``omg_planner_torch/csrc/``.  It is compiled
 at first use with ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C entry point under ``build/omg_torch_kernels/`` (rebuilt when the
 source's hash changes) and called through ``ctypes`` on PyTorch's current
-stream.  A wrapper takes its plain version only for tensors on the CPU;
-for a CUDA tensor it launches the kernel or raises.  Each wrapper counts
-its launches in a plain integer attribute, ``<wrapper>.launches``.
+stream, every launch through one path (:func:`_launch`).  A wrapper takes
+its plain version only for tensors on the CPU; for a CUDA tensor it
+launches the kernel or raises.  Each wrapper counts its launches in a
+plain integer attribute, ``<wrapper>.launches``.  What a kernel reads of
+a robot model (:func:`fk_tables`' buffer, the Jacobian and dof tables) is
+made once a model and held by it (``models/api.py::kernel_tables``); the
+wrappers take those tensors.
 
 Kernels:
 
@@ -69,7 +73,6 @@ has a gradient: a call on an input that requires grad raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import re
@@ -94,48 +97,44 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "omg_torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_ROLLOUT_ARGS = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                 ctypes.c_void_p]
+
+def _signature(*scalars, dims=ctypes.c_int) -> list:
+    """A C entry point's argument types: the pointers, the sizes
+    (``dims``), ``scalars``, the stream."""
+    return [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(dims), *scalars,
+            ctypes.c_void_p]
+
+
+_PLAIN = _signature()
+_TOL = _signature(ctypes.c_float)
+_CONSTS = _signature(ctypes.POINTER(ctypes.c_float))
 # library -> (source file, extra nvcc flags, {C entry point: argtypes}).
 # ``rigid_rollout_cycles`` is the rollout kernel built with its per-phase
 # cycle counters (``-DOMG_ROLLOUT_CYCLES``): a profile of the kernel, which
 # no wrapper of the main path loads.
 _LIBS = {
     "min_dist_grid": ("min_dist_grid.cu", (), {
-        "omg_min_dist_grid": [ctypes.c_void_p, ctypes.c_void_p,
-                              ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_void_p],
+        "omg_min_dist_grid": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_void_p],
         "omg_min_dist_grid_layout": [ctypes.c_int, ctypes.c_int,
                                      ctypes.POINTER(ctypes.c_int)],
     }),
-    "rigid_rollout": ("rigid_rollout.cu", (), {
-        "omg_rigid_rollout": _ROLLOUT_ARGS}),
+    "rigid_rollout": ("rigid_rollout.cu", (), {"omg_rigid_rollout": _PLAIN}),
     "rigid_rollout_cycles": ("rigid_rollout.cu", ("-DOMG_ROLLOUT_CYCLES",), {
-        "omg_rigid_rollout_cycles": _ROLLOUT_ARGS}),
-    "panda_fk": ("panda_fk.cu", (), {"omg_panda_fk": _ROLLOUT_ARGS}),
-    "sdf_query": ("sdf_query.cu", (), {
-        name: [ctypes.POINTER(ctypes.c_void_p),
-               ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
-        for name in ("omg_sdf_query_analytic", "omg_sdf_query_baked")}),
+        "omg_rigid_rollout_cycles": _PLAIN}),
+    "panda_fk": ("panda_fk.cu", (), {"omg_panda_fk": _PLAIN}),
+    "sdf_query": ("sdf_query.cu", (), dict.fromkeys(
+        ("omg_sdf_query_analytic", "omg_sdf_query_baked"),
+        _signature(dims=ctypes.c_longlong))),
     "md_update": ("md_update.cu", (), {
-        "omg_md_update": [ctypes.POINTER(ctypes.c_void_p),
-                          ctypes.POINTER(ctypes.c_int), ctypes.c_float,
-                          ctypes.c_void_p],
+        "omg_md_update": _TOL,
         "omg_empty_launch": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}),
-    "joint_limit": ("joint_limit.cu", (), {"omg_joint_limit": [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-        ctypes.c_void_p]}),
+    "joint_limit": ("joint_limit.cu", (), {"omg_joint_limit": _PLAIN}),
     "ik_newton": ("ik_newton.cu", (), {
-        "omg_ik_prefilter": [ctypes.POINTER(ctypes.c_void_p),
-                             ctypes.POINTER(ctypes.c_int), ctypes.c_float,
-                             ctypes.c_void_p],
-        "omg_ik_chain": [ctypes.POINTER(ctypes.c_void_p),
-                         ctypes.POINTER(ctypes.c_int)]
-        + [ctypes.c_float] * 4 + [ctypes.c_void_p]}),
-    "chomp_cost": ("chomp_cost.cu", (), {
-        name: [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-               ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
-        for name in ("omg_chomp_obstacle", "omg_chomp_step")}),
+        "omg_ik_prefilter": _TOL,
+        "omg_ik_chain": _signature(*[ctypes.c_float] * 4)}),
+    "chomp_cost": ("chomp_cost.cu", (), dict.fromkeys(
+        ("omg_chomp_obstacle", "omg_chomp_step"), _CONSTS)),
 }
 _ENTRIES: dict = {}
 
@@ -218,27 +217,53 @@ def _entry(lib: str, name: str):
     return fn
 
 
-def _stream(dev) -> int:
-    """PyTorch's current stream on CUDA device ``dev``."""
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _raw_stream(dev) -> int:
-    """:func:`_stream` without building a ``torch.cuda.Stream``: the
-    current stream's handle as an int, read on every call (a graph's
-    capture, or a caller's ``torch.cuda.stream``, changes it)."""
+    """PyTorch's current stream on CUDA device ``dev``, as an int (no
+    ``torch.cuda.Stream`` is built), read on every call: a graph's
+    capture, or a caller's ``torch.cuda.stream``, changes it."""
     return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
-def _check_points(name: str, t: torch.Tensor, device):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if t.ndim != 2 or t.shape[1] != 3:
-        raise ValueError(f"{name} must be [n, 3], got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _launch(kernel: str, lib: str, entry: str, keep, outs, rows: int,
+            *args):
+    """The one launch path: C entry point ``entry`` of library ``lib`` on
+    ``args`` (its arguments before the stream: the pointers and the sizes
+    a ``_*_pack`` lays out, then any scalars) and PyTorch's current stream
+    on ``keep[0]``'s device, unless ``rows`` is 0.  ``keep``, the tensors
+    the pointers name, lives until the call returns; the stream orders any
+    reuse of their blocks after the launch.  Raises when the launch fails
+    and counts it in ``<kernel>.launches``, through the module's name (a
+    probe may wrap the wrapper).  Returns ``outs``."""
+    if rows:
+        status = _entry(lib, entry)(*args, _raw_stream(keep[0].device))
+        if status != 0:
+            raise RuntimeError(f"{kernel} launch failed: CUDA error "
+                               f"{status}")
+        getattr(_THIS, kernel).launches += 1
+    return outs
+
+
+def _checked(name: str, t: Tensor, device, dtype, shape) -> Tensor:
+    """``t``, after checking that it has ``dtype``, lies on ``device`` and
+    has ``shape`` (None: any size); raises on anything else.  One
+    comparison of each where all three match exactly."""
+    if t.dtype == dtype and t.device == device and t.shape == shape:
+        return t
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.ndim != len(shape) or any(w is not None and w != n
+                                   for w, n in zip(shape, t.shape)):
+        raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    return t
+
+
+def _input(name: str, t: Tensor, device, dtype, shape) -> Tensor:
+    """``t`` as a kernel reads it: :func:`_checked`, and contiguous (copied
+    only if it is not)."""
+    t = _checked(name, t, device, dtype, shape)
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def min_dist_grid_plain(grid: torch.Tensor, points: torch.Tensor,
@@ -265,19 +290,18 @@ def min_dist_grid(grid: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
         return min_dist_grid_plain(grid, points)
     if grid.device.type != "cuda":
         raise ValueError(f"min_dist_grid: unsupported device {grid.device}")
-    _check_points("grid", grid, grid.device)
-    _check_points("points", points, grid.device)
+    dev = grid.device
+    for name, t in (("grid", grid), ("points", points)):
+        if not _checked(name, t, dev, torch.float32,
+                        (None, 3)).is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
     g, n = grid.shape[0], points.shape[0]
     if g >= 2**31 // 3 or n >= 2**31 // 3:
         raise ValueError("min_dist_grid: more than 2^31 coordinates")
-    fn = _entry("min_dist_grid", "omg_min_dist_grid")
-    out = torch.empty(g, dtype=torch.float32, device=grid.device)
-    status = fn(grid.data_ptr(), points.data_ptr(), out.data_ptr(), g, n,
-                _stream(grid.device))
-    if status != 0:
-        raise RuntimeError(f"min_dist_grid launch failed: CUDA error {status}")
-    min_dist_grid.launches += 1
-    return out
+    out = torch.empty(g, dtype=torch.float32, device=dev)
+    return _launch("min_dist_grid", "min_dist_grid", "omg_min_dist_grid",
+                   (grid, points), out, g, grid.data_ptr(),
+                   points.data_ptr(), out.data_ptr(), g, n)
 
 
 min_dist_grid.launches = 0
@@ -295,12 +319,6 @@ def min_dist_grid_layout(g: int, n: int) -> dict:
         raise RuntimeError(f"min_dist_grid layout failed: CUDA error {status}")
     return dict(zip(("blocks", "threads", "smem_bytes", "blocks_per_sm",
                      "sms", "units", "unit_cells"), info))
-
-
-def _dev_f32(name: str, t: torch.Tensor, device) -> torch.Tensor:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    return t.to(torch.float32).contiguous()
 
 
 #: contact lanes the rollout kernel takes: its one solving warp holds 4
@@ -338,7 +356,7 @@ def _rigid_rollout_pack(spec, world, pp, state0, sph_track, is_finger,
                          "solving warp)")
 
     def f(name, a):
-        return _dev_f32(name, a, dev)
+        return _input(name, a.to(torch.float32), dev, torch.float32, a.shape)
 
     state = f("state0", torch.cat([state0.x, state0.q, state0.v, state0.w],
                                   -1))
@@ -394,9 +412,9 @@ def _rigid_rollout_unpack(out_state, out_trace):
     return final, traces
 
 
-def _launch_rollout(lib: str, name: str, args, kw, cycles: bool = False):
-    """Pack, launch ``name`` of ``lib`` on the current stream, unpack;
-    with ``cycles`` the launch also fills the [B, 6] int64 per-phase cycle
+def _launch_rollout(kernel: str, args, kw, cycles: bool = False):
+    """Pack, launch library ``kernel``'s entry point, unpack; with
+    ``cycles`` the launch also fills the [B, 6] int64 per-phase cycle
     counts of the profile build (appended to the pointers)."""
     dev = args[4].device
     if dev.type != "cuda":
@@ -412,11 +430,7 @@ def _launch_rollout(lib: str, name: str, args, kw, cycles: bool = False):
                               device=dev)
         ptrs = (ctypes.c_void_p * (len(ptrs) + 1))(*ptrs,
                                                    out_cyc.data_ptr())
-    fn = _entry(lib, name)
-    status = fn(ptrs, dims, _stream(dev))
-    del keep  # the stream orders any reuse of these blocks after the launch
-    if status != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {status}")
+    _launch(kernel, kernel, f"omg_{kernel}", keep, None, dims[0], ptrs, dims)
     return _rigid_rollout_unpack(out_state, out_trace), out_cyc
 
 
@@ -429,13 +443,11 @@ def rigid_rollout(spec, world, pp, state0, sph_track, is_finger, pad_track,
     for tensors off the card (``rigid.rollout`` runs the plain version on
     the CPU) and when the launch fails.  Returns (final BodyState,
     traces)."""
-    out, _ = _launch_rollout(
-        "rigid_rollout", "omg_rigid_rollout",
+    return _launch_rollout(
+        "rigid_rollout",
         (spec, world, pp, state0, sph_track, is_finger, pad_track,
          pad_samples, pad_axis, jv_track, jv_ref),
-        dict(k_robot=k_robot, k_pad=k_pad, k_world=k_world, iters=iters))
-    rigid_rollout.launches += 1
-    return out
+        dict(k_robot=k_robot, k_pad=k_pad, k_world=k_world, iters=iters))[0]
 
 
 rigid_rollout.launches = 0
@@ -453,23 +465,26 @@ def rigid_rollout_cycles(*args, **kw):
     int64.  A measurement tool, not a path of the package: it is never
     counted as a launch of ``rigid_rollout``.  Returns (final, traces,
     cycles)."""
-    (final, traces), cyc = _launch_rollout(
-        "rigid_rollout_cycles", "omg_rigid_rollout_cycles", args, kw,
-        cycles=True)
+    (final, traces), cyc = _launch_rollout("rigid_rollout_cycles", args,
+                                           kw, cycles=True)
     return final, traces, cyc
 
 
-# -- the plan kernels' operators ----------------------------------------------
+rigid_rollout_cycles.launches = 0
+
+
+# -- the operators ----------------------------------------------------------
 #
-# ``panda_fk`` and ``sdf_query`` are operators of one ``torch.library``
-# namespace, so the scene batches' ``torch.func.vmap`` reaches them: the CPU
-# key runs the plain version, the CUDA key the launch, a vmap rule folds the
-# mapped axis into one launch, and the Autograd key raises on an input that
-# requires grad (neither has a gradient) and otherwise passes the call on.
-# They are registered on a ``Library`` directly, not as ``custom_op``s,
-# whose first call imports ``torch._dynamo``, ``sympy`` and
-# ``torch.distributed.tensor`` (seconds in every fresh process) and whose
-# dispatch costs more host time a call.
+# Every kernel below is an operator of one ``torch.library`` namespace, so
+# the scene batches' ``torch.func.vmap`` reaches it: the CPU key runs the
+# plain version, the CUDA key packs the arguments (its ``_*_pack``) and
+# launches through :func:`_launch`, a vmap rule folds the mapped axis into
+# one launch, and the Autograd key raises on an input that requires grad
+# (no kernel has a gradient) and otherwise passes the call on.  They are
+# registered on a ``Library`` directly, not as ``custom_op``s, whose first
+# call imports ``torch._dynamo``, ``sympy`` and ``torch.distributed.tensor``
+# (seconds in every fresh process) and whose dispatch costs more host time
+# a call.
 
 _LIB = torch.library.Library("omg_torch", "DEF")
 
@@ -502,35 +517,56 @@ def _define(schema: str, cpu, cuda, vmap_rule):
     return op
 
 
-def _checked(name: str, t: Tensor, device, dtype, shape) -> Tensor:
-    """``t``, after checking that it has ``dtype``, lies on ``device`` and
-    has ``shape`` (None: any size); raises on anything else."""
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.shape != shape and (t.ndim != len(shape) or any(
-            w is not None and w != n for w, n in zip(shape, t.shape))):
-        raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    return t
-
-
-def _f32_on(name: str, t: Tensor, device, shape) -> Tensor:
-    """``t`` as the kernel reads it: float32, on ``device``, of ``shape``,
-    contiguous."""
-    return _checked(name, t, device, torch.float32, shape).contiguous()
-
-
 # -- panda_fk ----------------------------------------------------------------
 
 FK_LINKS = panda.NUM_LINKS
+#: floats of a Panda model's tables ahead of its body points: pqr [7, 3, 4,
+#: 4], pose_0 [10, 4, 4] (the IK kernels' head) and center_offset [10, 4, 4]
+_FK_HEAD = 7 * 3 * 16 + 2 * FK_LINKS * 16
+
+
+def fk_tables(pqr, pose_0, center_offset, points) -> Tensor:
+    """A Panda model's tables as the ``panda_fk`` and IK kernels read them:
+    pqr [7, 3, 4, 4] (``panda.pqr_table``), pose_0 [10, 4, 4],
+    center_offset [10, 4, 4] and points [10, P, 3], checked and laid out
+    flat in one float32 buffer on pose_0's device; the IK kernels read its
+    head, pqr and pose_0.  ``models/api.py::kernel_tables`` makes it once
+    a model."""
+    dev = pose_0.device
+    return torch.cat([_input(name, t, dev, torch.float32, shape).reshape(-1)
+                      for name, t, shape in (
+                          ("pqr", pqr, (7, 3, 4, 4)),
+                          ("pose_0", pose_0, (FK_LINKS, 4, 4)),
+                          ("center_offset", center_offset, (FK_LINKS, 4, 4)),
+                          ("points", points, (FK_LINKS, None, 3)))])
+
+
+def fk_table_parts(tables: Tensor) -> tuple:
+    """(pqr, pose_0, center_offset, points): views of :func:`fk_tables`'
+    buffer."""
+    p = (tables.shape[-1] - _FK_HEAD) // (3 * FK_LINKS)
+    pqr, pose_0, center_offset, points = tables.split(
+        (7 * 3 * 16, FK_LINKS * 16, FK_LINKS * 16, 3 * FK_LINKS * p))
+    return (pqr.view(7, 3, 4, 4), pose_0.view(FK_LINKS, 4, 4),
+            center_offset.view(FK_LINKS, 4, 4), points.view(FK_LINKS, p, 3))
+
+
+def _tables_on(tables: Tensor, device) -> Tensor:
+    """:func:`fk_tables`' buffer, checked: float32 on ``device``, whole."""
+    _checked("the model's tables", tables, device, torch.float32, (None,))
+    n = tables.shape[0]
+    if n < _FK_HEAD or (n - _FK_HEAD) % (3 * FK_LINKS):
+        raise ValueError(f"the model's tables ({n} values) are not "
+                         "kernels.fk_tables' buffer")
+    return tables
 
 
 def panda_fk_plain(q, pqr, pose_0, center_offset, points,
                    apply_offset: bool = True, with_points: bool = True):
-    """Plain version of the ``panda_fk`` kernel, on the arguments of its
-    operator: ``models/panda.py::fk_batch_tables``, then ``points_at``
-    when ``with_points`` (else x has P = 0)."""
+    """Plain version of the ``panda_fk`` kernel, on the parts of the
+    model's tables (:func:`fk_table_parts`):
+    ``models/panda.py::fk_batch_tables``, then ``points_at`` when
+    ``with_points`` (else x has P = 0)."""
     poses, og, ax = panda.fk_batch_tables(pqr, pose_0, center_offset, q,
                                           True, apply_offset)
     x = (panda.points_at(points, poses) if with_points
@@ -538,43 +574,18 @@ def panda_fk_plain(q, pqr, pose_0, center_offset, points,
     return poses, og, ax, x
 
 
-@functools.lru_cache(maxsize=16)
-def _fk_tables(pqr, pose_0, center_offset, points) -> Tensor:
-    """A model's tables as the kernel reads them, checked and laid out once
-    per model (they are constants, as ``panda.pqr_table`` caches them):
-    pqr [7, 3, 4, 4], pose_0 [10, 4, 4], center_offset [10, 4, 4] and
-    points [10, P, 3], flat in one float32 buffer on pose_0's device (its
-    head is :func:`_ik_tables`)."""
-    dev = pose_0.device
-    return torch.cat([
-        _ik_tables(pqr, pose_0),
-        _f32_on("center_offset", center_offset, dev,
-                (FK_LINKS, 4, 4)).reshape(-1),
-        _f32_on("points", points, dev, (FK_LINKS, None, 3)).reshape(-1)])
+def _panda_fk_cpu(q, tables, apply_offset, with_points):
+    return panda_fk_plain(q, *fk_table_parts(tables), apply_offset,
+                          with_points)
 
 
-@functools.lru_cache(maxsize=16)
-def _ik_tables(pqr, pose_0) -> Tensor:
-    """The head of :func:`_fk_tables`' buffer, which the IK kernels read:
-    pqr [7, 3, 4, 4], then pose_0 [10, 4, 4], flat float32 on pose_0's
-    device, checked and laid out once per model."""
-    dev = pose_0.device
-    return torch.cat([
-        _f32_on("pqr", pqr, dev, (7, 3, 4, 4)).reshape(-1),
-        _f32_on("pose_0", pose_0, dev, (FK_LINKS, 4, 4)).reshape(-1)])
-
-
-def _panda_fk_pack(q, pqr, pose_0, center_offset, points, apply_offset,
-                   with_points):
+def _panda_fk_pack(q, tables, apply_offset, with_points):
     """Check and lay out the C entry point's arguments: (tensors to keep
     alive, (poses, origins, axes, x), the 6 pointers, the 4 ints)."""
     dev = q.device
-    q = _f32_on("q", q, dev, (None, 9))
-    tables = _fk_tables(pqr, pose_0, center_offset, points)
-    if tables.device != dev:
-        raise ValueError(f"the model's tables are on {tables.device}, "
-                         f"expected {dev}")
-    n, p = q.shape[0], points.shape[1]
+    q = _input("q", q, dev, torch.float32, (None, 9))
+    tables = _tables_on(tables, dev)
+    n, p = q.shape[0], (tables.shape[0] - _FK_HEAD) // (3 * FK_LINKS)
     if n * FK_LINKS * max(16, 3 * p) >= 2**31:
         raise ValueError("panda_fk: more than 2^31 output values")
     outs = (torch.empty(n, FK_LINKS, 4, 4, dtype=torch.float32, device=dev),
@@ -588,32 +599,22 @@ def _panda_fk_pack(q, pqr, pose_0, center_offset, points, apply_offset,
     return (q, tables), outs, ptrs, dims
 
 
-def _panda_fk_cuda(q, pqr, pose_0, center_offset, points, apply_offset,
-                   with_points):
-    keep, outs, ptrs, dims = _panda_fk_pack(q, pqr, pose_0, center_offset,
-                                            points, apply_offset, with_points)
-    if dims[0] == 0:
-        return outs
-    status = _entry("panda_fk", "omg_panda_fk")(ptrs, dims,
-                                                _stream(q.device))
-    del keep  # the stream orders any reuse of these blocks after the launch
-    if status != 0:
-        raise RuntimeError(f"panda_fk launch failed: CUDA error {status}")
-    panda_fk.launches += 1
-    return outs
+def _panda_fk_cuda(q, tables, apply_offset, with_points):
+    keep, outs, ptrs, dims = _panda_fk_pack(q, tables, apply_offset,
+                                            with_points)
+    return _launch("panda_fk", "panda_fk", "omg_panda_fk", keep, outs,
+                   dims[0], ptrs, dims)
 
 
 def _panda_fk_vmap(op):
-    def rule(info, in_dims, q, pqr, pose_0, center_offset, points,
-             apply_offset, with_points):
+    def rule(info, in_dims, q, tables, apply_offset, with_points):
         """vmap rule: the mapped axis of ``q`` folds into the
         configurations (one launch); the model's tables must not be
         mapped."""
-        if any(d is not None for d in in_dims[1:5]):
+        if in_dims[1] is not None:
             raise ValueError("panda_fk under vmap: the model's tables must "
                              "be the same for every mapped row")
-        args = (pqr, pose_0, center_offset, points, apply_offset,
-                with_points)
+        args = (tables, apply_offset, with_points)
         if in_dims[0] is None:
             return op(q, *args), (None,) * 4
         q = q.movedim(in_dims[0], 0)
@@ -624,24 +625,21 @@ def _panda_fk_vmap(op):
 
 
 _panda_fk_op = _define(
-    "panda_fk(Tensor q, Tensor pqr, Tensor pose_0, Tensor center_offset, "
-    "Tensor points, bool apply_offset, bool with_points) "
+    "panda_fk(Tensor q, Tensor tables, bool apply_offset, bool with_points) "
     "-> (Tensor, Tensor, Tensor, Tensor)",
-    panda_fk_plain, _panda_fk_cuda, _panda_fk_vmap)
+    _panda_fk_cpu, _panda_fk_cuda, _panda_fk_vmap)
 
 
-def panda_fk(q: Tensor, pose_0: Tensor, chain_post: Tensor,
-             center_offset: Tensor, points: Tensor, apply_offset: bool = True,
+def panda_fk(q: Tensor, tables: Tensor, apply_offset: bool = True,
              with_points: bool = True):
-    """Panda FK of configurations ``q [N, 9]`` on the model's tables (a
-    ``PandaModel``'s fields): (link poses [N, 10, 4, 4] (mesh-centre frames
-    when ``apply_offset``), world joint origins [N, 10, 3], axes [N, 10,
-    3], body points of ``points [10, P, 3]`` [N, 10, P, 3] (P = 0 unless
-    ``with_points``)).  The kernel for CUDA tensors (one launch), the
-    plain version for CPU tensors; under ``torch.func.vmap`` one call for
-    every mapped row."""
-    return _panda_fk_op(q, panda.pqr_table(pose_0, chain_post), pose_0,
-                        center_offset, points, apply_offset, with_points)
+    """Panda FK of configurations ``q [N, 9]`` on the model's tables
+    (:func:`fk_tables`' buffer, ``models/api.py::kernel_tables(model).fk``):
+    (link poses [N, 10, 4, 4] (mesh-centre frames when ``apply_offset``),
+    world joint origins [N, 10, 3], axes [N, 10, 3], body points [N, 10,
+    P, 3] (P = 0 unless ``with_points``)).  The kernel for CUDA tensors
+    (one launch), the plain version for CPU tensors; under
+    ``torch.func.vmap`` one call for every mapped row."""
+    return _panda_fk_op(q, tables, apply_offset, with_points)
 
 
 panda_fk.launches = 0
@@ -728,15 +726,8 @@ def _sdf_query_pack(row_args, scene_args):
 
 def _sdf_query_cuda(entry, row_args, scene_args):
     keep, outs, ptrs, dims = _sdf_query_pack(row_args, scene_args)
-    if dims[0] * dims[1] == 0:
-        return outs
-    status = _entry("sdf_query", entry)(ptrs, dims,
-                                        _stream(row_args[1].device))
-    del keep  # the stream orders any reuse of these blocks after the launch
-    if status != 0:
-        raise RuntimeError(f"sdf_query launch failed: CUDA error {status}")
-    sdf_query.launches += 1
-    return outs
+    return _launch("sdf_query", "sdf_query", entry, keep, outs,
+                   dims[0] * dims[1], ptrs, dims)
 
 
 def _sdf_vmap(op):
@@ -755,50 +746,29 @@ _SDF_ROWS = ("Tensor inv_poses, Tensor points, Tensor epsilons, "
              "Tensor padding_scales, Tensor clearances, Tensor disables")
 
 
-def _sdf_analytic_cpu(inv_poses, points, epsilons, padding_scales,
-                      clearances, disables, kinds, halfs, penals, rounds):
-    from .sdf import AnalyticScene
+def _sdf_form(form: str, scene_type: str):
+    """The CPU and CUDA kernels of ``sdf_query_<form>``: the first six
+    arguments are the rows (``_SDF_ROWS``), the rest the scene's tensors,
+    from which the plain version rebuilds an ``ops/sdf.py::<scene_type>``
+    row by row."""
+    def cpu(*args):
+        from . import sdf
 
-    return _sdf_query_rows(
-        AnalyticScene,
-        (inv_poses, points, epsilons, padding_scales, clearances, disables),
-        (kinds, halfs, penals, rounds))
+        return _sdf_query_rows(getattr(sdf, scene_type), args[:6], args[6:])
 
-
-def _sdf_analytic_cuda(inv_poses, points, epsilons, padding_scales,
-                       clearances, disables, kinds, halfs, penals, rounds):
-    return _sdf_query_cuda(
-        "omg_sdf_query_analytic",
-        (inv_poses, points, epsilons, padding_scales, clearances, disables),
-        (kinds, halfs, penals, rounds))
-
-
-def _sdf_baked_cpu(inv_poses, points, epsilons, padding_scales, clearances,
-                   disables, data4, limits):
-    from .sdf import BakedSceneSDF
-
-    return _sdf_query_rows(
-        BakedSceneSDF,
-        (inv_poses, points, epsilons, padding_scales, clearances, disables),
-        (data4, limits))
-
-
-def _sdf_baked_cuda(inv_poses, points, epsilons, padding_scales, clearances,
-                    disables, data4, limits):
-    return _sdf_query_cuda(
-        "omg_sdf_query_baked",
-        (inv_poses, points, epsilons, padding_scales, clearances, disables),
-        (data4, limits))
+    def cuda(*args):
+        return _sdf_query_cuda(f"omg_sdf_query_{form}", args[:6], args[6:])
+    return cpu, cuda
 
 
 _sdf_analytic_op = _define(
     f"sdf_query_analytic({_SDF_ROWS}, Tensor kinds, Tensor halfs, "
     "Tensor penals, Tensor rounds) -> (Tensor, Tensor, Tensor)",
-    _sdf_analytic_cpu, _sdf_analytic_cuda, _sdf_vmap)
+    *_sdf_form("analytic", "AnalyticScene"), _sdf_vmap)
 _sdf_baked_op = _define(
     f"sdf_query_baked({_SDF_ROWS}, Tensor data4, Tensor limits) "
     "-> (Tensor, Tensor, Tensor)",
-    _sdf_baked_cpu, _sdf_baked_cuda, _sdf_vmap)
+    *_sdf_form("baked", "BakedSceneSDF"), _sdf_vmap)
 
 
 def sdf_query(scene, inv_poses: Tensor, points: Tensor, epsilons: Tensor,
@@ -922,81 +892,42 @@ def md_update_plain(experts_p, cv, mask, experts_costs, q, live,
     return out + (it,) if passes else out
 
 
-def _input(name: str, t: Tensor, device, dtype, shape) -> Tensor:
-    """``t`` as a kernel reads it, in one pass: of ``dtype``, on ``device``,
-    of exactly ``shape``, contiguous (copied only if it is not); raises on
-    anything else."""
-    if t.dtype != dtype or t.device != device or t.shape != shape:
-        _checked(name, t, device, dtype, shape)
-    return t if t.is_contiguous() else t.contiguous()
-
-
-def _md_update_inputs(experts_p, cv, mask, experts_costs, q, live):
-    """The kernel's inputs, checked and contiguous: (experts_p, cv, mask,
-    experts_costs, q, live or None), the leading (row) dims and G."""
+def _md_update_pack(experts_p, cv, mask, experts_costs, q, live,
+                    optim_steps, max_iters):
+    """Check and lay out the C entry point's arguments: (tensors to keep
+    alive, (p, experts_p, experts_costs, q), the 7 pointers, the 4 ints).
+    The four outputs are contiguous views of one buffer, one after another
+    as the kernel writes them."""
     dev = cv.device
     lead, g = tuple(cv.shape[:-1]), cv.shape[-1]
     e, f32 = MD_EXPERTS, torch.float32
     if g == 0 or 4 * ((2 + 3 * e) * g + 2 * e) > _MAX_SMEM:
         raise ValueError(f"md_update: {g} goals; the kernel takes 1 to "
                          "3,417")
-    return (_input("experts_p", experts_p, dev, f32, lead + (e, g)),
-            _input("cv", cv, dev, f32, lead + (g,)),
-            _input("mask", mask, dev, torch.bool, lead + (g,)),
-            _input("experts_costs", experts_costs, dev, f32, lead + (e,)),
-            _input("q", q, dev, f32, lead + (e,)),
-            None if live is None
-            else _input("live", live, dev, torch.bool, lead)), lead, g
-
-
-def _md_update_outputs(lead, g: int, device):
-    """One buffer for the four outputs and its contiguous views (p [...,
-    G], experts_p [..., 5, G], experts_costs [..., 5], q [..., 5]), one
-    after another as the kernel writes them."""
-    s, e = _row_count(lead), MD_EXPERTS
-    buf = torch.empty(s * (6 * g + 2 * e), dtype=torch.float32,
-                      device=device)
+    ins = (_input("experts_p", experts_p, dev, f32, lead + (e, g)),
+           _input("cv", cv, dev, f32, lead + (g,)),
+           _input("mask", mask, dev, torch.bool, lead + (g,)),
+           _input("experts_costs", experts_costs, dev, f32, lead + (e,)),
+           _input("q", q, dev, f32, lead + (e,)),
+           None if live is None
+           else _input("live", live, dev, torch.bool, lead))
+    s = _row_count(lead)
+    buf = torch.empty(s * (6 * g + 2 * e), dtype=f32, device=dev)
     p, ep, costs, q = buf.unsafe_split_with_sizes((s * g, s * e * g, s * e,
                                                    s * e))
-    if lead:
-        p, costs, q = (p.view(lead + (g,)), costs.view(lead + (e,)),
-                       q.view(lead + (e,)))
-    return buf, (p, ep.view(lead + (e, g)), costs, q)
-
-
-def _md_update_args(ins, buf, lead, g, optim_steps, max_iters):
-    """The C entry point's 7 pointers and 4 ints."""
+    outs = (p.view(lead + (g,)), ep.view(lead + (e, g)),
+            costs.view(lead + (e,)), q.view(lead + (e,)))
     ptrs = (ctypes.c_void_p * 7)(*[None if t is None else t.data_ptr()
                                    for t in ins], buf.data_ptr())
-    return ptrs, (ctypes.c_int * 4)(_row_count(lead), g, optim_steps,
-                                    max_iters)
-
-
-def _md_update_pack(experts_p, cv, mask, experts_costs, q, live,
-                    optim_steps, max_iters):
-    """Check and lay out the C entry point's arguments: (tensors to keep
-    alive, (p, experts_p, experts_costs, q), the 7 pointers, the 4
-    ints)."""
-    ins, lead, g = _md_update_inputs(experts_p, cv, mask, experts_costs, q,
-                                     live)
-    buf, outs = _md_update_outputs(lead, g, cv.device)
-    ptrs, dims = _md_update_args(ins, buf, lead, g, optim_steps, max_iters)
-    return ins, outs, ptrs, dims
+    return ins, outs, ptrs, (ctypes.c_int * 4)(s, g, optim_steps, max_iters)
 
 
 def _md_update_cuda(experts_p, cv, mask, experts_costs, q, live,
                     optim_steps, max_iters, tol):
     keep, outs, ptrs, dims = _md_update_pack(
         experts_p, cv, mask, experts_costs, q, live, optim_steps, max_iters)
-    if dims[0] == 0:
-        return outs
-    status = _entry("md_update", "omg_md_update")(ptrs, dims, tol,
-                                                  _raw_stream(cv.device))
-    del keep  # the stream orders any reuse of these blocks after the launch
-    if status != 0:
-        raise RuntimeError(f"md_update launch failed: CUDA error {status}")
-    md_update.launches += 1
-    return outs
+    return _launch("md_update", "md_update", "omg_md_update", keep, outs,
+                   dims[0], ptrs, dims, tol)
 
 
 _md_update_op = _define(
@@ -1097,9 +1028,9 @@ def joint_limit_plain(xi, lower, upper, ainv, live, max_steps: int):
     return xi.reshape(shape)
 
 
-def _joint_limit_inputs(xi, lower, upper, ainv, live):
-    """The kernel's inputs, checked and contiguous: (xi, lower, upper,
-    ainv, live or None), the leading (row) dims, T and D."""
+def _joint_limit_pack(xi, lower, upper, ainv, live, max_steps):
+    """Check and lay out the C entry point's arguments: (tensors to keep
+    alive, the output trajectory, the 6 pointers, the 4 ints)."""
     dev = xi.device
     if xi.ndim < 2:
         raise ValueError(f"xi must be [..., T, D], got {tuple(xi.shape)}")
@@ -1108,43 +1039,24 @@ def _joint_limit_inputs(xi, lower, upper, ainv, live):
         raise ValueError(f"joint_limit: T = {t}, D = {d} exceed a block's "
                          "shared memory")
     f32 = torch.float32
-    return (_input("xi", xi, dev, f32, lead + (t, d)),
-            _input("lower", lower, dev, f32, lead + (d,)),
-            _input("upper", upper, dev, f32, lead + (d,)),
-            _input("ainv", ainv, dev, f32, (t, t)),
-            None if live is None
-            else _input("live", live, dev, torch.bool, lead)), lead, t, d
-
-
-def _joint_limit_args(ins, out, lead, t, d, max_steps):
-    """The C entry point's 6 pointers and 4 ints."""
+    ins = (_input("xi", xi, dev, f32, lead + (t, d)),
+           _input("lower", lower, dev, f32, lead + (d,)),
+           _input("upper", upper, dev, f32, lead + (d,)),
+           _input("ainv", ainv, dev, f32, (t, t)),
+           None if live is None
+           else _input("live", live, dev, torch.bool, lead))
+    out = torch.empty(lead + (t, d), dtype=f32, device=dev)
     ptrs = (ctypes.c_void_p * 6)(*[None if a is None else a.data_ptr()
                                    for a in ins], out.data_ptr())
-    return ptrs, (ctypes.c_int * 4)(_row_count(lead) if t * d else 0, t, d,
-                                    max_steps)
-
-
-def _joint_limit_pack(xi, lower, upper, ainv, live, max_steps):
-    """Check and lay out the C entry point's arguments: (tensors to keep
-    alive, the output trajectory, the 6 pointers, the 4 ints)."""
-    ins, lead, t, d = _joint_limit_inputs(xi, lower, upper, ainv, live)
-    out = torch.empty(lead + (t, d), dtype=torch.float32, device=xi.device)
-    ptrs, dims = _joint_limit_args(ins, out, lead, t, d, max_steps)
-    return ins, out, ptrs, dims
+    return ins, out, ptrs, (ctypes.c_int * 4)(
+        _row_count(lead) if t * d else 0, t, d, max_steps)
 
 
 def _joint_limit_cuda(xi, lower, upper, ainv, live, max_steps):
     keep, out, ptrs, dims = _joint_limit_pack(xi, lower, upper, ainv, live,
                                               max_steps)
-    if dims[0] == 0:
-        return out
-    status = _entry("joint_limit", "omg_joint_limit")(ptrs, dims,
-                                                      _raw_stream(xi.device))
-    del keep  # the stream orders any reuse of these blocks after the launch
-    if status != 0:
-        raise RuntimeError(f"joint_limit launch failed: CUDA error {status}")
-    joint_limit.launches += 1
-    return out
+    return _launch("joint_limit", "joint_limit", "omg_joint_limit", keep,
+                   out, dims[0], ptrs, dims)
 
 
 _joint_limit_op = _define(
@@ -1300,13 +1212,10 @@ def ik_acceptance(chain_tgts, qs, pqr, pose_0):
             torch.linalg.norm(e[:, 3:], dim=1).reshape(b, k - 1))
 
 
-def _ik_shared(pqr, pose_0, lower7, upper7, dev) -> list:
+def _ik_shared(tables, lower7, upper7, dev) -> list:
     """The model's tables and the limits as the kernels read them."""
-    tables = _ik_tables(pqr, pose_0)
-    if tables.device != dev:
-        raise ValueError(f"the model's tables are on {tables.device}, "
-                         f"expected {dev}")
-    return [tables, _input("lower7", lower7, dev, torch.float32, (7,)),
+    return [_tables_on(tables, dev),
+            _input("lower7", lower7, dev, torch.float32, (7,)),
             _input("upper7", upper7, dev, torch.float32, (7,))]
 
 
@@ -1315,9 +1224,7 @@ def _pose_lanes(name: str, t: Tensor, device, lead) -> tuple:
     whose 4 x 4s are each contiguous and lie one stride apart, that stride
     in floats).  A view of that form, such as one stage of the standoff
     targets, is read in place; anything else is copied once."""
-    if t.dtype != torch.float32 or t.device != device or t.shape != (
-            lead + (4, 4)):
-        _checked(name, t, device, torch.float32, lead + (4, 4))
+    _checked(name, t, device, torch.float32, lead + (4, 4))
     if t.ndim == 3 and t.stride()[1:] == (4, 1) and t.stride(0) < 2**31:
         return t, t.stride(0)
     try:
@@ -1329,7 +1236,7 @@ def _pose_lanes(name: str, t: Tensor, device, lead) -> tuple:
     return lanes, lanes.stride(0)
 
 
-def _ik_prefilter_pack(targets, seeds, pqr, pose_0, lower7, upper7, iters):
+def _ik_prefilter_pack(targets, seeds, tables, lower7, upper7, iters):
     """Check and lay out the C entry point's arguments: (tensors to keep
     alive, (q, err), the 7 pointers, the 3 ints)."""
     dev = seeds.device
@@ -1337,7 +1244,7 @@ def _ik_prefilter_pack(targets, seeds, pqr, pose_0, lower7, upper7, iters):
     f32 = torch.float32
     tgt, stride = _pose_lanes("targets", targets, dev, lead)
     ins = [tgt, _input("seeds", seeds, dev, f32, lead + (7,))]
-    ins += _ik_shared(pqr, pose_0, lower7, upper7, dev)
+    ins += _ik_shared(tables, lower7, upper7, dev)
     n = _row_count(lead)
     buf = torch.empty(n * 8, dtype=f32, device=dev)
     q, err = buf.unsafe_split_with_sizes((n * 7, n))
@@ -1347,45 +1254,42 @@ def _ik_prefilter_pack(targets, seeds, pqr, pose_0, lower7, upper7, iters):
     return ins, outs, ptrs, (ctypes.c_int * 3)(n, iters, stride)
 
 
-def _ik_prefilter_cuda(targets, seeds, pqr, pose_0, lower7, upper7, damping,
+def _ik_prefilter_cpu(targets, seeds, tables, lower7, upper7, damping,
+                      iters):
+    return ik_prefilter_plain(targets, seeds, *fk_table_parts(tables)[:2],
+                              lower7, upper7, damping, iters)
+
+
+def _ik_prefilter_cuda(targets, seeds, tables, lower7, upper7, damping,
                        iters):
-    keep, outs, ptrs, dims = _ik_prefilter_pack(targets, seeds, pqr, pose_0,
+    keep, outs, ptrs, dims = _ik_prefilter_pack(targets, seeds, tables,
                                                 lower7, upper7, iters)
-    if dims[0] == 0:
-        return outs
-    status = _entry("ik_newton", "omg_ik_prefilter")(
-        ptrs, dims, damping, _raw_stream(seeds.device))
-    del keep  # the stream orders any reuse of these blocks after the launch
-    if status != 0:
-        raise RuntimeError(f"ik_prefilter launch failed: CUDA error {status}")
-    ik_prefilter.launches += 1
-    return outs
+    return _launch("ik_prefilter", "ik_newton", "omg_ik_prefilter", keep,
+                   outs, dims[0], ptrs, dims, damping)
 
 
 _ik_prefilter_op = _define(
-    "ik_prefilter(Tensor targets, Tensor seeds, Tensor pqr, Tensor pose_0, "
+    "ik_prefilter(Tensor targets, Tensor seeds, Tensor tables, "
     "Tensor lower7, Tensor upper7, float damping, int iters) "
     "-> (Tensor, Tensor)",
-    ik_prefilter_plain, _ik_prefilter_cuda, _rows_vmap(2, (2, 3, 4, 5)))
+    _ik_prefilter_cpu, _ik_prefilter_cuda, _rows_vmap(2, (2, 3, 4)))
 
 
-def ik_prefilter(targets: Tensor, seeds: Tensor, pose_0: Tensor,
-                 chain_post: Tensor, lower7: Tensor, upper7: Tensor,
-                 damping: float, iters: int):
+def ik_prefilter(targets: Tensor, seeds: Tensor, tables: Tensor,
+                 lower7: Tensor, upper7: Tensor, damping: float, iters: int):
     """The two-stage goal-set solve's prefilter (:func:`ik_prefilter_plain`
-    on a ``PandaModel``'s ``pose_0`` and ``chain_post``): the kernel for
+    on a Panda model's tables, :func:`fk_tables`' buffer): the kernel for
     CUDA tensors (one launch, one warp a lane; ``targets`` may be a view
     whose lanes lie one stride apart, read in place), the plain version
     for CPU tensors.  Returns (q [..., 7], twist norm [...])."""
-    return _ik_prefilter_op(targets, seeds,
-                            panda.pqr_table(pose_0, chain_post), pose_0,
-                            lower7, upper7, damping, iters)
+    return _ik_prefilter_op(targets, seeds, tables, lower7, upper7, damping,
+                            iters)
 
 
 ik_prefilter.launches = 0
 
 
-def _ik_chain_pack(chain_tgts, seeds, active, budgets, pqr, pose_0, lower7,
+def _ik_chain_pack(chain_tgts, seeds, active, budgets, tables, lower7,
                    upper7, max_iters, stall_window):
     """Check and lay out the C entry point's arguments: (tensors to keep
     alive, (qs, ok), the 9 pointers, the 5 ints).  ``budgets`` is a
@@ -1404,7 +1308,7 @@ def _ik_chain_pack(chain_tgts, seeds, active, budgets, pqr, pose_0, lower7,
            _input("active", active, dev, torch.bool, lead),
            _input("budgets", budgets, dev, torch.int32, lead)
            if per_lane else None]
-    ins += _ik_shared(pqr, pose_0, lower7, upper7, dev)
+    ins += _ik_shared(tables, lower7, upper7, dev)
     n = _row_count(lead)
     qs = torch.empty(lead + (k - 1, 7), dtype=f32, device=dev)
     ok = torch.empty(lead, dtype=torch.bool, device=dev)
@@ -1415,55 +1319,47 @@ def _ik_chain_pack(chain_tgts, seeds, active, budgets, pqr, pose_0, lower7,
         n, k, max_iters, stall_window, 0 if per_lane else budgets)
 
 
-def _ik_chain_cpu(chain_tgts, seeds, active, budgets, pqr, pose_0, lower7,
+def _ik_chain_cpu(chain_tgts, seeds, active, budgets, tables, lower7,
                   upper7, damping, pos_tol, rot_tol, max_iters, stall_window,
                   budget):
     return ik_chain_plain(chain_tgts, seeds, active,
-                          budget if budgets is None else budgets, pqr,
-                          pose_0, lower7, upper7, damping, pos_tol, rot_tol,
-                          max_iters, stall_window)
+                          budget if budgets is None else budgets,
+                          *fk_table_parts(tables)[:2], lower7, upper7,
+                          damping, pos_tol, rot_tol, max_iters, stall_window)
 
 
-def _ik_chain_cuda(chain_tgts, seeds, active, budgets, pqr, pose_0, lower7,
+def _ik_chain_cuda(chain_tgts, seeds, active, budgets, tables, lower7,
                    upper7, damping, pos_tol, rot_tol, max_iters,
                    stall_window, budget):
     keep, outs, ptrs, dims = _ik_chain_pack(
         chain_tgts, seeds, active, budget if budgets is None else budgets,
-        pqr, pose_0, lower7, upper7, max_iters, stall_window)
-    if dims[0] == 0:
-        return outs
-    status = _entry("ik_newton", "omg_ik_chain")(
-        ptrs, dims, damping, pos_tol, pos_tol * 10, rot_tol * 10,
-        _raw_stream(seeds.device))
-    del keep  # the stream orders any reuse of these blocks after the launch
-    if status != 0:
-        raise RuntimeError(f"ik_chain launch failed: CUDA error {status}")
-    ik_chain.launches += 1
-    return outs
+        tables, lower7, upper7, max_iters, stall_window)
+    return _launch("ik_chain", "ik_newton", "omg_ik_chain", keep, outs,
+                   dims[0], ptrs, dims, damping, pos_tol, pos_tol * 10,
+                   rot_tol * 10)
 
 
 _ik_chain_op = _define(
     "ik_chain(Tensor chain_tgts, Tensor seeds, Tensor active, "
-    "Tensor? budgets, Tensor pqr, Tensor pose_0, Tensor lower7, "
-    "Tensor upper7, float damping, float pos_tol, float rot_tol, "
-    "int max_iters, int stall_window, int budget) -> (Tensor, Tensor)",
-    _ik_chain_cpu, _ik_chain_cuda, _rows_vmap(2, (4, 5, 6, 7)))
+    "Tensor? budgets, Tensor tables, Tensor lower7, Tensor upper7, "
+    "float damping, float pos_tol, float rot_tol, int max_iters, "
+    "int stall_window, int budget) -> (Tensor, Tensor)",
+    _ik_chain_cpu, _ik_chain_cuda, _rows_vmap(2, (4, 5, 6)))
 
 
 def ik_chain(chain_tgts: Tensor, seeds: Tensor, active: Tensor,
-             budgets: Tensor | int, pose_0: Tensor, chain_post: Tensor,
-             lower7: Tensor, upper7: Tensor, damping: float, pos_tol: float,
-             rot_tol: float, max_iters: int, stall_window: int):
-    """The fused standoff chain (:func:`ik_chain_plain` on a
-    ``PandaModel``'s ``pose_0`` and ``chain_post``): the kernel for CUDA
-    tensors (one launch, one warp a lane, no host read), the plain version
-    for CPU tensors.  ``budgets`` is each lane's (a tensor) or one for
-    every lane (an int, which reaches the kernel as an argument and makes
-    no tensor).  Returns (qs [..., K-1, 7], ok [...])."""
+             budgets: Tensor | int, tables: Tensor, lower7: Tensor,
+             upper7: Tensor, damping: float, pos_tol: float, rot_tol: float,
+             max_iters: int, stall_window: int):
+    """The fused standoff chain (:func:`ik_chain_plain` on a Panda model's
+    tables, :func:`fk_tables`' buffer): the kernel for CUDA tensors (one
+    launch, one warp a lane, no host read), the plain version for CPU
+    tensors.  ``budgets`` is each lane's (a tensor) or one for every lane
+    (an int, which reaches the kernel as an argument and makes no tensor).
+    Returns (qs [..., K-1, 7], ok [...])."""
     per_lane = torch.is_tensor(budgets)
     return _ik_chain_op(chain_tgts, seeds, active,
-                        budgets if per_lane else None,
-                        panda.pqr_table(pose_0, chain_post), pose_0, lower7,
+                        budgets if per_lane else None, tables, lower7,
                         upper7, damping, pos_tol, rot_tol, max_iters,
                         stall_window, 0 if per_lane else budgets)
 
@@ -1707,16 +1603,8 @@ def _chomp_obstacle_pack(x, origins, axes, x_start, x_end, pot, grad,
 
 def _chomp_obstacle_cuda(*args):
     keep, outs, ptrs, dims, consts = _chomp_obstacle_pack(*args)
-    if dims[0] == 0:
-        return outs
-    status = _entry("chomp_cost", "omg_chomp_obstacle")(
-        ptrs, dims, consts, _raw_stream(outs[0].device))
-    del keep  # the stream orders any reuse of these blocks after the launch
-    if status != 0:
-        raise RuntimeError(f"chomp_obstacle launch failed: CUDA error "
-                           f"{status}")
-    chomp_obstacle.launches += 1
-    return outs
+    return _launch("chomp_obstacle", "chomp_cost", "omg_chomp_obstacle",
+                   keep, outs, dims[0], ptrs, dims, consts)
 
 
 _chomp_obstacle_op = _define(
@@ -1964,15 +1852,8 @@ def _chomp_step_pack(xi, start, goal, tail, obs_cost, obs_grad, collide,
 
 def _chomp_step_cuda(*args):
     keep, outs, ptrs, dims, consts = _chomp_step_pack(*args)
-    if dims[0] == 0:
-        return outs
-    status = _entry("chomp_cost", "omg_chomp_step")(
-        ptrs, dims, consts, _raw_stream(outs[0].device))
-    del keep  # the stream orders any reuse of these blocks after the launch
-    if status != 0:
-        raise RuntimeError(f"chomp_step launch failed: CUDA error {status}")
-    chomp_step.launches += 1
-    return outs
+    return _launch("chomp_step", "chomp_cost", "omg_chomp_step", keep, outs,
+                   dims[0], ptrs, dims, consts)
 
 
 _chomp_step_op = _define(

@@ -208,14 +208,7 @@ def cost_vector_raw(model, scene, params: CostParams, cfg: OMGConfig,
                       interp, goals[:, None, :]], dim=1)      # [G, n+2, D]
     flat_q = full.reshape(g * (n + 2), -1)
 
-    score_model = model
-    if (cfg.learner_collision_points
-            and cfg.learner_collision_points < model.num_collision_points):
-        stride = max(model.num_collision_points
-                     // cfg.learner_collision_points, 1)
-        score_model = model._replace(
-            collision_points=model.collision_points[:, ::stride, :]
-            [:, :cfg.learner_collision_points, :])
+    score_model = model_api.thinned(model, cfg.learner_collision_points)
     _, x_full = model_api.fk_points(score_model, flat_q)
     n_links = model_api.num_links(score_model)
     p = x_full.shape[2]

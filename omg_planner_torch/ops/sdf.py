@@ -32,7 +32,6 @@ stay in torch.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -818,22 +817,18 @@ def bake_world_potential_analytic(kinds, halfs, penals, limits, inv_poses,
         delta=torch.tensor(resolution, dtype=torch.float32, device=device))
 
 
-@functools.lru_cache(maxsize=16)
-def _int32_on(values: tuple, device: str) -> torch.Tensor:
-    """A constant int32 vector on ``device``, made once (no host-to-device
-    copy on later calls, which a captured CUDA graph could not hold)."""
-    return torch.as_tensor(values, dtype=torch.int32, device=device)
-
-
 def world_potential_lookup_nearest(wp: WorldPotential, points):
     """Nearest-cell potential lookup (``floor`` cell; out of grid -> 0).
     The field may be a strided view (the fused field's potential
-    channel): it is gathered in place, not flattened."""
-    dims_t = _int32_on(tuple(wp.data.shape), str(points.device))
+    channel): it is gathered in place, not flattened.  The grid's dims
+    bound the indices as Python ints, so a captured graph reads no
+    constant tensor."""
     idx = torch.floor((points - wp.origin) / wp.delta).to(torch.int32)
-    inb = torch.all((idx >= 0) & (idx < dims_t[None, :]), dim=-1)
-    c = torch.minimum(torch.clamp(idx, min=0), dims_t - 1).long()
-    v = wp.data[c[..., 0], c[..., 1], c[..., 2]]
+    cols = idx.unbind(-1)
+    cells = [torch.clamp(c, 0, n - 1) for c, n in zip(cols, wp.data.shape)]
+    inb = ((cells[0] == cols[0]) & (cells[1] == cols[1])
+           & (cells[2] == cols[2]))
+    v = wp.data[tuple(c.long() for c in cells)]
     return torch.where(inb, v, torch.zeros_like(v))
 
 

@@ -121,7 +121,7 @@ def task_space_filter(model, cfg: OMGConfig, start, reach_grasps, valid):
     else:
         n = 1
         flat = reach_grasps[:, -1]
-    hands = panda.hand_pose_batch(model, flat).reshape(-1, n, 4, 4)
+    hands = model_api.hand_poses(model, flat).reshape(-1, n, 4, 4)
     r_diff = torch.einsum("cnab,db->cnad", hands[..., :3, :3],
                           start_hand[:3, :3])
     tr = r_diff[..., 0, 0] + r_diff[..., 1, 1] + r_diff[..., 2, 2]
@@ -433,7 +433,7 @@ def _build_goal_sets(model, cfg: OMGConfig, per_scene, grasp_poses_world,
         flat = grasps_sel.reshape(-1, grasps_sel.shape[-1])
 
         if cfg.grasp_optimize:
-            hands = panda.hand_pose_batch(model, flat).reshape(
+            hands = model_api.hand_poses(model, flat).reshape(
                 grasps_sel.shape[:2] + (4, 4))
             downness = -hands[..., 2, 2]  # world z of the approach axis
             pot_sel = pot_sel + cfg.base_grasp_weight * (

@@ -570,10 +570,12 @@ class _Kept:
     """The CUDA graphs of one key (:func:`_graph_key`) and everything they
     read or write, kept from plan to plan (``utils/graphs.py::retain``).
     Every tensor a segment reads is the entry's own (its step buffers and
-    its copy of the problem) or a cache's that outlives it (the horizon's
-    operators, the model's tables); the eager calls between the segments
-    take the scene of the plan that runs the graphs (``pointed``), and
-    placeholders between plans, so that no kept graph holds a scene."""
+    its copy of the problem) or held by the model or the horizon that it
+    holds (the model's kernel tables, and those of the learner's thinned
+    model, live as long as the model: ``models/api.py::kernel_tables``);
+    the eager calls between the segments take the scene of the plan that
+    runs the graphs (``pointed``), and placeholders between plans, so that
+    no kept graph holds a scene."""
 
     def __init__(self, key, model, cfg: OMGConfig, hp, n_outside: int):
         self.key = key

@@ -71,14 +71,24 @@ def _stream(dev: str):
     return torch.cuda.current_stream().cuda_stream if dev == "cuda" else None
 
 
+def _tables(pqr, pose_0):
+    """A model tables buffer (``kernels.fk_tables``) whose head, the part
+    the IK kernels read, is ``pqr`` and ``pose_0``."""
+    model = panda.load_panda(15, pose_0.device)
+    return kernels.fk_tables(pqr, pose_0, model.center_offset,
+                             model.collision_points)
+
+
 def run(fns, kind: str, pa: list, dev: str) -> tuple:
     """One launch of ``kind`` on the plain version's arguments ``pa``."""
     if kind == "ik_prefilter":
         *lanes, damping, iters = pa
+        lanes[2:4] = [_tables(*lanes[2:4])]
         keep, outs, ptrs, dims = kernels._ik_prefilter_pack(*lanes, iters)
         status = fns["omg_ik_prefilter"](ptrs, dims, damping, _stream(dev))
     else:
         *lanes, damping, pos_tol, rot_tol, max_iters, window = pa
+        lanes[4:6] = [_tables(*lanes[4:6])]
         keep, outs, ptrs, dims = kernels._ik_chain_pack(*lanes, max_iters,
                                                         window)
         status = fns["omg_ik_chain"](ptrs, dims, damping, pos_tol,

@@ -26,6 +26,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from omg_planner_torch.config import OMGConfig  # noqa: E402
+from omg_planner_torch.models import api  # noqa: E402
 from omg_planner_torch.ops import kernels  # noqa: E402
 from omg_planner_torch.ops import sdf as sdf_mod  # noqa: E402
 from omg_planner_torch.planner.scene import PlanningScene  # noqa: E402
@@ -78,8 +79,7 @@ def main() -> int:
         for b, p in ((1, 4500), (1, 72000), (1, 225000), (8, 4500),
                      (8, 72000)):
             x = kernels.panda_fk(cs._in_limits(model, b * p // 150, gen),
-                                 model.pose_0, model.chain_post,
-                                 model.center_offset, model.collision_points
+                                 api.kernel_tables(model).fk
                                  )[3].reshape(b, p, 3)
             inv = params.inv_poses[None].repeat(b, 1, 1, 1)
             inv[..., :3, 3] += torch.linspace(-0.03, 0.04, b,

@@ -38,7 +38,7 @@ from omg_planner_tpu.models import panda as jpanda
 from omg_planner_tpu.ops import ik as jik
 from omg_planner_torch import interop
 from omg_planner_torch.config import OMGConfig
-from omg_planner_torch.models import panda
+from omg_planner_torch.models import api, panda
 from omg_planner_torch.ops import ik as tik
 from omg_planner_torch.ops import kernels
 from omg_planner_torch.planner import goal_set as tgs
@@ -309,10 +309,10 @@ def test_lane_alone_matches_its_row(lanes):
         assert torch.equal(q1, q[i]) and torch.equal(e1, err[i])
         qs1, ok1 = kernels.ik_chain(
             st["chain_tgts"][i:i + 1], st["q_pre"][i:i + 1],
-            st["active"][i:i + 1], budgets[i:i + 1], st["model"].pose_0,
-            st["model"].chain_post, st["lo"], st["hi"], CFG.ik_damping,
-            CFG.ik_pos_tol, CFG.ik_rot_tol, CHAIN_CFG.ik_max_iters,
-            CFG.ik_stall_window)
+            st["active"][i:i + 1], budgets[i:i + 1],
+            api.kernel_tables(st["model"]).fk, st["lo"], st["hi"],
+            CFG.ik_damping, CFG.ik_pos_tol, CFG.ik_rot_tol,
+            CHAIN_CFG.ik_max_iters, CFG.ik_stall_window)
         assert torch.equal(qs1[0], qs[i]) and torch.equal(ok1[0], ok[i])
 
 
@@ -323,8 +323,8 @@ def test_operators_registration(lanes):
         op = f"omg_torch::{name}"
         assert all(has(op, key) for key in ("CPU", "CUDA", "Autograd"))
         assert not has(op, "AutogradCUDA")
-    m = st["model"]
-    args = (m.pose_0, m.chain_post, st["lo"], st["hi"], CFG.ik_damping, 2)
+    tables = api.kernel_tables(st["model"]).fk
+    args = (tables, st["lo"], st["hi"], CFG.ik_damping, 2)
     with pytest.raises(RuntimeError, match="autograd"):
         kernels.ik_prefilter(st["pre_tgt"],
                              st["seeds"].clone().requires_grad_(), *args)
@@ -335,7 +335,7 @@ def test_operators_registration(lanes):
     assert all(torch.equal(a.reshape(b.shape), b)
                for a, b in zip(mapped, flat))
     budgets = torch.full((32,), 26, dtype=torch.int32)
-    rest = (m.pose_0, m.chain_post, st["lo"], st["hi"], CFG.ik_damping,
+    rest = (tables, st["lo"], st["hi"], CFG.ik_damping,
             CFG.ik_pos_tol, CFG.ik_rot_tol, CHAIN_CFG.ik_max_iters,
             CFG.ik_stall_window)
     flat = kernels.ik_chain(st["chain_tgts"], st["q_pre"], st["active"],

@@ -57,7 +57,7 @@ import pytest
 import torch
 
 from omg_planner_torch.config import OMGConfig
-from omg_planner_torch.models import panda
+from omg_planner_torch.models import api, panda
 from omg_planner_torch.ops import ik as tik
 from omg_planner_torch.ops import kernels
 from omg_planner_torch.planner import goal_set as tgs
@@ -114,7 +114,8 @@ def scene():
         CFG.ik_damping, CFG.ik_prefilter_iters)
     keep = top_k(-err_pre, CFG.ik_survivor_cap)[1]
     chain = torch.cat([tgt[:, -1:], tgt], 1)[keep]
-    return dict(model=model, pqr=pqr, lo=lo[:7], hi=hi[:7],
+    return dict(model=model, pqr=pqr, tables=api.kernel_tables(model).fk,
+                lo=lo[:7], hi=hi[:7],
                 pre_tgt=tgt[:, -1], seeds=seeds_b, chain_tgts=chain,
                 chain_seeds=q_pre[keep],
                 active=(err_pre < CFG.ik_prefilter_tol)[keep])
@@ -122,8 +123,7 @@ def scene():
 
 def _prefilter(lib, st, tgts, seeds, iters=CFG.ik_prefilter_iters):
     keep, outs, ptrs, dims = kernels._ik_prefilter_pack(
-        tgts, seeds, st["pqr"], st["model"].pose_0, st["lo"], st["hi"],
-        iters)
+        tgts, seeds, st["tables"], st["lo"], st["hi"], iters)
     assert lib["omg_ik_prefilter"](ptrs, dims, CFG.ik_damping, None) == 0
     del keep
     return outs
@@ -138,8 +138,7 @@ def _prefilter_plain(st, tgts, seeds, dtype=torch.float32):
 
 def _chain_args(st, rows, budgets):
     return (st["chain_tgts"][rows], st["chain_seeds"][rows],
-            st["active"][rows], budgets, st["pqr"], st["model"].pose_0,
-            st["lo"], st["hi"])
+            st["active"][rows], budgets, st["tables"], st["lo"], st["hi"])
 
 
 def _chain(lib, args):
@@ -154,7 +153,8 @@ def _chain(lib, args):
 
 def _chain_plain(args):
     return kernels.ik_chain_plain(
-        *args, CFG.ik_damping, CFG.ik_pos_tol, CFG.ik_rot_tol,
+        *args[:4], *kernels.fk_table_parts(args[4])[:2], *args[5:],
+        CFG.ik_damping, CFG.ik_pos_tol, CFG.ik_rot_tol,
         CHAIN_CFG.ik_max_iters, CFG.ik_stall_window)
 
 

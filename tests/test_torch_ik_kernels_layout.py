@@ -29,7 +29,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from omg_planner_torch.config import OMGConfig
-from omg_planner_torch.models import panda
+from omg_planner_torch.models import api
 from omg_planner_torch.ops import ik as tik
 from omg_planner_torch.ops import kernels
 from omg_planner_torch.planner import goal_set as tgs
@@ -86,7 +86,7 @@ def build():
         tik.kernels = kernels
     return dict(model=model, lo=lo[:7], hi=hi[:7], grasps=grasps,
                 seeds=seeds, out=out, calls=dict(calls),
-                pqr=panda.pqr_table(model.pose_0, model.chain_post))
+                tables=api.kernel_tables(model).fk)
 
 
 def test_prefilter_reads_the_standoff_view_in_place(build):
@@ -94,8 +94,8 @@ def test_prefilter_reads_the_standoff_view_in_place(build):
     tgt = st["calls"]["ik_prefilter"][0]
     assert not tgt.is_contiguous()
     keep, _, ptrs, dims = kernels._ik_prefilter_pack(
-        tgt, st["calls"]["ik_prefilter"][1], st["pqr"], st["model"].pose_0,
-        st["lo"], st["hi"], CFG.ik_prefilter_iters)
+        tgt, st["calls"]["ik_prefilter"][1], st["tables"], st["lo"],
+        st["hi"], CFG.ik_prefilter_iters)
     assert keep[0].data_ptr() == tgt.data_ptr() == ptrs[0]
     assert list(dims) == [tgt.shape[0], CFG.ik_prefilter_iters,
                           16 * (CFG.reach_tail_length)]
@@ -106,7 +106,7 @@ def test_prefilter_wave_view_and_other_layouts(build):
     n = 6
     chain = torch.randn(2, n, 5, 4, 4)
     seeds = torch.zeros(2 * n, 7)
-    rest = (st["pqr"], st["model"].pose_0, st["lo"], st["hi"], 3)
+    rest = (st["tables"], st["lo"], st["hi"], 3)
     # a wave's far standoffs, flattened over its scenes: one stride
     wave = chain[:, :, -1].reshape(-1, 4, 4)
     keep, _, _, dims = kernels._ik_prefilter_pack(wave, seeds, *rest)
@@ -220,12 +220,11 @@ def test_kernel_source_reads_both_layouts_alike(lib, build):
     strided view) and 24 of its chain lanes (the int budget), against the
     same lanes laid out as before: bit for bit."""
     st = build
-    m = st["model"]
     tgt, seeds = st["calls"]["ik_prefilter"][:2]
     rows = slice(100, 148)
     view = tgt[rows]
     assert view.stride(0) == 80
-    pa = [view, seeds[rows], st["pqr"], m.pose_0, st["lo"], st["hi"],
+    pa = [view, seeds[rows], st["tables"], st["lo"], st["hi"],
           CFG.ik_damping, CFG.ik_prefilter_iters]
     a = _emu(lib, "ik_prefilter", pa)
     b = _emu(lib, "ik_prefilter", [view.contiguous()] + pa[1:])
@@ -233,8 +232,8 @@ def test_kernel_source_reads_both_layouts_alike(lib, build):
     c = st["calls"]["ik_chain"]
     assert isinstance(c[3], int)
     rows = slice(0, 24)
-    pa = [c[0][rows], c[1][rows], c[2][rows], c[3], st["pqr"], m.pose_0,
-          st["lo"], st["hi"]] + list(c[8:])
+    pa = [c[0][rows], c[1][rows], c[2][rows], c[3], st["tables"],
+          st["lo"], st["hi"]] + list(c[7:])
     a = _emu(lib, "ik_chain", pa)
     b = _emu(lib, "ik_chain", pa[:3] + [torch.full((24,), c[3],
                                                    dtype=torch.int32)]

@@ -39,7 +39,7 @@ import pytest
 import torch
 
 from omg_planner_torch.config import OMGConfig
-from omg_planner_torch.models import panda
+from omg_planner_torch.models import api, panda
 from omg_planner_torch.ops import ik as tik
 from omg_planner_torch.ops import kernels
 from omg_planner_torch.planner import goal_set as tgs
@@ -93,15 +93,15 @@ def scene():
         tgt[:, -1], seeds.repeat(grasps.shape[0], 1), pqr, model.pose_0,
         lo[:7], hi[:7], CFG.ik_damping, CFG.ik_prefilter_iters)
     keep = top_k(-err_pre, CFG.ik_survivor_cap)[1][:48]
-    return dict(model=model, pqr=pqr, lo=lo[:7], hi=hi[:7],
+    return dict(model=model, pqr=pqr, tables=api.kernel_tables(model).fk,
+                lo=lo[:7], hi=hi[:7],
                 chain_tgts=torch.cat([tgt[:, -1:], tgt], 1)[keep],
                 chain_seeds=q_pre[keep])
 
 
 def _prefilter(lib, st, tgts, seeds, iters):
     keep, outs, ptrs, dims = kernels._ik_prefilter_pack(
-        tgts, seeds, st["pqr"], st["model"].pose_0, st["lo"], st["hi"],
-        iters)
+        tgts, seeds, st["tables"], st["lo"], st["hi"], iters)
     assert lib["omg_ik_prefilter"](ptrs, dims, CFG.ik_damping, None) == 0
     del keep
     return outs
@@ -109,8 +109,8 @@ def _prefilter(lib, st, tgts, seeds, iters):
 
 def _chain(lib, st, tgts, seeds, active, budgets):
     keep, outs, ptrs, dims = kernels._ik_chain_pack(
-        tgts, seeds, active, budgets, st["pqr"], st["model"].pose_0,
-        st["lo"], st["hi"], CHAIN_CFG.ik_max_iters, CFG.ik_stall_window)
+        tgts, seeds, active, budgets, st["tables"], st["lo"], st["hi"],
+        CHAIN_CFG.ik_max_iters, CFG.ik_stall_window)
     tol = CFG.ik_pos_tol
     assert lib["omg_ik_chain"](ptrs, dims, CFG.ik_damping, tol, tol * 10,
                                CFG.ik_rot_tol * 10, None) == 0

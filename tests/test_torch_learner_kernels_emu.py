@@ -45,6 +45,7 @@ the float64 bar on all but 7, which stand at most 1.52 times it (3.0e-6
 from float64), and JAX on all but 1 (1.08 times it)."""
 
 import ctypes
+import math
 import os
 import shutil
 import subprocess
@@ -325,15 +326,18 @@ def test_md_update_outputs_share_one_buffer(lead):
     """The wrapper makes one allocation for the four outputs: contiguous
     views of the shapes the schema promises, one after another in the
     order the kernel writes them."""
-    buf, outs = kernels._md_update_outputs(lead, 7, torch.device("cpu"))
     shapes = [lead + (7,), lead + (5, 7), lead + (5,), lead + (5,)]
+    ins = [torch.zeros(lead + (5, 7)), torch.zeros(lead + (7,)),
+           torch.ones(lead + (7,), dtype=torch.bool), torch.zeros(lead + (5,)),
+           torch.zeros(lead + (5,)), None]
+    _, outs, ptrs, _ = kernels._md_update_pack(*ins, 10, 20)
     assert [tuple(o.shape) for o in outs] == shapes
     at = 0
     for o in outs:
         assert o.is_contiguous() and o.dtype == torch.float32
-        assert o.data_ptr() == buf.data_ptr() + 4 * at
+        assert o.data_ptr() == ptrs[6] + 4 * at
         at += o.numel()
-    assert at == buf.numel()
+    assert at == math.prod(lead) * (6 * 7 + 2 * 5)
 
 
 def test_operators_reach_the_backend_through_the_dispatcher():

@@ -275,3 +275,49 @@ def test_kept_graphs_on_card_are_the_eager_loop(analytic):
             assert GRAPHS.counts[piece]["capture"] == 2, GRAPHS.counts
     finally:
         graphs._LOCAL.__dict__.pop("kept", None)
+
+
+@pytest.mark.gpu
+def test_kept_learner_graph_outlives_model_churn():
+    """A request may set ``learner_collision_points``: the learner then
+    scores on the model's thinned copy, whose tables a kept learner graph
+    reads.  Scenes 0-3 plan on one key with it set; between them 20 other
+    models are made and run through the kernels, and a second key (the
+    other collision configuration) captures into the pool.  Every plan is
+    bit for bit the eager loop's, and the first key captured once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from omg_planner_torch.models import api
+    from omg_planner_torch.ops import ik as ik_ops
+
+    cfg = OMGConfig(silent=True, learner_collision_points=5)
+    other = cfg.replace(sdf_analytic=not cfg.sdf_analytic)
+    graphs._LOCAL.__dict__.pop("kept", None)
+    try:
+        runs = []
+        for sid, c in ((0, cfg), (1, cfg), (2, cfg), (3, cfg), (4, other)):
+            scene, problem = _problem(c, sid, "cuda")
+            runs.append((c, scene.model, problem, P.plan_fast(
+                scene.model, c, problem, _graphs=False)))
+        model = runs[0][1]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q = torch.rand(64, 9, device="cuda", generator=gen)
+        lo7, hi7 = model.joint_lower[:7], model.joint_upper[:7]
+        GRAPHS.reset()
+        for i in range(4):
+            c, m, problem, want = runs[i]
+            _same(P.plan_fast(m, c, problem), want, i)
+            for k in range(20):
+                churn = model._replace(collision_points=torch.rand(
+                    10, 5 + k % 7, 3, device="cuda", generator=gen))
+                api.fk_points(churn, q)
+                ik_ops.ik_batch_fixed(churn, api.hand_poses(churn, q),
+                                      q[:, :7], c, lo7, hi7, 2)
+            c, m, problem, want = runs[4]
+            _same(P.plan_fast(m, c, problem), want, "other key")
+        counts = _counts()
+        for piece in graphs.PIECES:
+            assert counts[piece]["capture"] == 2, counts
+            assert counts[piece]["kept"] >= 1, counts
+    finally:
+        graphs._LOCAL.__dict__.pop("kept", None)

@@ -35,6 +35,7 @@ from omg_planner_tpu.planner import plan as jplan
 from omg_planner_tpu.planner.scene import PlanningScene as JScene
 from omg_planner_torch import interop
 from omg_planner_torch.config import OMGConfig as TConfig
+from omg_planner_torch.models import api as tapi
 from omg_planner_torch.models import panda as tpanda
 from omg_planner_torch.ops import kernels
 from omg_planner_torch.ops import sdf as tsdf
@@ -136,8 +137,8 @@ def _configs(n, seed):
 
 
 def _fk(tm, q, apply_offset=True, with_points=True):
-    return kernels.panda_fk(q, tm.pose_0, tm.chain_post, tm.center_offset,
-                            tm.collision_points, apply_offset, with_points)
+    return kernels.panda_fk(q, tapi.kernel_tables(tm).fk, apply_offset,
+                            with_points)
 
 
 @pytest.mark.parametrize("apply_offset", [True, False])
@@ -174,11 +175,10 @@ def test_panda_fk_vmap_rule_folds_rows(models):
 
 def test_panda_fk_vmap_refuses_mapped_tables(models):
     _, tm = models
-    poses = tm.pose_0[None].expand(3, 10, 4, 4)
+    tables = tapi.kernel_tables(tm).fk[None].expand(3, -1)
     q = torch.as_tensor(_configs(4, 5))
     with pytest.raises(ValueError, match="tables"):
-        torch.func.vmap(lambda p: kernels.panda_fk(
-            q, p, tm.chain_post, tm.center_offset, tm.collision_points))(poses)
+        torch.func.vmap(lambda t: kernels.panda_fk(q, t))(tables)
 
 
 def _rows3(scene, kind):

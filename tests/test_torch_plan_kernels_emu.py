@@ -44,7 +44,7 @@ import numpy as np
 import pytest
 import torch
 
-from omg_planner_torch.models import panda
+from omg_planner_torch.models import api, panda
 from omg_planner_torch.ops import kernels
 from omg_planner_torch.ops import sdf
 
@@ -89,9 +89,7 @@ def _configs(model, n, seed):
 
 
 def _fk_args(model, q, apply_offset, with_points):
-    return (q, panda.pqr_table(model.pose_0, model.chain_post), model.pose_0,
-            model.center_offset, model.collision_points, apply_offset,
-            with_points)
+    return (q, api.kernel_tables(model).fk, apply_offset, with_points)
 
 
 def _fk_emu(fn, args):
@@ -146,7 +144,8 @@ def test_panda_fk_bit_equal_to_plain(libs, model, monkeypatch, n,
     with monkeypatch.context() as m:
         m.setattr(torch, "cos", _libm_trig("cos"))
         m.setattr(torch, "sin", _libm_trig("sin"))
-        want = kernels.panda_fk_plain(*args)
+        want = kernels.panda_fk_plain(
+            args[0], *kernels.fk_table_parts(args[1]), *args[2:])
     for name, a, b in zip(("poses", "origins", "axes", "x"), got, want):
         assert a.shape == b.shape, name
         assert torch.equal(a, b), (name, float((a - b).abs().max()))
